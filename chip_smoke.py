@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (exit code != 0, no result line) on failure:
+
+1. device: the card's name and power limit (nvidia-smi).
+2. build: compile every CUDA kernel of the serving path from `csrc/`.
+3. kernels: each fused mpGeMM kernel against its plain PyTorch version on
+   the card, at the BitLinear shapes of smollm-360m (M, K) in {(960, 960),
+   (320, 960), (2560, 960), (960, 2560)} plus a mixed g=5/g=4 shape
+   (K = 964), N in {1, 4, 16, 64, 256} tokens, for f32->f32, bf16->bf16 and
+   bf16->f32 (activation->output). Expected difference: exactly 0 (the
+   integer core is exact in both, and the f32 epilogue is the same
+   operations in the same order). Then the device time of one forward's 224
+   launches at each N, beside the bound, the plain version's time and a
+   bf16 `torch.matmul` against the dequantized weights (a yardstick only:
+   the port never calls it).
+4. serve: smollm-360m at full width in bf16 (random weights from a seeded
+   generator on the card, packed by `pack_params`), an Engine with 4 slots
+   and max_len 256 serving 8 greedy requests (prompts of 16-64 tokens, 16
+   new tokens each), once with impl="decode" and once with impl="lookup".
+   Checks: every request completes; each kernel was launched exactly 224
+   times per forward (32 layers x 7 BitLinears) in its run and never in the
+   other; both runs emit the same greedy tokens; the prefill logits of one
+   prompt on the card agree with the same weights run on the CPU (plain
+   path) within a stated bf16 tolerance.
+
+Output: a `kernels` JSON line and the card's line before the last line,
+which is {"ok": true, "device": {...}}. Details go to
+chiprun_out/chip_smoke.json.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
+INT8_OPS_S = 1979e12      # H100 SXM dense int8 tensor-core peak
+SHAPES = [(960, 960), (320, 960), (2560, 960), (960, 2560)]
+MIXED_SHAPE = (960, 964)  # 192 g=5 groups + 1 g=4 group
+TOKENS = (1, 4, 16, 64, 256)
+DECODE_N = 4              # one decode step of the 4-slot engine
+KERNEL_META = {
+    "ternary_decode_gemm_fused": dict(
+        impl="decode", source="src/repro_torch/csrc/ternary_decode_gemm.cu",
+        replaces="src/repro/kernels/ternary_decode_gemm.py:176"),
+    "vlut_lookup_gemm_fused": dict(
+        impl="lookup", source="src/repro_torch/csrc/vlut_lookup_gemm.cu",
+        replaces="src/repro/kernels/vlut_lookup_gemm.py:222"),
+}
+# bf16 model, 32 layers: the card and the CPU round bf16 intermediates
+# (norms, attention, residual adds) after sums taken in different orders,
+# and a one-ulp change can move an int8 activation code by one; the
+# difference grows through the layers. Bound on |card - cpu| relative to
+# the largest reference logit.
+LOGIT_RTOL = 0.05
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def device_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(torch, fn, reps: int = 5) -> float:
+    """Device time of the launches `fn` makes, with the host's launch
+    overhead excluded: `fn` is captured once in a CUDA graph and the graph
+    is replayed between two timing events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        graph.replay()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def eager_ms(torch, fn, reps: int = 3) -> float:
+    """Time of `fn` run eagerly, between two events: the device's time plus
+    whatever the host's launch overhead adds — what the serving path pays."""
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def check_kernels(torch, model, cfg):
+    """Phase 3: kernels against their plain versions, then timing."""
+    from repro_torch.core import act_token_scale, pack_weight, ternary_quantize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+    from repro_torch.models.common import PackedLinear
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    kernels = {
+        "ternary_decode_gemm_fused": (tdg.ternary_decode_gemm_fused, tdg.ternary_decode_gemm_fused_plain),
+        "vlut_lookup_gemm_fused": (vlg.vlut_lookup_gemm_fused, vlg.vlut_lookup_gemm_fused_plain),
+    }
+    # the model's first-layer weights for the main-path shapes, a random
+    # mixed-segment weight for K = 964
+    lin0 = [m for m in model.layers[0].modules() if isinstance(m, PackedLinear)]
+    weights = {}
+    for lin in lin0:
+        weights.setdefault((lin.pw.M, lin.pw.K), lin.pw)
+    assert sorted(weights) == sorted(SHAPES), sorted(weights)
+    w = torch.randn(MIXED_SHAPE, generator=gen, device=dev)
+    tw = ternary_quantize(w)
+    weights[MIXED_SHAPE] = pack_weight(tw.values, tw.scale)
+    assert weights[MIXED_SHAPE].k4 == 4
+
+    combos = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32))
+    max_err = {name: 0.0 for name in kernels}
+    n_checks = 0
+    for (m, k), pw in weights.items():
+        for n in TOKENS:
+            x32 = torch.randn((n, k), generator=gen, device=dev) * 3.0
+            for in_dt, out_dt in combos:
+                x = x32.to(in_dt)
+                a_scale = act_token_scale(x.T).contiguous()
+                for packed, lo, hi, g in ops._segments(pw):
+                    for name, (kern, plain) in kernels.items():
+                        got = kern(packed, x[:, lo:hi], a_scale, pw.scale, g=g, out_dtype=out_dt)
+                        want = plain(packed, x[:, lo:hi], a_scale, pw.scale, g=g, out_dtype=out_dt)
+                        torch.cuda.synchronize()
+                        assert got.shape == want.shape == (n, m) and got.dtype == out_dt
+                        err = (got.float() - want.float()).abs().max().item()
+                        max_err[name] = max(max_err[name], err)
+                        n_checks += 1
+    log(f"kernels: {n_checks} kernel-vs-plain checks, max |diff| {max_err}")
+    for name, err in max_err.items():
+        if err != 0.0:
+            raise AssertionError(f"{name} differs from its plain version by {err} (expected 0)")
+
+    # device time of one forward's 224 launches (all 32 layers' weights,
+    # so the ~63 MB of packed weights stream from memory as in serving)
+    lins = [m for m in model.modules() if isinstance(m, PackedLinear)]
+    assert len(lins) == 7 * cfg.n_layers and all(lin.pw.k4 == 0 for lin in lins)  # g=5 only
+    dense = [lin.pw.unpack().to(torch.bfloat16).mul_(lin.scale[:, None].to(torch.bfloat16)).T.contiguous()
+             for lin in lins]
+    per_n = {}
+    for n in TOKENS:
+        xs = {k: torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+              for k in {lin.pw.K for lin in lins}}
+        sc = {k: act_token_scale(x.T).contiguous() for k, x in xs.items()}
+        nbytes = sum(lin.packed5.numel() + lin.scale.numel() * 4 + xs[lin.pw.K].numel() * 2
+                     + sc[lin.pw.K].numel() * 4 + n * lin.pw.M * 2 for lin in lins)
+        nops = sum(2 * n * lin.pw.M * lin.pw.K for lin in lins)
+        bound = max(nbytes / HBM_BYTES_S, nops / INT8_OPS_S) * 1e3
+        row = {"bytes": nbytes, "int8_ops": nops, "bound_ms": bound,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_S >= nops / INT8_OPS_S else "operations"}
+
+        def run(fn, lins=lins, xs=xs, sc=sc):
+            for lin in lins:
+                fn(lin.packed5, xs[lin.pw.K], sc[lin.pw.K], lin.scale, g=5, out_dtype=torch.bfloat16)
+
+        for name, (kern, plain) in kernels.items():
+            row[name] = {"ms": device_ms(torch, lambda: run(kern)),
+                         "eager_ms": eager_ms(torch, lambda: run(kern)),
+                         "plain_ms": device_ms(torch, lambda: run(plain), reps=1)}
+        row["library_ms"] = device_ms(torch, lambda: [xs[lin.pw.K] @ d for lin, d in zip(lins, dense)])
+        per_n[n] = row
+        log(f"kernels: forward of 224 BitLinears at N={n}: bound {bound:.4f} ms ({row['bound_by']}), "
+            + ", ".join(f"{nm} {row[nm]['ms']:.4f} ms (eager {row[nm]['eager_ms']:.4f}, "
+                        f"plain {row[nm]['plain_ms']:.4f})" for nm in kernels)
+            + f", bf16 matmul yardstick {row['library_ms']:.4f} ms")
+    del dense
+    return max_err, per_n
+
+
+def serve(torch, model, cfg, impl: str, prompts, counters):
+    """Phase 4, one impl: warm up, zero the counts, drive the main path."""
+    from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request
+
+    eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl=impl, device="cuda")
+    warm = ContinuousBatchingScheduler(eng)
+    warm.submit([Request(rid=-1, prompt=prompts[0][:16], max_new_tokens=2)])
+    warm.run_to_completion()
+    eng.reset_stats()
+    spent = {"prefill": 0.0, "decode": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)   # add() and decode_once() end in a host sync
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    eng.add = timed(eng.add, "prefill")
+    eng.decode_once = timed(eng.decode_once, "decode")
+    sched = ContinuousBatchingScheduler(eng)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
+    for fn in counters.values():
+        fn.launches = 0
+    sched.submit(reqs)
+    stats = sched.run_to_completion()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    forwards = len(reqs) + stats.decode_steps
+    if stats.completed != len(reqs) or any(len(r.generated) != 16 for r in reqs):
+        raise AssertionError(f"{impl}: {stats.completed}/{len(reqs)} requests completed")
+    return {
+        "tokens": [list(map(int, r.generated)) for r in reqs],
+        "launches": launches, "forwards": forwards,
+        "prefill_tokens": stats.prefill_tokens, "decode_tokens": stats.decode_tokens,
+        "decode_steps": stats.decode_steps,
+        "prefill_tok_s": stats.prefill_tokens / spent["prefill"],
+        "decode_tok_s": stats.decode_tokens / spent["decode"],
+        "ttft_p50_ms": sorted(stats.ttft_s)[len(stats.ttft_s) // 2] * 1e3,
+        "wall_s": stats.wall_s,
+    }
+
+
+def profile_decode(torch, model, cfg, prompts, steps: int = 4) -> dict:
+    """Where a decode step's time goes: `torch.profiler` over `steps`
+    batched decode steps of 4 full slots (impl="decode"). Device time by
+    kernel, the device's busy share of the wall time, and the wall time per
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Engine, Request
+
+    eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl="decode", device="cuda")
+    for i, p in enumerate(prompts[:4]):
+        assert eng.add(Request(rid=i, prompt=p, max_new_tokens=steps + 4))
+    eng.decode_once()
+    eng.decode_once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.decode_once()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    def dev_us(ev):
+        return getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
+
+    # device-side entries only: CPU ops carry their kernels' time too
+    by_name = sorted(((dev_us(ev) / steps / 1e3, ev.key) for ev in prof.key_averages()
+                      if str(ev.device_type).endswith("CUDA") and dev_us(ev) > 0), reverse=True)
+    device_ms = sum(ms for ms, _ in by_name)
+    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / wall_ms if device_ms else None,
+            "top_kernels_ms_per_step": [[name[:90], ms] for ms, name in by_name[:8]]}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    try:
+        import numpy as np
+
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.ternary_decode_gemm import ternary_decode_gemm_fused
+        from repro_torch.kernels.vlut_lookup_gemm import vlut_lookup_gemm_fused
+        from repro_torch.models import init_cache, init_lm, pack_params, prefill
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is missing ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # 1. device
+    card = device_line()
+    log(f"card: {card}")
+    kind = torch.cuda.get_device_name(0)
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.load()
+    log(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log(f"build: {line.strip()}")
+
+    # model for phases 3 and 4
+    cfg = get_config("smollm-360m")
+    t0 = time.perf_counter()
+    model = pack_params(init_lm(cfg, torch.Generator(device="cuda").manual_seed(0)), cfg)
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name} {cfg.dtype}, {cfg.n_layers} layers, packed in {time.perf_counter() - t0:.1f} s")
+
+    # 3. kernels
+    max_err, per_n = check_kernels(torch, model, cfg)
+
+    # 4. serve
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(16, 65))).astype(np.int32)
+               for _ in range(8)]
+    counters = {"ternary_decode_gemm_fused": ternary_decode_gemm_fused,
+                "vlut_lookup_gemm_fused": vlut_lookup_gemm_fused}
+    runs = {}
+    for name, meta in KERNEL_META.items():
+        r = serve(torch, model, cfg, meta["impl"], prompts, counters)
+        want = {nm: (224 * r["forwards"] if nm == name else 0) for nm in counters}
+        if r["launches"] != want:
+            raise AssertionError(f"impl={meta['impl']}: launches {r['launches']}, expected {want}")
+        runs[meta["impl"]] = r
+        log(f"serve: impl={meta['impl']} forwards={r['forwards']} launches={r['launches']} "
+            f"prefill_tok_s={r['prefill_tok_s']:.1f} decode_tok_s={r['decode_tok_s']:.1f} "
+            f"ttft_p50_ms={r['ttft_p50_ms']:.2f} wall_s={r['wall_s']:.3f}")
+    if runs["decode"]["tokens"] != runs["lookup"]["tokens"]:
+        raise AssertionError("impl=decode and impl=lookup emitted different greedy tokens")
+
+    # the card against the CPU (plain path) on one prompt
+    prompt = torch.from_numpy(prompts[0][None, :])
+    logits_gpu, _ = prefill(model, prompt.cuda(), init_cache(cfg, 1, 256, device="cuda"), cfg)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    logits_cpu, _ = prefill(cpu_model, prompt, init_cache(cfg, 1, 256, device="cpu"), cfg)
+    logits_gpu = logits_gpu.float().cpu()
+    if logits_gpu.shape != (1, cfg.vocab) or not torch.isfinite(logits_gpu).all():
+        raise AssertionError(f"bad logits: shape {tuple(logits_gpu.shape)}")
+    diff = (logits_gpu - logits_cpu).abs().max().item()
+    scale = logits_cpu.abs().max().item()
+    log(f"serve: card vs cpu prefill logits: max |diff| {diff:.5f}, max |logit| {scale:.4f}, "
+        f"argmax {int(logits_gpu.argmax())} vs {int(logits_cpu.argmax())}")
+    if diff > LOGIT_RTOL * scale:
+        raise AssertionError(f"card and cpu logits differ by {diff} > {LOGIT_RTOL} * {scale}")
+
+    prof = profile_decode(torch, model, cfg, prompts)
+    log(f"profile: decode step (4 slots) wall {prof['wall_ms_per_step']:.3f} ms, device busy "
+        f"{prof['device_ms_per_step']:.3f} ms"
+        + (f" ({100 * prof['device_busy_share']:.1f}%)" if prof["device_busy_share"] else
+           " (the profiler saw no device time: not measured)"))
+    for name, ms in prof["top_kernels_ms_per_step"]:
+        log(f"profile:   {ms:8.4f} ms  {name}")
+
+    r = runs["decode"]
+    log(f"serve: prefill_tok_s={r['prefill_tok_s']:.1f} decode_tok_s={r['decode_tok_s']:.1f} "
+        f"ttft_p50_ms={r['ttft_p50_ms']:.2f} wall_s={r['wall_s']:.3f}")
+
+    row = per_n[DECODE_N]
+    kern_line = {"kernels": [
+        {"name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
+         "launches": runs[meta["impl"]]["launches"][name], "max_abs_err": max_err[name],
+         "ms": row[name]["ms"], "plain_ms": row[name]["plain_ms"], "bound_ms": row["bound_ms"],
+         "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        for name, meta in KERNEL_META.items()
+    ]}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps({
+        "card": card, "kind": kind, "timing_unit": "one forward: 224 BitLinear launches; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
+        "per_tokens": per_n, "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                                       for k, v in runs.items()},
+        "logits_card_vs_cpu": {"max_abs_diff": diff, "max_abs_logit": scale},
+        "decode_profile": prof,
+        "seconds": time.perf_counter() - t_start,
+    }, indent=1))
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(kern_line))
+    print(f"device: {card}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,142 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (all sources in
+parallel, one process each) and linked into one shared library with a plain
+C interface, loaded with ``ctypes``. The library lives under
+``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by a
+hash of the sources and flags, and is built at first use. A missing
+``nvcc`` or a failed build raises: nothing falls back to the plain
+versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+LIB_NAME = "librepro_torch_kernels.so"
+#: no --use_fast_math: the quantizer's division must stay IEEE-exact
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+#: C entries, all with the signature of VLUT_ENTRY_ARGS (mpgemm_common.cuh)
+ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused")
+_ARGTYPES = (
+    [ctypes.c_void_p] * 5            # packed, a, a_scale, w_scale, out
+    + [ctypes.c_int] * 4             # M, KG, N, g
+    + [ctypes.c_longlong] * 2        # lda, ldo
+    + [ctypes.c_int] * 3             # ws_stride, a_bf16, out_bf16
+    + [ctypes.c_void_p]              # stream
+)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the repro_torch "
+            "CUDA kernels cannot be built"
+        )
+    return path
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless this source hash is already built; return
+    the library's path. ``build.log`` beside it holds nvcc's output
+    (``-Xptxas -v``: registers and shared memory of every kernel)."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix=".tmp-"))
+    try:
+        cus = sorted(CSRC.glob("*.cu"))
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(tmp / f"{src.stem}.o")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src in cus
+        ]
+        logs, failed = [], []
+        for src, p in zip(cus, procs):
+            out, _ = p.communicate()
+            logs.append(f"== {src.name} (rc={p.returncode})\n{out}")
+            if p.returncode:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp / LIB_NAME),
+             *(str(tmp / f"{src.stem}.o") for src in cus)],
+            capture_output=True, text=True,
+        )
+        if link.returncode:
+            raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}{link.stderr}")
+        (tmp / "build.log").write_text("\n".join(logs))
+        try:
+            tmp.rename(out_dir)
+        except OSError:  # another process finished the same build first
+            if not lib.exists():
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+def build_log() -> str:
+    return (build().parent / "build.log").read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with argtypes set."""
+    lib = ctypes.CDLL(str(build()))
+    for name in ENTRIES:
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch_mpgemm(name: str, packed: torch.Tensor, x: torch.Tensor,
+                  a_scale: torch.Tensor, w_scale: torch.Tensor, g: int,
+                  out: torch.Tensor) -> None:
+    """Call the C entry `name` on PyTorch's current stream; raise on any
+    CUDA error the launch reports. Arguments are validated by the caller."""
+    fn = getattr(load(), name)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(
+        packed.data_ptr(), x.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), packed.shape[0], packed.shape[1], x.shape[0], g,
+        x.stride(0), out.stride(0), 1 if w_scale.shape[0] > 1 else 0,
+        int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
