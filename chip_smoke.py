@@ -26,6 +26,28 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    other; both runs emit the same greedy tokens; the prefill logits of one
    prompt on the card agree with the same weights run on the CPU (plain
    path) within a stated bf16 tolerance.
+5. flash: the flash-attention kernel against its plain PyTorch version on
+   the card: smollm-360m's heads (H 15, KV 5, D 64) and odd ones (D 20, 32,
+   128; H/KV 1 and 3), S in {1, 17, 256, 512, 2048}, causal or not, window
+   0 or 24, softcap 0 or 20, f32 and bf16, q/k/v read as transposed views
+   of the model's (B, S, H, D) tensors. Then the gradients of
+   `flash_attention_trainable` against autograd through the plain version,
+   and the device time at the training shape (B 8, S 512, causal, bf16)
+   beside the bound, the plain version and `scaled_dot_product_attention`
+   (a yardstick only: the port never calls it).
+6. train: smollm-360m at full width and depth in bf16 with
+   attn_impl="flash" and per-layer remat, random weights from a seeded
+   generator on the card, 30 QAT steps of B 8 x S 512 on the synthetic
+   bigram data (AdamW, lr 3e-4, warmup 5, int8/bf16 moments) through
+   `train.Trainer`. (At lr 3e-3 the full-width model's loss rises from the
+   6th step on: Adam moves every element of the tied 49152 x 960 table by
+   ~lr per step, 15% of its 0.02 init scale.) Checks: every loss finite, the last below the first;
+   the flash kernel launched 64 times per step (32 layers x 2: remat runs
+   each layer's forward again in backward) and no mpGeMM kernel; the
+   checkpoint written at the last step resumes a second Trainer there with
+   the same weights; the loss of one sequence on the card agrees with the
+   CPU plain path on the same weights, before and after training. Then
+   one step under torch.profiler (device-busy share).
 
 Output: a `kernels` JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}. Details go to
@@ -35,7 +57,9 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -57,6 +81,28 @@ KERNEL_META = {
         impl="lookup", source="src/repro_torch/csrc/vlut_lookup_gemm.cu",
         replaces="src/repro/kernels/vlut_lookup_gemm.py:222"),
 }
+FLASH_META = dict(source="src/repro_torch/csrc/flash_attention.cu",
+                  replaces="src/repro/kernels/flash_attention.py:106")
+BF16_FLOPS_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+FLASH_HEADS = [(15, 5, 64), (3, 3, 20), (6, 2, 32), (3, 1, 128)]   # (H, KV, D)
+FLASH_SEQS = (1, 17, 256, 512, 2048)
+FLASH_TRAIN_SHAPE = (8, 512, 15, 5, 64)                           # (B, S, H, KV, D)
+# The kernel (online softmax over 64-key tiles, FMA dot products) and its
+# plain version (full softmax, einsum) differ only in summation order:
+# f32 agrees to ~1e-6 of the output's scale (bound 2e-5); a bf16 output is
+# one rounding of two nearly equal f32 values, so the two are at most one
+# bf16 ulp apart (2^-7 of the largest output, or of 1 when smaller).
+# Gradients: the autograd.Function's backward IS the plain VJP, so only
+# run-to-run order in the library's products can differ.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
+FLASH_GRAD_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 512, 30, 3e-4
+CPU_SEQ = 256
+# bf16 model, 32 layers, QAT: the CPU and the card round bf16 intermediates
+# after sums in another order, and an int8 activation code at a rounding
+# boundary can move by one; the mean CE over 256 tokens moves far less than
+# one logit. Bound on |card - cpu| relative to the CPU's loss.
+TRAIN_LOSS_RTOL = 0.02
 # bf16 model, 32 layers: the card and the CPU round bf16 intermediates
 # (norms, attention, residual adds) after sums taken in different orders,
 # and a one-ulp change can move an int8 activation code by one; the
@@ -243,6 +289,16 @@ def serve(torch, model, cfg, impl: str, prompts, counters):
     }
 
 
+def device_time_by_kernel(prof, steps: int) -> list:
+    """[(device ms per step, kernel name)], largest first: the device-side
+    entries of `prof` (CPU ops carry their kernels' time too)."""
+    def dev_us(ev):
+        return getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
+
+    return sorted(((dev_us(ev) / steps / 1e3, ev.key) for ev in prof.key_averages()
+                   if str(ev.device_type).endswith("CUDA") and dev_us(ev) > 0), reverse=True)
+
+
 def profile_decode(torch, model, cfg, prompts, steps: int = 4) -> dict:
     """Where a decode step's time goes: `torch.profiler` over `steps`
     batched decode steps of 4 full slots (impl="decode"). Device time by
@@ -265,16 +321,206 @@ def profile_decode(torch, model, cfg, prompts, steps: int = 4) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
-    def dev_us(ev):
-        return getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
-
-    # device-side entries only: CPU ops carry their kernels' time too
-    by_name = sorted(((dev_us(ev) / steps / 1e3, ev.key) for ev in prof.key_averages()
-                      if str(ev.device_type).endswith("CUDA") and dev_us(ev) > 0), reverse=True)
+    by_name = device_time_by_kernel(prof, steps)
     device_ms = sum(ms for ms, _ in by_name)
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
             "top_kernels_ms_per_step": [[name[:90], ms] for ms, name in by_name[:8]]}
+
+
+def flash_inputs(torch, b, s, h, kv, d, dtype, gen):
+    """q (B, H, S, D), k, v (B, KV, S, D): transposed views of (B, S, ., D)
+    tensors, as the model passes them."""
+    return tuple(torch.randn((b, s, n, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+                 for n in (h, kv, kv))
+
+
+def check_flash(torch) -> dict:
+    """Phase 5: the flash kernel against its plain version, the gradients,
+    and the device time at the training shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    max_err, n_checks = 0.0, 0
+    for h, kv, d in FLASH_HEADS:
+        for s in FLASH_SEQS:
+            b = 1 if s >= 2048 else 2
+            for dtype in (torch.float32, torch.bfloat16):
+                dt = str(dtype).removeprefix("torch.")
+                q, k, v = flash_inputs(torch, b, s, h, kv, d, dtype, gen)
+                for causal in (True, False):
+                    for window in (0, 24):
+                        for softcap in (0.0, 20.0):
+                            kw = dict(causal=causal, window=window, softcap=softcap)
+                            got = fa.flash_attention(q, k, v, **kw)
+                            want = fa.flash_attention_plain(q, k, v, **kw)
+                            torch.cuda.synchronize()
+                            assert got.shape == want.shape and got.dtype == dtype
+                            err = (got.float() - want.float()).abs().max().item()
+                            bound = FLASH_TOL[dt] * max(1.0, want.float().abs().max().item())
+                            if not err <= bound:
+                                raise AssertionError(
+                                    f"flash differs from its plain version by {err} > {bound} at "
+                                    f"B{b} S{s} H{h} KV{kv} D{d} {dtype} {kw}")
+                            max_err = max(max_err, err)
+                            n_checks += 1
+    log(f"flash: {n_checks} kernel-vs-plain checks, max |diff| {max_err:.3g}")
+
+    # gradients of the autograd.Function against autograd through the plain version
+    grad_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).removeprefix("torch.")
+        q, k, v = (t.detach().requires_grad_() for t in
+                   flash_inputs(torch, 2, 256, 15, 5, 64, dtype, gen))
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        for window, softcap in ((0, 0.0), (24, 20.0)):
+            out = fa.flash_attention_trainable(q, k, v, True, window, softcap)
+            g_kern = torch.autograd.grad(out, (q, k, v), dout)
+            want = fa.flash_attention_plain(q, k, v, causal=True, window=window, softcap=softcap)
+            g_plain = torch.autograd.grad(want, (q, k, v), dout)
+            for a, c in zip(g_kern, g_plain):
+                err = (a.float() - c.float()).abs().max().item()
+                bound = FLASH_GRAD_TOL[dt] * max(1.0, c.float().abs().max().item())
+                if not err <= bound:
+                    raise AssertionError(f"flash gradient differs by {err} > {bound} ({dtype})")
+                grad_err = max(grad_err, err)
+    log(f"flash: gradients through flash_attention_trainable vs the plain VJP: max |diff| {grad_err:.3g}")
+
+    # device time at the training shape
+    b, s, h, kv, d = FLASH_TRAIN_SHAPE
+    q, k, v = flash_inputs(torch, b, s, h, kv, d, torch.bfloat16, gen)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flops = 4 * b * h * d * (s * (s + 1) // 2)          # QK^T and PV over the causal pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
+    row = {"shape": dict(B=b, S=s, H=h, KV=kv, D=d, causal=True, dtype="bfloat16"),
+           "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    row["ms"] = device_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
+    row["plain_ms"] = device_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=True))
+    row["library_ms"] = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True), reps=20)
+    row["ms_repeat"] = device_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
+    log(f"flash: B{b} S{s} H{h}/KV{kv} D{d} causal bf16: kernel {row['ms']:.4f} ms "
+        f"(repeat {row['ms_repeat']:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain {row['plain_ms']:.4f} ms, "
+        f"sdpa yardstick {row['library_ms']:.4f} ms")
+    return {"checks": n_checks, "max_abs_err": max_err, "grad_max_abs_err": grad_err, "time": row}
+
+
+def cpu_loss_check(torch, model, cfg, batch) -> dict:
+    """The loss of one sequence (row 0, first CPU_SEQ tokens) on the card
+    against the same weights on the CPU (plain path), no gradients."""
+    from repro_torch.models import lm_loss
+
+    tok, lab = batch["tokens"][:1, :CPU_SEQ], batch["labels"][:1, :CPU_SEQ]
+    with torch.no_grad():
+        gpu = lm_loss(model, tok.cuda(), lab.cuda(), cfg)[0].item()
+        t0 = time.perf_counter()
+        cpu_model = copy.deepcopy(model).to("cpu")
+        cpu = lm_loss(cpu_model, tok.cpu(), lab.cpu(), cfg)[0].item()
+        cpu_s = time.perf_counter() - t0
+    del cpu_model
+    if not (math.isfinite(gpu) and abs(gpu - cpu) <= TRAIN_LOSS_RTOL * abs(cpu)):
+        raise AssertionError(f"card loss {gpu} and cpu loss {cpu} differ by more than "
+                             f"{TRAIN_LOSS_RTOL} relative")
+    return {"card": gpu, "cpu": cpu, "cpu_seconds": cpu_s}
+
+
+def train(torch, counters) -> dict:
+    """Phase 6: QAT training of full-width smollm-360m through the flash
+    kernel, checkpoint and resume, card vs CPU loss, one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_config("smollm-360m").with_(attn_impl="flash")
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    tc = TrainConfig(total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_STEPS // 2, log_every=1,
+                     checkpoint_dir=str(ckpt_dir), keep_checkpoints=1, seed=0)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
+    tr = Trainer(cfg, opt, tc, dc, device="cuda")
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    log(f"train: {cfg.name} {cfg.dtype} attn_impl={cfg.attn_impl} remat={cfg.remat}, "
+        f"{cfg.n_layers} layers, {n_params / 1e6:.1f}M parameters, B {b} x S {s}, "
+        f"lr {TRAIN_LR}, {TRAIN_STEPS} steps")
+    batch0 = {k: torch.from_numpy(x) for k, x in SyntheticLM(dc).batch_at(0).items()}
+    before = cpu_loss_check(torch, tr.model, cfg, batch0)
+    log(f"train: card vs cpu loss before training (step-1 weights and batch, 1 x {CPU_SEQ} "
+        f"tokens): {before['card']:.5f} vs {before['cpu']:.5f} (cpu {before['cpu_seconds']:.1f} s)")
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    log_rows = tr.run()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    losses = [r["loss"] for r in log_rows]
+    step_s = [r["step_time_s"] for r in log_rows]
+    want = {name: (2 * cfg.n_layers * TRAIN_STEPS if name == "flash_attention" else 0)
+            for name in counters}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, expected {want}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: losses not all finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: last loss {losses[-1]} is not below the first {losses[0]}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    res = {"losses": losses, "step_time_s": step_s, "step_ms_median": steady * 1e3,
+           "tokens_per_s": b * s / steady, "wall_s": wall, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "n_params": n_params,
+           "loss_before": before}
+    log(f"train: {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{res['step_ms_median']:.1f} ms (median of steps 2-{TRAIN_STEPS}; step 1 "
+        f"{step_s[0] * 1e3:.1f} ms), {res['tokens_per_s']:.0f} tok/s, launches {launches}, "
+        f"peak {res['peak_mem_gb']:.1f} GB, wall {wall:.1f} s (checkpoints included)")
+
+    # checkpoint and resume
+    tr2 = Trainer(cfg, opt, tc, dc, device="cuda")
+    same = all(torch.equal(p, q) for p, q in zip(tr.model.parameters(), tr2.model.parameters()))
+    if tr2.step != TRAIN_STEPS or tr2.data.step != TRAIN_STEPS or not same:
+        raise AssertionError(f"train: resumed at step {tr2.step} (data {tr2.data.step}), "
+                             f"weights equal: {same}")
+    res["resumed_step"] = tr2.step
+    log(f"train: a second Trainer resumed at step {tr2.step} with equal weights "
+        f"({len(list(ckpt_dir.iterdir()))} checkpoint kept)")
+    del tr2
+
+    after = cpu_loss_check(torch, tr.model, cfg, batch0)
+    res["loss_after"] = after
+    log(f"train: card vs cpu loss after training: {after['card']:.5f} vs {after['cpu']:.5f}")
+
+    # one step under the profiler
+    batch = {k: torch.from_numpy(x).cuda() for k, x in SyntheticLM(dc).batch_at(TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr._step(tr.state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_time_by_kernel(prof, 1)
+    dev_ms = sum(ms for ms, _ in by_name)
+    n_kernels = sum(ev.count for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA"))
+    res["profile"] = {"wall_ms": wall_ms, "device_ms": dev_ms, "device_kernels": n_kernels,
+                      "device_busy_share": dev_ms / wall_ms if dev_ms else None,
+                      "top_kernels_ms": [[name[:90], ms] for ms, name in by_name[:10]]}
+    log(f"profile: train step wall {wall_ms:.1f} ms, {n_kernels} device kernels, "
+        f"device busy {dev_ms:.1f} ms"
+        + (f" ({100 * dev_ms / wall_ms:.1f}%)" if dev_ms else
+           " (the profiler saw no device time: not measured)"))
+    for name, ms in res["profile"]["top_kernels_ms"]:
+        log(f"profile:   {ms:8.3f} ms  {name}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return res
 
 
 def main() -> int:
@@ -288,6 +534,7 @@ def main() -> int:
 
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build
+        from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.ternary_decode_gemm import ternary_decode_gemm_fused
         from repro_torch.kernels.vlut_lookup_gemm import vlut_lookup_gemm_fused
         from repro_torch.models import init_cache, init_lm, pack_params, prefill
@@ -327,7 +574,8 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(16, 65))).astype(np.int32)
                for _ in range(8)]
     counters = {"ternary_decode_gemm_fused": ternary_decode_gemm_fused,
-                "vlut_lookup_gemm_fused": vlut_lookup_gemm_fused}
+                "vlut_lookup_gemm_fused": vlut_lookup_gemm_fused,
+                "flash_attention": flash_attention}
     runs = {}
     for name, meta in KERNEL_META.items():
         r = serve(torch, model, cfg, meta["impl"], prompts, counters)
@@ -368,22 +616,38 @@ def main() -> int:
     log(f"serve: prefill_tok_s={r['prefill_tok_s']:.1f} decode_tok_s={r['decode_tok_s']:.1f} "
         f"ttft_p50_ms={r['ttft_p50_ms']:.2f} wall_s={r['wall_s']:.3f}")
 
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # 5. flash
+    flash = check_flash(torch)
+
+    # 6. train
+    trained = train(torch, counters)
+
     row = per_n[DECODE_N]
+    frow = flash["time"]
     kern_line = {"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
          "launches": runs[meta["impl"]]["launches"][name], "max_abs_err": max_err[name],
          "ms": row[name]["ms"], "plain_ms": row[name]["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         for name, meta in KERNEL_META.items()
+    ] + [
+        {"name": "flash_attention", "route": "cuda", **FLASH_META,
+         "launches": trained["launches"]["flash_attention"], "max_abs_err": flash["max_abs_err"],
+         "ms": frow["ms"], "plain_ms": frow["plain_ms"], "bound_ms": frow["bound_ms"],
+         "bound_by": frow["bound_by"], "library_ms": frow["library_ms"]},
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
-        "card": card, "kind": kind, "timing_unit": "one forward: 224 BitLinear launches; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
+        "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches; flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
         "per_tokens": per_n, "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
                                        for k, v in runs.items()},
         "logits_card_vs_cpu": {"max_abs_diff": diff, "max_abs_logit": scale},
         "decode_profile": prof,
+        "flash": flash, "train": trained,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

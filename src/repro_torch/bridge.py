@@ -1,4 +1,5 @@
-"""Turn a JAX parameter pytree, given as numpy arrays, into the port's modules.
+"""Carry parameters between a JAX parameter pytree (as numpy arrays) and
+the port's modules, both ways.
 
 The input is the pytree of `repro.models.init_lm` (optionally packed by
 `repro.models.pack_params`) with every leaf converted to numpy by the
@@ -7,7 +8,9 @@ neither JAX nor the JAX package. Packed weights are recognised by their
 ``packed5``/``packed4``/``scale``/``K`` attributes and carried byte for byte.
 The JAX layout stacks each stage's repeated layers on a leading axis
 (``params["stages"][si]["b{pos}"]``); they are unstacked here, in the
-order the stage scan applies them, into one module per layer.
+order the stage scan applies them, into one module per layer; `lm_to_jax`
+and `to_jax_tree` stack them back (the tests compare parameters and
+gradients after training steps that way).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from repro_torch.core.packing import PackedWeight
 from repro_torch.models.attention import Attention
 from repro_torch.models.blocks import Block
 from repro_torch.models.common import Embedding, Linear, PackedLinear, QLinear, RMSNorm
-from repro_torch.models.decoder import LM
+from repro_torch.models.decoder import LM, compress_layout
 from repro_torch.models.moe import DenseFFN
 
 
@@ -85,3 +88,52 @@ def lm_from_jax(params: dict, cfg, *, device="cuda") -> LM:
         RMSNorm(to_torch(params["final_norm"]["scale"], device)),
         head,
     )
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch → numpy, bit for bit (bf16 as ml_dtypes bfloat16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only where bf16 leaves are exported (the tests)
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _set(tree: dict, path: list[str], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def to_jax_tree(named: dict, cfg) -> dict:
+    """A dict keyed like ``LM.named_parameters()`` (parameters, or their
+    gradients) → the numpy pytree of JAX's `init_lm`: each stage's
+    repeated layers stacked on a leading axis."""
+    per_layer: dict[int, dict] = {}
+    out: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(int(parts[1]), {})[tuple(parts[2:])] = to_numpy(t)
+        else:
+            _set(out, parts, to_numpy(t))
+    stages, layer = [], 0
+    for pattern, reps in compress_layout(cfg.layer_specs()):
+        stage: dict = {}
+        for pos in range(len(pattern)):
+            idx = [layer + r * len(pattern) + pos for r in range(reps)]
+            for key in per_layer[idx[0]]:
+                _set(stage, [f"b{pos}", *key], np.stack([per_layer[i][key] for i in idx]))
+        stages.append(stage)
+        layer += reps * len(pattern)
+    if layer != cfg.n_layers or len(per_layer) != cfg.n_layers:
+        raise ValueError(f"{len(per_layer)} layers given, config {cfg.n_layers}")
+    out["stages"] = stages
+    return out
+
+
+def lm_to_jax(model: LM, cfg) -> dict:
+    """The inverse of `lm_from_jax` for unpacked models: the port's `LM` →
+    a numpy pytree in the JAX stacked-stage layout."""
+    return to_jax_tree(dict(model.named_parameters()), cfg)

@@ -1,6 +1,6 @@
 """Quantization: BitNet-b1.58 absmean ternary weights + per-token int8
-activations (ported from `repro.core.quantize`; the STE fake-quants of the
-training path are not ported yet).
+activations (ported from `repro.core.quantize`), with the straight-through
+fake-quants (STE) of the QAT training path.
 
     w_scale = mean(|W|) + eps      (per output channel or per tensor)
     W_t     = clip(round(W / w_scale), -1, 1)
@@ -11,6 +11,10 @@ training path are not ported yet).
 ``torch.round`` rounds half to even, as ``jnp.round`` does, and the
 quantizers divide by the scale (never multiply by a reciprocal), so both
 packages produce the same bits.
+
+The STE form is ``w + (wq - w).detach()``: forward ``wq`` (up to the
+rounding of the two adds in the working dtype, as in JAX), backward the
+identity.
 """
 from __future__ import annotations
 
@@ -57,3 +61,49 @@ def act_quant_tokens(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = act_token_scale(a)
     q = torch.round(a / scale[None, :]).clamp(-Q_MAX, Q_MAX).to(torch.int8)
     return q, scale
+
+
+def ternary_dequantize(tw: TernaryWeight) -> torch.Tensor:
+    scale = tw.scale[..., None] if tw.scale.ndim == tw.values.ndim - 1 else tw.scale
+    return tw.values.to(torch.float32) * scale
+
+
+def fake_ternary(w: torch.Tensor, per_channel: bool = True) -> torch.Tensor:
+    """QAT fake-quant with straight-through estimator: forward =
+    dequant(quant(w)), backward = identity."""
+    wq = ternary_dequantize(ternary_quantize(w, per_channel)).to(w.dtype)
+    return w + (wq - w).detach()
+
+
+def fake_ternary_cols(w: torch.Tensor) -> torch.Tensor:
+    """STE fake-quant of a (..., K, M) weight with per-output-channel (M)
+    absmean scales, computed without transposes."""
+    wf = w.to(torch.float32)
+    scale = wf.abs().mean(-2, keepdim=True) + EPS                    # (...,1,M)
+    t = torch.round(wf / scale).clamp(-1, 1)
+    wq = (t * scale).to(w.dtype)
+    return w + (wq - w).detach()
+
+
+class QuantizedActivation(NamedTuple):
+    values: torch.Tensor  # int8
+    scale: torch.Tensor   # f32, per token, broadcastable against values
+
+
+def act_quant_int8(a: torch.Tensor, axis: int = -1) -> QuantizedActivation:
+    """Symmetric per-token int8 quantization; `axis` is the feature axis that
+    is reduced (each token keeps its own scale)."""
+    a = a.to(torch.float32)
+    amax = a.abs().amax(axis, keepdim=True)
+    scale = torch.clamp_min(amax, EPS) / Q_MAX
+    q = torch.round(a / scale).clamp(-Q_MAX, Q_MAX).to(torch.int8)
+    return QuantizedActivation(q, scale)
+
+
+def fake_act_quant(a: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """STE int8 activation fake-quant (training path). ``deq`` is computed
+    in f32 and cast to ``a.dtype``; the two adds then round in ``a.dtype``
+    (in bf16 the result is not bit-equal to ``deq``), as in JAX."""
+    q = act_quant_int8(a, axis)
+    deq = (q.values.to(torch.float32) * q.scale).to(a.dtype)
+    return a + (deq - a).detach()

@@ -29,15 +29,30 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: C entries, all with the signature of VLUT_ENTRY_ARGS (mpgemm_common.cuh)
-ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused")
-_ARGTYPES = (
+_MPGEMM_ARGTYPES = (                 # VLUT_ENTRY_ARGS (mpgemm_common.cuh)
     [ctypes.c_void_p] * 5            # packed, a, a_scale, w_scale, out
     + [ctypes.c_int] * 4             # M, KG, N, g
     + [ctypes.c_longlong] * 2        # lda, ldo
     + [ctypes.c_int] * 3             # ws_stride, a_bf16, out_bf16
     + [ctypes.c_void_p]              # stream
 )
+_FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
+    [ctypes.c_void_p] * 4            # q, k, v, o
+    + [ctypes.c_int] * 6             # B, H, KV, Sq, Sk, D
+    + [ctypes.c_longlong] * 12       # (batch, head, position) strides of q, k, v, o
+    + [ctypes.c_int] * 2             # causal, window
+    + [ctypes.c_float] * 2           # scale, softcap
+    + [ctypes.c_int]                 # bf16
+    + [ctypes.c_void_p]              # stream
+)
+#: the library's C entries; each returns a cudaError_t
+ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused", "flash_attention_fwd")
+#: the ctypes signature of every entry
+_ARGTYPES = {
+    "ternary_decode_gemm_fused": _MPGEMM_ARGTYPES,
+    "vlut_lookup_gemm_fused": _MPGEMM_ARGTYPES,
+    "flash_attention_fwd": _FLASH_ARGTYPES,
+}
 
 
 def _nvcc() -> str:
@@ -120,7 +135,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name in ENTRIES:
         fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return lib
 
@@ -140,3 +155,20 @@ def launch_mpgemm(name: str, packed: torch.Tensor, x: torch.Tensor,
     )
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
+                 causal: bool, window: int, scale: float, softcap: float) -> None:
+    """Call `flash_attention_fwd` on PyTorch's current stream; raise on any
+    CUDA error the launch reports. q, out (B, H, Sq, D); k, v (B, KV, Sk, D);
+    arguments are validated by the caller."""
+    b, h, sq, d = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = load().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, k.shape[1], sq, k.shape[2], d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        int(causal), int(window), scale, softcap, int(q.dtype == torch.bfloat16), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd: CUDA error {rc} at launch")

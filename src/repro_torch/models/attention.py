@@ -8,13 +8,18 @@ need no other bookkeeping. `sdpa` is plain tensor code with the JAX
 package's rounding points (f32 scores, -1e30 masking, probabilities cast to
 the value dtype), not `F.scaled_dot_product_attention`.
 
-Not ported yet: speculative `verify`/`tree` steps, the paged cache, and the
-flash-attention kernel of the no-cache training path.
+The no-cache (train/eval) forward runs `sdpa` or, with
+``cfg.attn_impl == "flash"``, the flash-attention kernel on transposed views
+of the (B, S, H, D) tensors (the kernel reads strides: no copies).
+
+Not ported yet: speculative `verify`/`tree` steps and the paged cache.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.kernels.flash_attention import flash_attention_trainable
 
 from .common import linear_apply, linear_init, rmsnorm_apply, rmsnorm_init, rope
 
@@ -116,12 +121,12 @@ def attn_cache_init(cfg, spec, batch: int, max_len: int, dtype, device) -> dict:
     }
 
 
-def _project_qkv(p: Attention, x, cfg, spec, positions):
+def _project_qkv(p: Attention, x, cfg, spec, mode, positions):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear_apply(p.wq, x).reshape(b, s, h, hd)
-    k = linear_apply(p.wk, x).reshape(b, s, kv, hd)
-    v = linear_apply(p.wv, x).reshape(b, s, kv, hd)
+    q = linear_apply(p.wq, x, mode).reshape(b, s, h, hd)
+    k = linear_apply(p.wk, x, mode).reshape(b, s, kv, hd)
+    v = linear_apply(p.wv, x, mode).reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = rmsnorm_apply(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm_apply(p.k_norm, k, cfg.norm_eps)
@@ -131,9 +136,10 @@ def _project_qkv(p: Attention, x, cfg, spec, positions):
     return q, k, v
 
 
-def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, cache: dict | None = None,
-               verify: bool = False, tree=None):
-    """Causal self-attention → (y, new_cache). cache=None: no-cache forward.
+def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
+               cache: dict | None = None, verify: bool = False, tree=None):
+    """Causal self-attention → (y, new_cache). cache=None: no-cache
+    (train/eval) forward.
     Otherwise prefill (S>1: writes the cache from position cache["idx"] and
     attends within the incoming sequence) or decode (S==1: appends and
     attends the whole cache).
@@ -144,18 +150,22 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, cache: dict | None =
         raise NotImplementedError("speculative verify/tree steps are not ported yet")
     if cache is not None and "tab" in cache:
         raise NotImplementedError("the paged KV cache is not ported yet")
-    if cache is None and cfg.attn_impl == "flash":
-        raise NotImplementedError("the flash-attention kernel is not ported yet")
     b, s, _ = x.shape
     start = (cache["idx"] if cache is not None
              else torch.zeros((b,), dtype=torch.int32, device=x.device))
     positions = start[:, None] + torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, spec, positions)
+    q, k, v = _project_qkv(p, x, cfg, spec, mode, positions)
     attn = dict(causal=True, window=spec.window, softcap=cfg.attn_logit_softcap,
                 chunk=cfg.attn_chunk, dense_max=cfg.attn_dense_max)
 
     if cache is None:
-        out = sdpa(q, k, v, positions, positions, **attn)
+        if cfg.attn_impl == "flash":
+            out = flash_attention_trainable(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True,
+                spec.window, cfg.attn_logit_softcap,
+            ).transpose(1, 2)
+        else:
+            out = sdpa(q, k, v, positions, positions, **attn)
         new_cache = None
     else:
         ck, cv, sp = cache["k"], cache["v"], cache["slot_pos"]
@@ -186,4 +196,4 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, cache: dict | None =
             # prefill: attend within the incoming (fresh) sequence itself
             out = sdpa(q, k, v, positions, positions, **attn)
     b_, s_, h, hd = out.shape
-    return linear_apply(p.wo, out.reshape(b_, s_, h * hd)), new_cache
+    return linear_apply(p.wo, out.reshape(b_, s_, h * hd), mode), new_cache

@@ -39,10 +39,11 @@ def block_cache_init(cfg, spec, batch: int, max_len: int, dtype, device) -> dict
     return attn_cache_init(cfg, spec, batch, max_len, dtype, device)
 
 
-def block_apply(p: Block, x: torch.Tensor, *, cfg, spec, cache: dict | None = None):
+def block_apply(p: Block, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
+                cache: dict | None = None):
     """→ (x, new_cache)."""
     h = rmsnorm_apply(p.mixer_norm, x, cfg.norm_eps)
-    y, new_cache = attn_apply(p.mixer, h, cfg=cfg, spec=spec, cache=cache)
+    y, new_cache = attn_apply(p.mixer, h, cfg=cfg, spec=spec, mode=mode, cache=cache)
     x = x + y
     hf = rmsnorm_apply(p.ffn_norm, x, cfg.norm_eps)
-    return x + dense_ffn_apply(p.ffn, hf), new_cache
+    return x + dense_ffn_apply(p.ffn, hf, mode), new_cache

@@ -1,11 +1,14 @@
-"""Shared model building blocks: linears (packed-serve / dense), RMSNorm,
-RoPE, embeddings (ported from `repro.models.common`).
+"""Shared model building blocks: linears (QAT-ternary / packed-serve /
+dense), RMSNorm, RoPE, embeddings (ported from `repro.models.common`).
 
 The JAX package keeps parameters as nested dicts keyed "qw" (dense weight of
 a quantizable linear, (K_in, M_out)), "pw" (its packed form) and "w" (a
 non-quantized linear). Here each is an `nn.Module`: `QLinear`, `PackedLinear`
 and `Linear`. The functional `*_apply` functions keep the JAX names and take
 the module as their parameter argument.
+
+Parameters are built frozen (``requires_grad=False``): serving never needs
+their gradients. The trainer turns them on (`train.Trainer`).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.packing import PackedWeight
+from repro_torch.core.quantize import fake_act_quant, fake_ternary_cols
 from repro_torch.kernels.ops import ternary_matmul
 
 
@@ -66,16 +70,18 @@ def linear_init(k_in: int, m_out: int, cfg, *, generator: torch.Generator,
     return cls(w.to(torch_dtype(cfg)))
 
 
-def linear_apply(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """x: (..., K) → (..., M)."""
+def linear_apply(p: nn.Module, x: torch.Tensor, mode: str = "serve") -> torch.Tensor:
+    """x: (..., K) → (..., M). mode: 'train' | 'eval' | 'serve'."""
     if isinstance(p, PackedLinear):  # packed serving path → the paper's kernel
         return ternary_matmul(p.pw, x)
-    if isinstance(p, Linear):
-        return x @ p.w.to(x.dtype)
-    raise NotImplementedError(
-        "unpacked 'qw' linears run the QAT fake-quant path, which is not "
-        "ported yet; convert the model with models.pack_params first"
-    )
+    if isinstance(p, QLinear):
+        wq = fake_ternary_cols(p.qw).to(x.dtype)
+        if mode in ("train", "eval"):
+            # QAT: ternary weight fake-quant + per-token int8 activation STE
+            return fake_act_quant(x) @ wq
+        # mode == 'serve' on unconverted params: dense ternarized compute
+        return x @ wq
+    return x @ p.w.to(x.dtype)
 
 
 # --------------------------------------------------------------------------

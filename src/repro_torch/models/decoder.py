@@ -1,17 +1,24 @@
-"""Decoder-only LM and its serving entry points (ported from
-`repro.models.decoder`).
+"""Decoder-only LM, its training loss and its serving entry points (ported
+from `repro.models.decoder`).
 
 The JAX package scans stacked "stages" of repeated layers; here the layers
 are an `nn.ModuleList` walked by a Python loop, and the KV cache is a list
-with one dict per layer. Serving entry points keep the JAX names:
-`init_cache`, `prefill`, `decode_step`, `prefill_bucket`,
-`prefill_into_slot`, `scatter_slot_cache`, `rollback_cache`.
+with one dict per layer. With ``cfg.remat`` each layer of a no-cache forward
+under autograd is recomputed in backward (`torch.utils.checkpoint`, the
+JAX "full" policy). The cross-entropy is computed in sequence chunks of
+``cfg.loss_chunk`` (never the full (B, S, V) logits at once). Entry points
+keep the JAX names: `lm_hidden`, `lm_logits`, `lm_loss`, `init_cache`,
+`prefill`, `decode_step`, `prefill_bucket`, `prefill_into_slot`,
+`scatter_slot_cache`, `rollback_cache`.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
@@ -43,6 +50,46 @@ def init_lm(cfg, generator: torch.Generator) -> LM:
     )
 
 
+def compress_layout(specs, max_period: int = 8) -> list[tuple[tuple, int]]:
+    """Greedy factorization of the layer list into (pattern, repeats) runs:
+    the JAX package's stage layout (a copy of its `compress_layout`)."""
+    stages: list[tuple[tuple, int]] = []
+    i, n = 0, len(specs)
+    while i < n:
+        best_p, best_r = 1, 1
+        for p in range(1, min(max_period, n - i) + 1):
+            r = 1
+            while (
+                i + (r + 1) * p <= n
+                and tuple(specs[i + r * p: i + (r + 1) * p]) == tuple(specs[i: i + p])
+            ):
+                r += 1
+            if r * p > best_p * best_r or (r * p == best_p * best_r and p < best_p):
+                best_p, best_r = p, r
+        stages.append((tuple(specs[i: i + best_p]), best_r))
+        i += best_p * best_r
+    return stages
+
+
+def stacked_shapes(model: LM, cfg) -> dict[str, tuple]:
+    """Each parameter's shape in the JAX package's stacked-stage layout: a
+    per-layer parameter gains its stage's repeat count as a leading axis.
+    The optimizer's and the gradient compression's per-leaf rules (weight
+    decay on ndim >= 2, int8 state for >= 4096 elements) read these, so
+    they pick the same leaves as in JAX (a 32-layer stage's norm scales
+    are one (32, d) leaf there)."""
+    reps, layer = {}, 0
+    for pattern, r in compress_layout(cfg.layer_specs()):
+        for i in range(r * len(pattern)):
+            reps[layer + i] = r
+        layer += r * len(pattern)
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        out[name] = (reps[int(parts[1])], *p.shape) if parts[0] == "layers" else tuple(p.shape)
+    return out
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                device="cuda") -> list[dict]:
     """One dense cache dict per layer. The default dtype is bf16 whatever
@@ -53,13 +100,32 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
             for spec in cfg.layer_specs()]
 
 
-def lm_hidden(model: LM, tokens: torch.Tensor, cfg, *, cache: list | None = None):
+def _remat(cfg, cache) -> bool:
+    if not (cfg.remat and cache is None and torch.is_grad_enabled()):
+        return False
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet; only 'full'")
+    return True
+
+
+def _block_out(layer, x, *, cfg, spec, mode):
+    return block_apply(layer, x, cfg=cfg, spec=spec, mode=mode)[0]
+
+
+def lm_hidden(model: LM, tokens: torch.Tensor, cfg, *, mode: str = "train",
+              cache: list | None = None):
     """tokens: int (B, S) → (hidden (B, S, d), new_cache)."""
     x = embed_apply(model.embed, tokens, cfg)
+    remat = _remat(cfg, cache)
     new_cache = []
     for i, (layer, spec) in enumerate(zip(model.layers, cfg.layer_specs())):
-        x, nc = block_apply(layer, x, cfg=cfg, spec=spec,
-                            cache=cache[i] if cache is not None else None)
+        if remat:
+            fn = functools.partial(_block_out, layer, cfg=cfg, spec=spec, mode=mode)
+            x, nc = checkpoint(fn, x, use_reentrant=False), None
+        else:
+            x, nc = block_apply(layer, x, cfg=cfg, spec=spec, mode=mode,
+                                cache=cache[i] if cache is not None else None)
         new_cache.append(nc)
     x = rmsnorm_apply(model.final_norm, x, cfg.norm_eps)
     return x, (new_cache if cache is not None else None)
@@ -72,16 +138,56 @@ def _head_matmul(model: LM, h: torch.Tensor, cfg) -> torch.Tensor:
     return h.to(torch.float32) @ w.to(torch.float32)
 
 
+def lm_logits(model: LM, h: torch.Tensor, cfg) -> torch.Tensor:
+    """Full f32 logits — use only for small S (serving reads the last position)."""
+    return _head_matmul(model, h, cfg)
+
+
+def _ce_chunk(model: LM, hc, yc, mc, cfg):
+    """Summed masked CE and token count of one (B, c) chunk."""
+    logits = _head_matmul(model, hc, cfg)                            # (B,c,V) f32
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, yc[..., None])[..., 0]
+    return ((logz - ll) * mc).sum(), mc.sum()
+
+
+def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor, cfg, *,
+            mode: str = "train", loss_mask: torch.Tensor | None = None):
+    """Chunked softmax cross-entropy. → (loss, {"ce", "aux", "tokens"}).
+    ``aux`` (the MoE router loss in JAX) is 0: no ported layer has one."""
+    h, _ = lm_hidden(model, tokens, cfg, mode=mode)
+    b, s, _ = h.shape
+    chunk = min(cfg.loss_chunk, s)
+    pad = (-s) % chunk
+    labels = labels.to(torch.long)
+    mask = (loss_mask.to(torch.float32) if loss_mask is not None
+            else torch.ones((b, s), dtype=torch.float32, device=h.device))
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    remat = cfg.remat and torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s + pad, chunk):
+        args = (model, h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk], cfg)
+        t, n = checkpoint(_ce_chunk, *args, use_reentrant=False) if remat else _ce_chunk(*args)
+        tot, cnt = tot + t, cnt + n
+    ce = tot / torch.clamp_min(cnt, 1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
+
+
 def prefill(model: LM, tokens: torch.Tensor, cache: list, cfg):
     """Run the prompt through the model, filling the cache.
     → (last-position logits (B, V), new_cache)."""
-    h, new_cache = lm_hidden(model, tokens, cfg, cache=cache)
+    h, new_cache = lm_hidden(model, tokens, cfg, mode="serve", cache=cache)
     return _head_matmul(model, h[:, -1:, :], cfg)[:, 0], new_cache
 
 
 def decode_step(model: LM, tokens: torch.Tensor, cache: list, cfg):
     """One decode step. tokens: (B, 1) int → (logits (B, V), new_cache)."""
-    h, new_cache = lm_hidden(model, tokens, cfg, cache=cache)
+    h, new_cache = lm_hidden(model, tokens, cfg, mode="serve", cache=cache)
     return _head_matmul(model, h[:, -1:, :], cfg)[:, 0], new_cache
 
 

@@ -22,6 +22,6 @@ def dense_ffn_init(cfg, d_ff: int | None = None, *, generator, device) -> DenseF
                     linear_init(f, d, cfg, **kw))
 
 
-def dense_ffn_apply(p: DenseFFN, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(linear_apply(p.w1, x)) * linear_apply(p.w3, x)
-    return linear_apply(p.w2, h)
+def dense_ffn_apply(p: DenseFFN, x: torch.Tensor, mode: str = "serve") -> torch.Tensor:
+    h = F.silu(linear_apply(p.w1, x, mode)) * linear_apply(p.w3, x, mode)
+    return linear_apply(p.w2, h, mode)

@@ -13,6 +13,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import act_token_scale  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ternary_decode_gemm as tdg  # noqa: E402
 from repro_torch.kernels import vlut_lookup_gemm as vlg  # noqa: E402
 from repro_torch.models import init_lm, pack_params  # noqa: E402
@@ -71,3 +72,54 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
         assert sched.run_to_completion().completed == 3
         outs.append([r.generated for r in reqs])
     assert outs[0] == outs[1] == outs[2]
+
+
+# Only the summation order differs between the kernel (online softmax over
+# 64-key tiles, FMA dot products) and its plain version (full softmax,
+# einsum): f32 agrees to ~1e-6 of the output's scale; bf16 outputs are one
+# rounding of nearly equal f32 values, so at most one bf16 ulp (2^-8
+# relative) apart.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain(cuda, dtype):
+    """Ragged S, odd D, GQA groups, window, softcap, causal and not, and the
+    model's (B, S, H, D) memory read through transposed views."""
+    rng = np.random.default_rng(3)
+    for b, s, h, kv, d in [(2, 17, 15, 5, 64), (1, 100, 3, 1, 20), (2, 130, 4, 4, 128),
+                           (1, 65, 2, 1, 256), (1, 1, 2, 2, 32)]:
+        q, k, v = (torch.tensor(rng.standard_normal((b, s, n, d)).astype(np.float32),
+                                device=cuda).to(dtype).transpose(1, 2) for n in (h, kv, kv))
+        for causal, window, softcap in [(True, 0, 0.0), (False, 0, 0.0), (True, 24, 0.0),
+                                        (False, 24, 20.0), (True, 0, 20.0)]:
+            before = fa.flash_attention.launches
+            got = fa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+            want = fa.flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
+            torch.cuda.synchronize()
+            assert fa.flash_attention.launches == before + 1
+            assert got.dtype == dtype and got.stride() == q.stride()
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= FLASH_TOL[dtype] * max(1.0, want.float().abs().max().item()), \
+                (b, s, h, kv, d, causal, window, softcap, err)
+
+
+@pytest.mark.cuda
+def test_flash_trainable_gradients(cuda):
+    """The autograd.Function's gradients equal autograd through the plain
+    version (its backward is that VJP; only the forward is the kernel)."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.tensor(rng.standard_normal((2, 3, 40, 32)).astype(np.float32),
+                            device=cuda, requires_grad=True) for _ in range(3))
+    k2, v2 = (torch.tensor(rng.standard_normal((2, 1, 40, 32)).astype(np.float32),
+                           device=cuda, requires_grad=True) for _ in range(2))
+    dout = torch.tensor(rng.standard_normal((2, 3, 40, 32)).astype(np.float32), device=cuda)
+    for kk, vv in ((k, v), (k2, v2)):
+        out = fa.flash_attention_trainable(q, kk, vv, True, 16, 20.0)
+        g_kern = torch.autograd.grad(out, (q, kk, vv), dout)
+        want = fa.flash_attention_plain(q, kk, vv, causal=True, window=16, softcap=20.0)
+        g_plain = torch.autograd.grad(want, (q, kk, vv), dout)
+        # the same plain VJP twice: equal up to the library's run-to-run order
+        for a, b in zip(g_kern, g_plain):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

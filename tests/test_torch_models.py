@@ -174,7 +174,23 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         tm.init_lm(tcfg.with_(layers=tuple(s.__class__(mixer="ssm") for s in tcfg.layer_specs())),
                    torch.Generator())
-    model = tm.init_lm(tcfg, torch.Generator())  # dense "qw" linears, not packed
-    with pytest.raises(NotImplementedError, match="pack_params"):
-        tm.prefill(model, torch.zeros((1, 4), dtype=torch.int32),
-                   tm.init_cache(tcfg, 1, 8, device="cpu"), tcfg)
+    model = tm.init_lm(tcfg, torch.Generator())
+    with pytest.raises(NotImplementedError, match="remat_policy"):
+        tm.lm_loss(model.requires_grad_(True), torch.zeros((1, 4), dtype=torch.int32),
+                   torch.zeros((1, 4), dtype=torch.int32), tcfg.with_(remat_policy="dots"))
+    with pytest.raises(NotImplementedError, match="verify"):
+        tattn.attn_apply(model.layers[0].mixer, torch.zeros((1, 2, tcfg.d_model)), cfg=tcfg,
+                      spec=tcfg.layer_specs()[0], cache=tm.init_cache(tcfg, 1, 8, device="cpu")[0],
+                      verify=True)
+
+
+def test_unpacked_prefill_matches_jax():
+    """An unpacked model ("qw" linears) serves through the dense ternarized
+    compute of JAX's mode='serve' (no packing, no activation quantization)."""
+    jcfg, tcfg = _configs("float32")
+    params = jm.init_lm(jax.random.PRNGKey(2), jcfg)
+    model = bridge.lm_from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    tok = np.random.default_rng(5).integers(0, jcfg.vocab, (2, 12)).astype(np.int32)
+    jl, _ = jm.prefill(params, jnp.asarray(tok), jm.init_cache(jcfg, 2, 16), jcfg)
+    tl, _ = tm.prefill(model, torch.from_numpy(tok), tm.init_cache(tcfg, 2, 16, device="cpu"), tcfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=TOL["float32"])
