@@ -6,7 +6,8 @@
 Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: compile every CUDA kernel of the serving path from `csrc/`.
+2. build: compile every CUDA kernel from `csrc/` (one nvcc per source, in
+   parallel).
 3. kernels: each fused mpGeMM kernel against its plain PyTorch version on
    the card, at the BitLinear shapes of smollm-360m (M, K) in {(960, 960),
    (320, 960), (2560, 960), (960, 2560)} plus a mixed g=5/g=4 shape
@@ -23,10 +24,34 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    new tokens each), once with impl="decode" and once with impl="lookup".
    Checks: every request completes; each kernel was launched exactly 224
    times per forward (32 layers x 7 BitLinears) in its run and never in the
-   other; both runs emit the same greedy tokens; the prefill logits of one
-   prompt on the card agree with the same weights run on the CPU (plain
-   path) within a stated bf16 tolerance.
-5. flash: the flash-attention kernel against its plain PyTorch version on
+   other (nor any integer kernel); both runs emit the same greedy tokens;
+   the prefill logits of one prompt on the card agree with the same
+   weights run on the CPU (plain path) within a stated bf16 tolerance.
+5. unfused: the unfused pipeline (quantize into int8, de-interleave copy,
+   integer kernel into int32 (M, N), dequant), on phase 4's model.
+   (a) Each integer kernel (`ternary_decode_gemm`, `vlut_lookup_gemm`)
+   against its plain version at the shapes and N of phase 3, plus the
+   saturated case (all +1 weights, activations 127: every sum 127*K at
+   K = 2560 and 960). Expected difference: exactly 0. (b) `vlut_mpgemm`
+   fused against unfused, both impls: bit-identical on one segment, within
+   1e-6 of the output's magnitude at K = 964. (c) Serving as in phase 4
+   with `Engine(mpgemm_fusion="unfused")`, once per impl: that impl's
+   integer kernel launched exactly 224 times per forward and no other
+   mpGeMM kernel, every request completed, the greedy tokens of phase 4.
+   (d) Device time per 224-launch forward at each N: each integer kernel
+   beside its bound (bytes of packed weights, int8 activations and int32
+   output vs int8 operations), its plain version, and `torch._int_mm` on
+   the unpacked int8 weights where its shape rules hold (N > 16), else
+   phase 3's bf16 `torch.matmul` (yardsticks only: the port never calls
+   them); the whole fused and unfused pipelines through `ternary_matmul`
+   (the paper's §3.3 fusion ablation), and the bytes fusion avoids. (e)
+   The paper's comparison at (M, K) = (2560, 960), N in {1, 4, 16, 64,
+   256}: `vlut_gemm` (Algorithm 1 in plain PyTorch), `scalar_lut_gemm`,
+   `mad_gemm`, `mad_gemm_int8` and both pipelines of both kernels, each
+   checked against `ref_mpgemm` (exact; `mad_gemm`, which skips activation
+   quantization, within the JAX suite's rtol 0.1 / atol 0.15) and timed;
+   the winner per N.
+6. flash: the flash-attention kernel against its plain PyTorch version on
    the card: smollm-360m's heads (H 15, KV 5, D 64) and odd ones (D 20, 32,
    128; H/KV 1 and 3), S in {1, 17, 256, 512, 2048}, causal or not, window
    0 or 24, softcap 0 or 20, f32 and bf16, q/k/v read as transposed views
@@ -35,7 +60,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    and the device time at the training shape (B 8, S 512, causal, bf16)
    beside the bound, the plain version and `scaled_dot_product_attention`
    (a yardstick only: the port never calls it).
-6. train: smollm-360m at full width and depth in bf16 with
+7. train: smollm-360m at full width and depth in bf16 with
    attn_impl="flash" and per-layer remat, random weights from a seeded
    generator on the card, 30 QAT steps of B 8 x S 512 on the synthetic
    bigram data (AdamW, lr 3e-4, warmup 5, int8/bf16 moments) through
@@ -73,14 +98,31 @@ SHAPES = [(960, 960), (320, 960), (2560, 960), (960, 2560)]
 MIXED_SHAPE = (960, 964)  # 192 g=5 groups + 1 g=4 group
 TOKENS = (1, 4, 16, 64, 256)
 DECODE_N = 4              # one decode step of the 4-slot engine
+IMPLS = ("decode", "lookup")
 KERNEL_META = {
     "ternary_decode_gemm_fused": dict(
-        impl="decode", source="src/repro_torch/csrc/ternary_decode_gemm.cu",
+        impl="decode", fusion="fused", source="src/repro_torch/csrc/ternary_decode_gemm.cu",
         replaces="src/repro/kernels/ternary_decode_gemm.py:176"),
     "vlut_lookup_gemm_fused": dict(
-        impl="lookup", source="src/repro_torch/csrc/vlut_lookup_gemm.cu",
+        impl="lookup", fusion="fused", source="src/repro_torch/csrc/vlut_lookup_gemm.cu",
         replaces="src/repro/kernels/vlut_lookup_gemm.py:222"),
+    "ternary_decode_gemm": dict(
+        impl="decode", fusion="unfused", source="src/repro_torch/csrc/ternary_decode_gemm.cu",
+        replaces="src/repro/kernels/ternary_decode_gemm.py:129"),
+    "vlut_lookup_gemm": dict(
+        impl="lookup", fusion="unfused", source="src/repro_torch/csrc/vlut_lookup_gemm.cu",
+        replaces="src/repro/kernels/vlut_lookup_gemm.py:171"),
 }
+# (g, (M, KG)) of the saturated integer checks: all +1 weights, activations
+# 127, every sum 127*K (K = 2560 and 960)
+SATURATED = ((5, (2560, 512)), (4, (960, 240)))
+# With two segments the fused pipeline sums one f32 partial per segment and
+# the unfused one int32 before a single dequant: f32 rounding apart.
+FUSION_RTOL = 1e-6
+COMPARE_SHAPE = (2560, 960)   # the paper's comparison: smollm-360m's gate/up
+# mad_gemm skips activation quantization: against ref_mpgemm it gets the
+# JAX suite's bound (tests/test_vlut_core.py, test_mad_float_close)
+MAD_TOL = {"rtol": 0.1, "atol": 0.15}
 FLASH_META = dict(source="src/repro_torch/csrc/flash_attention.cu",
                   replaces="src/repro/kernels/flash_attention.py:106")
 BF16_FLOPS_S = 989e12     # H100 SXM dense bf16 tensor-core peak
@@ -160,9 +202,27 @@ def eager_ms(torch, fn, reps: int = 3) -> float:
     return s.elapsed_time(e) / reps
 
 
+def bitlinear_weights(torch, model, gen) -> dict:
+    """{(M, K): PackedWeight}: the model's first-layer weights for the
+    main-path shapes, and a random mixed-segment weight for K = 964."""
+    from repro_torch.core import pack_weight, ternary_quantize
+    from repro_torch.models.common import PackedLinear
+
+    lin0 = [m for m in model.layers[0].modules() if isinstance(m, PackedLinear)]
+    weights = {}
+    for lin in lin0:
+        weights.setdefault((lin.pw.M, lin.pw.K), lin.pw)
+    assert sorted(weights) == sorted(SHAPES), sorted(weights)
+    w = torch.randn(MIXED_SHAPE, generator=gen, device="cuda")
+    tw = ternary_quantize(w)
+    weights[MIXED_SHAPE] = pack_weight(tw.values, tw.scale)
+    assert weights[MIXED_SHAPE].k4 == 4
+    return weights
+
+
 def check_kernels(torch, model, cfg):
     """Phase 3: kernels against their plain versions, then timing."""
-    from repro_torch.core import act_token_scale, pack_weight, ternary_quantize
+    from repro_torch.core import act_token_scale
     from repro_torch.kernels import ops
     from repro_torch.kernels import ternary_decode_gemm as tdg
     from repro_torch.kernels import vlut_lookup_gemm as vlg
@@ -174,17 +234,7 @@ def check_kernels(torch, model, cfg):
         "ternary_decode_gemm_fused": (tdg.ternary_decode_gemm_fused, tdg.ternary_decode_gemm_fused_plain),
         "vlut_lookup_gemm_fused": (vlg.vlut_lookup_gemm_fused, vlg.vlut_lookup_gemm_fused_plain),
     }
-    # the model's first-layer weights for the main-path shapes, a random
-    # mixed-segment weight for K = 964
-    lin0 = [m for m in model.layers[0].modules() if isinstance(m, PackedLinear)]
-    weights = {}
-    for lin in lin0:
-        weights.setdefault((lin.pw.M, lin.pw.K), lin.pw)
-    assert sorted(weights) == sorted(SHAPES), sorted(weights)
-    w = torch.randn(MIXED_SHAPE, generator=gen, device=dev)
-    tw = ternary_quantize(w)
-    weights[MIXED_SHAPE] = pack_weight(tw.values, tw.scale)
-    assert weights[MIXED_SHAPE].k4 == 4
+    weights = bitlinear_weights(torch, model, gen)
 
     combos = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
               (torch.bfloat16, torch.float32))
@@ -243,14 +293,16 @@ def check_kernels(torch, model, cfg):
                         f"plain {row[nm]['plain_ms']:.4f})" for nm in kernels)
             + f", bf16 matmul yardstick {row['library_ms']:.4f} ms")
     del dense
-    return max_err, per_n
+    return max_err, per_n, weights
 
 
-def serve(torch, model, cfg, impl: str, prompts, counters):
-    """Phase 4, one impl: warm up, zero the counts, drive the main path."""
+def serve(torch, model, cfg, impl: str, prompts, counters, fusion: str = "fused"):
+    """Phases 4 and 5, one impl and fusion: warm up, zero the counts, drive
+    the main path."""
     from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request
 
-    eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl=impl, device="cuda")
+    eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl=impl,
+                 mpgemm_fusion=fusion, device="cuda")
     warm = ContinuousBatchingScheduler(eng)
     warm.submit([Request(rid=-1, prompt=prompts[0][:16], max_new_tokens=2)])
     warm.run_to_completion()
@@ -276,7 +328,7 @@ def serve(torch, model, cfg, impl: str, prompts, counters):
     launches = {name: fn.launches for name, fn in counters.items()}
     forwards = len(reqs) + stats.decode_steps
     if stats.completed != len(reqs) or any(len(r.generated) != 16 for r in reqs):
-        raise AssertionError(f"{impl}: {stats.completed}/{len(reqs)} requests completed")
+        raise AssertionError(f"{impl}/{fusion}: {stats.completed}/{len(reqs)} requests completed")
     return {
         "tokens": [list(map(int, r.generated)) for r in reqs],
         "launches": launches, "forwards": forwards,
@@ -287,6 +339,193 @@ def serve(torch, model, cfg, impl: str, prompts, counters):
         "ttft_p50_ms": sorted(stats.ttft_s)[len(stats.ttft_s) // 2] * 1e3,
         "wall_s": stats.wall_s,
     }
+
+
+def check_unfused(torch, model, cfg, weights, prompts, counters, fused_runs, per_n) -> dict:
+    """Phase 5: the unfused pipeline. (a) Each integer kernel against its
+    plain version; (b) `vlut_mpgemm` fused against unfused; (c) serving
+    through it; (d) the fusion ablation's device times per forward; (e) the
+    paper's comparison of methods at (M, K) = COMPARE_SHAPE."""
+    from repro_torch.core import (
+        act_quant_tokens,
+        mad_gemm,
+        mad_gemm_int8,
+        scalar_lut_gemm,
+        vlut_gemm,
+    )
+    from repro_torch.kernels import ops, ref_mpgemm
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+    from repro_torch.models.common import PackedLinear
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kernels = {
+        "ternary_decode_gemm": (tdg.ternary_decode_gemm, tdg.ternary_decode_gemm_plain),
+        "vlut_lookup_gemm": (vlg.vlut_lookup_gemm, vlg.vlut_lookup_gemm_plain),
+    }
+
+    # (a) kernels against their plain versions: exact integers, diff 0
+    max_err = {name: 0 for name in kernels}
+    n_checks = 0
+
+    def check(packed, a_r, g):
+        nonlocal n_checks
+        outs = {}
+        for name, (kern, plain) in kernels.items():
+            got, want = kern(packed, a_r, g=g), plain(packed, a_r, g=g)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype == torch.int32 and got.shape == want.shape
+            max_err[name] = max(max_err[name], (got.long() - want.long()).abs().max().item())
+            outs[name] = got
+            n_checks += 1
+        return outs
+
+    for (m, k), pw in weights.items():
+        for n in TOKENS:
+            a_q, _ = act_quant_tokens(torch.randn((k, n), generator=gen, device=dev) * 3.0)
+            for packed, lo, hi, g in ops._segments(pw):
+                check(packed, ops._deinterleave(a_q[lo:hi], g), g)
+    for g, (m, kg) in SATURATED:                 # all +1 weights, activations 127
+        outs = check(torch.full((m, kg), 3 ** g - 1, dtype=torch.uint8, device=dev),
+                     torch.full((g, kg, 16), 127, dtype=torch.int8, device=dev), g)
+        for name, out in outs.items():
+            if not int(out.min()) == int(out.max()) == 127 * kg * g:
+                raise AssertionError(f"{name}: saturated sums {int(out.min())}..{int(out.max())}, "
+                                     f"expected {127 * kg * g}")
+    log(f"unfused: {n_checks} kernel-vs-plain checks (incl. saturated sums 127*K), "
+        f"max |diff| {max_err}")
+    for name, err in max_err.items():
+        if err != 0:
+            raise AssertionError(f"{name} differs from its plain version by {err} (expected 0)")
+
+    # (b) vlut_mpgemm fused against unfused
+    fu_err = {impl: 0.0 for impl in IMPLS}
+    for (m, k), pw in weights.items():
+        for n in TOKENS:
+            a = torch.randn((k, n), generator=gen, device=dev) * 3.0
+            for impl in IMPLS:
+                fused = ops.vlut_mpgemm(pw, a, impl=impl)
+                unfused = ops.vlut_mpgemm(pw, a, impl=impl, fusion="unfused")
+                err = (fused - unfused).abs().max().item()
+                bound = FUSION_RTOL * fused.abs().max().item() if pw.k4 and pw.k5 else 0.0
+                if not err <= bound:
+                    raise AssertionError(f"{impl}: fused and unfused differ by {err} > {bound} "
+                                         f"at M {m} K {k} N {n}")
+                fu_err[impl] = max(fu_err[impl], err)
+    log(f"unfused: vlut_mpgemm fused vs unfused, bit-identical on one segment, max |diff| "
+        f"{fu_err} (K = 964 bound: {FUSION_RTOL} of max |out|)")
+
+    # (c) serving through the unfused pipeline
+    runs = {}
+    for name, meta in KERNEL_META.items():
+        if meta["fusion"] != "unfused":
+            continue
+        impl = meta["impl"]
+        r = serve(torch, model, cfg, impl, prompts, counters, fusion="unfused")
+        want = {nm: (224 * r["forwards"] if nm == name else 0) for nm in counters}
+        if r["launches"] != want:
+            raise AssertionError(f"impl={impl} unfused: launches {r['launches']}, expected {want}")
+        if r["tokens"] != fused_runs[impl]["tokens"]:
+            raise AssertionError(f"impl={impl}: the unfused pipeline emitted other greedy tokens "
+                                 "than the fused one")
+        runs[impl] = r
+        log(f"serve: impl={impl} fusion=unfused forwards={r['forwards']} launches={r['launches']} "
+            f"prefill_tok_s={r['prefill_tok_s']:.1f} decode_tok_s={r['decode_tok_s']:.1f} "
+            f"ttft_p50_ms={r['ttft_p50_ms']:.2f} wall_s={r['wall_s']:.3f} (tokens = fused run's)")
+
+    # (d) device time of one forward's 224 BitLinears at each N
+    lins = [m for m in model.modules() if isinstance(m, PackedLinear)]
+    assert len(lins) == 7 * cfg.n_layers and all(lin.pw.k4 == 0 for lin in lins)  # g=5 only
+    w_int8 = [lin.pw.unpack() for lin in lins]                       # (M, K) for torch._int_mm
+    per_n_unfused = {}
+    for n in TOKENS:
+        xs = {k: torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+              for k in {lin.pw.K for lin in lins}}
+        a_qs = {k: act_quant_tokens(x.T)[0] for k, x in xs.items()}    # (K, N) int8
+        a_rs = {k: ops._deinterleave(q, 5) for k, q in a_qs.items()}
+        shapes = [(lin.pw.M, lin.pw.K) for lin in lins]
+        nbytes = sum(lin.packed5.numel() + k * n + 4 * m * n for lin, (m, k) in zip(lins, shapes))
+        nops = sum(2 * m * n * k for m, k in shapes)
+        row = {"bytes": nbytes, "int8_ops": nops,
+               "bound_ms": max(nbytes / HBM_BYTES_S, nops / INT8_OPS_S) * 1e3,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_S >= nops / INT8_OPS_S else "operations",
+               # gemm_bench.py's count: the int8 activation buffer, its
+               # de-interleaved copy and the int32 output, each written once
+               # and read once
+               "bytes_avoided_by_fusion": sum(2 * k * n + 2 * k * n + 2 * 4 * m * n
+                                              for m, k in shapes)}
+
+        def run(fn, lins=lins, a_rs=a_rs):
+            for lin in lins:
+                fn(lin.packed5, a_rs[lin.pw.K], g=5)
+
+        for name, (kern, plain) in kernels.items():
+            row[name] = {"ms": device_ms(torch, lambda: run(kern)),
+                         "plain_ms": device_ms(torch, lambda: run(plain), reps=1)}
+
+        def pipeline(impl, fusion, lins=lins, xs=xs):
+            for lin in lins:
+                ops.ternary_matmul(lin.pw, xs[lin.pw.K], impl=impl, fusion=fusion)
+
+        row["pipeline"] = {
+            f"{fusion}_{impl}": {
+                "ms": device_ms(torch, lambda: pipeline(impl, fusion)),
+                "eager_ms": eager_ms(torch, lambda: pipeline(impl, fusion))}
+            for impl in IMPLS for fusion in ("fused", "unfused")}
+        if n > 16:   # torch._int_mm's shape rules: more than 16 rows, K and M multiples of 8
+            qs = {k: q.T.contiguous() for k, q in a_qs.items()}       # (N, K)
+            row["library"] = {"call": "torch._int_mm (int8 unpacked weights)", "ms": device_ms(
+                torch, lambda: [torch._int_mm(qs[lin.pw.K], w.T) for lin, w in zip(lins, w_int8)])}
+        else:
+            row["library"] = {"call": "bf16 torch.matmul (phase 3)", "ms": per_n[n]["library_ms"]}
+        per_n_unfused[n] = row
+        pipe = row["pipeline"]
+        log(f"unfused: forward of 224 BitLinears at N={n}: bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), "
+            + ", ".join(f"{nm} {row[nm]['ms']:.4f} ms (plain {row[nm]['plain_ms']:.4f})"
+                        for nm in kernels)
+            + f", {row['library']['call']} {row['library']['ms']:.4f} ms; pipelines (device/eager ms): "
+            + ", ".join(f"{key} {v['ms']:.4f}/{v['eager_ms']:.4f}" for key, v in pipe.items())
+            + f"; fusion avoids {row['bytes_avoided_by_fusion'] / 1e6:.2f} MB")
+    del w_int8
+
+    # (e) the paper's comparison of methods at one BitLinear shape
+    pw = weights[COMPARE_SHAPE]
+    methods = {
+        "vlut_gemm": lambda a: vlut_gemm(pw, a),
+        "scalar_lut_gemm": lambda a: scalar_lut_gemm(pw, a),
+        "mad_gemm": lambda a: mad_gemm(pw, a),
+        "mad_gemm_int8": lambda a: mad_gemm_int8(pw, a),
+    }
+    for impl in IMPLS:
+        for fusion in ("fused", "unfused"):
+            methods[f"{fusion}_{impl}"] = (
+                lambda a, impl=impl, fusion=fusion: ops.vlut_mpgemm(pw, a, impl=impl, fusion=fusion))
+    compare = {}
+    for n in TOKENS:
+        a = torch.randn((COMPARE_SHAPE[1], n), generator=gen, device=dev) * 3.0
+        want = ref_mpgemm(pw, a)
+        row = {}
+        for name, fn in methods.items():
+            got = fn(a)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            if name == "mad_gemm":   # no activation quantization: the JAX suite's bound
+                ok = bool((err <= MAD_TOL["atol"] + MAD_TOL["rtol"] * want.abs()).all())
+            else:
+                ok = torch.equal(got, want)
+            if not ok:
+                raise AssertionError(f"{name} at N={n} disagrees with ref_mpgemm "
+                                     f"(max |diff| {err.max().item()})")
+            row[name] = {"ms": device_ms(torch, lambda: fn(a)), "max_abs_err": err.max().item()}
+        winner = min(row, key=lambda nm: row[nm]["ms"])
+        compare[n] = {"methods": row, "winner": winner}
+        log(f"compare: (M, K) = {COMPARE_SHAPE}, N={n}: "
+            + ", ".join(f"{nm} {v['ms']:.4f}" for nm, v in row.items())
+            + f" ms; winner {winner}")
+    return {"max_abs_err": max_err, "checks": n_checks, "fused_vs_unfused_max_abs_diff": fu_err,
+            "serve": runs, "per_tokens": per_n_unfused, "compare": compare}
 
 
 def device_time_by_kernel(prof, steps: int) -> list:
@@ -535,8 +774,11 @@ def main() -> int:
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build
         from repro_torch.kernels.flash_attention import flash_attention
-        from repro_torch.kernels.ternary_decode_gemm import ternary_decode_gemm_fused
-        from repro_torch.kernels.vlut_lookup_gemm import vlut_lookup_gemm_fused
+        from repro_torch.kernels.ternary_decode_gemm import (
+            ternary_decode_gemm,
+            ternary_decode_gemm_fused,
+        )
+        from repro_torch.kernels.vlut_lookup_gemm import vlut_lookup_gemm, vlut_lookup_gemm_fused
         from repro_torch.models import init_cache, init_lm, pack_params, prefill
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})", file=sys.stderr)
@@ -559,7 +801,7 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log(f"build: {line.strip()}")
 
-    # model for phases 3 and 4
+    # model for phases 3 to 5
     cfg = get_config("smollm-360m")
     t0 = time.perf_counter()
     model = pack_params(init_lm(cfg, torch.Generator(device="cuda").manual_seed(0)), cfg)
@@ -567,7 +809,7 @@ def main() -> int:
     log(f"model: {cfg.name} {cfg.dtype}, {cfg.n_layers} layers, packed in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels
-    max_err, per_n = check_kernels(torch, model, cfg)
+    max_err, per_n, weights = check_kernels(torch, model, cfg)
 
     # 4. serve
     rng = np.random.default_rng(0)
@@ -575,9 +817,13 @@ def main() -> int:
                for _ in range(8)]
     counters = {"ternary_decode_gemm_fused": ternary_decode_gemm_fused,
                 "vlut_lookup_gemm_fused": vlut_lookup_gemm_fused,
+                "ternary_decode_gemm": ternary_decode_gemm,
+                "vlut_lookup_gemm": vlut_lookup_gemm,
                 "flash_attention": flash_attention}
     runs = {}
     for name, meta in KERNEL_META.items():
+        if meta["fusion"] != "fused":
+            continue
         r = serve(torch, model, cfg, meta["impl"], prompts, counters)
         want = {nm: (224 * r["forwards"] if nm == name else 0) for nm in counters}
         if r["launches"] != want:
@@ -616,23 +862,35 @@ def main() -> int:
     log(f"serve: prefill_tok_s={r['prefill_tok_s']:.1f} decode_tok_s={r['decode_tok_s']:.1f} "
         f"ttft_p50_ms={r['ttft_p50_ms']:.2f} wall_s={r['wall_s']:.3f}")
 
-    del model, cpu_model
+    # 5. unfused
+    unfused = check_unfused(torch, model, cfg, weights, prompts, counters, runs, per_n)
+
+    del model, cpu_model, weights
     torch.cuda.empty_cache()
 
-    # 5. flash
+    # 6. flash
     flash = check_flash(torch)
 
-    # 6. train
+    # 7. train
     trained = train(torch, counters)
 
-    row = per_n[DECODE_N]
+    def kernel_row(name, meta):
+        if meta["fusion"] == "fused":
+            row, launches, err = per_n[DECODE_N], runs[meta["impl"]]["launches"], max_err
+            library_ms = row["library_ms"]
+        else:
+            row = unfused["per_tokens"][DECODE_N]
+            launches, err = unfused["serve"][meta["impl"]]["launches"], unfused["max_abs_err"]
+            library_ms = row["library"]["ms"]
+        return {"name": name, "route": "cuda", "source": meta["source"],
+                "replaces": meta["replaces"], "launches": launches[name],
+                "max_abs_err": float(err[name]), "ms": row[name]["ms"],
+                "plain_ms": row[name]["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": library_ms}
+
     frow = flash["time"]
     kern_line = {"kernels": [
-        {"name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
-         "launches": runs[meta["impl"]]["launches"][name], "max_abs_err": max_err[name],
-         "ms": row[name]["ms"], "plain_ms": row[name]["plain_ms"], "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        for name, meta in KERNEL_META.items()
+        kernel_row(name, meta) for name, meta in KERNEL_META.items()
     ] + [
         {"name": "flash_attention", "route": "cuda", **FLASH_META,
          "launches": trained["launches"]["flash_attention"], "max_abs_err": flash["max_abs_err"],
@@ -642,9 +900,11 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
-        "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches; flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
+        "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches (unfused pipelines: 224 BitLinears); compare: one call at (M, K) = (2560, 960); flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
         "per_tokens": per_n, "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
                                        for k, v in runs.items()},
+        "unfused": {**unfused, "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                                         for k, v in unfused["serve"].items()}},
         "logits_card_vs_cpu": {"max_abs_diff": diff, "max_abs_logit": scale},
         "decode_profile": prof,
         "flash": flash, "train": trained,

@@ -10,7 +10,10 @@ fake-quants (STE) of the QAT training path.
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, and the
 quantizers divide by the scale (never multiply by a reciprocal), so both
-packages produce the same bits.
+packages produce the same bits. The mpGeMM scale `act_token_scale` is the
+jitted JAX form, a product with 1/127 rounded to f32 (`INV_Q_MAX`); the QAT
+fake-quant `act_quant_int8` keeps the division of eager JAX (under `jit`
+the two differ by one ulp in some scales).
 
 The STE form is ``w + (wq - w).detach()``: forward ``wq`` (up to the
 rounding of the two adds in the working dtype, as in JAX), backward the
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 EPS = 1e-6
@@ -44,14 +48,24 @@ def ternary_quantize(w: torch.Tensor, per_channel: bool = True) -> TernaryWeight
     return TernaryWeight(t.to(torch.int8), scale)
 
 
+#: 1/127 rounded to f32. Under `jax.jit`, XLA rewrites the JAX package's
+#: ``max(amax, eps) / 127`` (a division by a constant) into a product with
+#: this reciprocal, which differs from the true quotient by one ulp for some
+#: values; the mpGeMM scale follows the jitted form, the one every JAX
+#: mpGeMM path runs.
+INV_Q_MAX = float(np.float32(1.0) / np.float32(Q_MAX))
+
+
 def act_token_scale(a: torch.Tensor) -> torch.Tensor:
     """Per-token scale for a token-minor (K, N) activation → (N,) f32.
 
     The single definition of the mpGeMM quantizer scale: the fused kernels
-    take it as an input and quantize tile by tile, the plain versions and
-    the oracle use it directly, so every path rounds identically."""
+    take it as an input and quantize tile by tile, the plain versions, the
+    unfused pipeline, `vlut_gemm` and the oracle use it directly, so every
+    path rounds identically — and as the jitted JAX package does
+    (`INV_Q_MAX`)."""
     amax = a.to(torch.float32).abs().amax(0)
-    return torch.clamp_min(amax, EPS) / Q_MAX
+    return torch.clamp_min(amax, EPS) * INV_Q_MAX
 
 
 def act_quant_tokens(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,8 @@
-// Shared pieces of the two fused mpGeMM kernels: tile geometry, the
-// activation-quantization prologue and the scale epilogue.
+// Shared pieces of the mpGeMM kernels: tile geometry, the prologues (the
+// fused kernels' activation quantization, the integer kernels' int8 tile
+// copy) and the epilogues (scaled float store, raw int32 store).
 //
-// Layout contract (both kernels):
+// Layout contract of the fused kernels:
 //   packed  (M, KG) uint8, row-major, trit codes of one homogeneous-g segment
 //   a       (N, KG*g) f32 or bf16, row stride `lda` elements, unit column
 //           stride: the token-major activation the model produces, read in
@@ -11,11 +12,21 @@
 //   w_scale (M,) f32, or (1,) broadcast when ws_stride == 0
 //   out     (N, M) f32 or bf16, row stride `ldo`
 //   out[n, m] = (float(sum_k trit(W[m, k]) * q(a[n, k])) * w_scale[m]) * a_scale[n]
+//
+// Layout contract of the integer kernels (the unfused pipeline's middle pass):
+//   packed  (M, KG) uint8, as above
+//   a_r     (g, KG, N) int8, contiguous: pre-quantized and de-interleaved,
+//           a_r[j, kg, n] = a_q[kg*g + j, n]
+//   out     (M, N) int32, contiguous: out[m, n] = sum_k trit(W[m, k]) * a_q[k, n]
+// Both kernels of a pair are one template: an int8 activation type selects
+// the integer prologue and epilogue at compile time.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace vlut {
 
@@ -64,6 +75,37 @@ __device__ __forceinline__ void quantize_tile(const TA* __restrict__ a,
   }
 }
 
+// Prologue of the integer kernels: copy a_r[:, kg0:kg0+bkg, n0:n0+kBN]
+// into the same shared layout as quantize_tile, aq[k * kBN + n] with the
+// tile-local feature k = kg * G + j (tokens fastest: coalesced reads).
+// K-groups past nkg and tokens past N read as 0.
+template <int G>
+__device__ __forceinline__ void load_int8_tile(const int8_t* __restrict__ a_r,
+                                               int KG, int N, int n0, int kg0,
+                                               int nkg, int bkg, int8_t* aq) {
+  for (int i = threadIdx.x; i < bkg * G * kBN; i += blockDim.x) {
+    const int n = i % kBN, k = i / kBN;
+    const int kg = k / G, j = k - kg * G;
+    int8_t q = 0;
+    if (kg < nkg && n0 + n < N) {
+      q = a_r[((long long)j * KG + kg0 + kg) * N + n0 + n];
+    }
+    aq[k * kBN + n] = q;
+  }
+}
+
+// Epilogue of the integer kernels: the raw int32 sums of one row and this
+// thread's tokens into out (M, N).
+__device__ __forceinline__ void write_row_int(int32_t* __restrict__ out, int m,
+                                              int N, int n0, int tl,
+                                              const int* acc) {
+#pragma unroll
+  for (int t = 0; t < kTokPerThread; ++t) {
+    const int n = n0 + tl * kTokPerThread + t;
+    if (n < N) out[(long long)m * N + n] = acc[t];
+  }
+}
+
 // Epilogue for one row and this thread's tokens: (acc * w_scale) * a_scale
 // in f32, then one rounding to the output type.
 template <typename TO>
@@ -83,7 +125,7 @@ __device__ __forceinline__ void write_row(TO* __restrict__ out, long long ldo,
 
 }  // namespace vlut
 
-// The C entry both kernel files export (one per kernel name):
+// The C entry of each fused kernel:
 //   int <name>(packed, a, a_scale, w_scale, out, M, KG, N, g, lda, ldo,
 //              ws_stride, a_bf16, out_bf16, stream)
 // launches on `stream` and returns cudaGetLastError().
@@ -92,3 +134,10 @@ __device__ __forceinline__ void write_row(TO* __restrict__ out, long long ldo,
       const void *w_scale, void *out, int M, int KG, int N, int g,         \
       long long lda, long long ldo, int ws_stride, int a_bf16, int out_bf16, \
       void *stream
+
+// The C entry of each integer kernel:
+//   int <name>(packed, a_r, out, M, KG, N, g, stream)
+// launches on `stream` and returns cudaGetLastError().
+#define VLUT_INT_ENTRY_ARGS                                               \
+  const void *packed, const void *a_r, void *out, int M, int KG, int N,   \
+      int g, void *stream

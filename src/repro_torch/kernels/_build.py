@@ -36,6 +36,11 @@ _MPGEMM_ARGTYPES = (                 # VLUT_ENTRY_ARGS (mpgemm_common.cuh)
     + [ctypes.c_int] * 3             # ws_stride, a_bf16, out_bf16
     + [ctypes.c_void_p]              # stream
 )
+_INT_ARGTYPES = (                    # VLUT_INT_ENTRY_ARGS (mpgemm_common.cuh)
+    [ctypes.c_void_p] * 3            # packed, a_r, out
+    + [ctypes.c_int] * 4             # M, KG, N, g
+    + [ctypes.c_void_p]              # stream
+)
 _FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
     [ctypes.c_void_p] * 4            # q, k, v, o
     + [ctypes.c_int] * 6             # B, H, KV, Sq, Sk, D
@@ -46,11 +51,14 @@ _FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
     + [ctypes.c_void_p]              # stream
 )
 #: the library's C entries; each returns a cudaError_t
-ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused", "flash_attention_fwd")
+ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused",
+           "ternary_decode_gemm", "vlut_lookup_gemm", "flash_attention_fwd")
 #: the ctypes signature of every entry
 _ARGTYPES = {
     "ternary_decode_gemm_fused": _MPGEMM_ARGTYPES,
     "vlut_lookup_gemm_fused": _MPGEMM_ARGTYPES,
+    "ternary_decode_gemm": _INT_ARGTYPES,
+    "vlut_lookup_gemm": _INT_ARGTYPES,
     "flash_attention_fwd": _FLASH_ARGTYPES,
 }
 
@@ -153,6 +161,20 @@ def launch_mpgemm(name: str, packed: torch.Tensor, x: torch.Tensor,
         x.stride(0), out.stride(0), 1 if w_scale.shape[0] > 1 else 0,
         int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16), stream,
     )
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def launch_mpgemm_int(name: str, packed: torch.Tensor, a_r: torch.Tensor, g: int,
+                      out: torch.Tensor) -> None:
+    """Call the integer C entry `name` (packed (M, KG) u8, a_r (g, KG, N)
+    i8 → out (M, N) i32, all contiguous) on PyTorch's current stream; raise
+    on any CUDA error the launch reports. Arguments are validated by the
+    caller."""
+    fn = getattr(load(), name)
+    stream = torch.cuda.current_stream(a_r.device).cuda_stream
+    rc = fn(packed.data_ptr(), a_r.data_ptr(), out.data_ptr(), packed.shape[0],
+            packed.shape[1], a_r.shape[2], g, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 

@@ -1,16 +1,27 @@
 """Model-facing mpGeMM entry points (ported from `repro.kernels.ops`).
 
-Every BitLinear of the serving path lands in `ternary_matmul`, which runs
-one fused single-pass kernel per packed segment: the g=5 segment, then the
-g=4 one. Per-token activation scales are computed once over the full K
-(`act_token_scale`) and shared by both segments; a single-segment weight is
-written by the kernel straight in the output type, a two-segment weight as
-one f32 partial per segment, summed and then cast — the TPU path's rules.
+Every BitLinear of the serving path lands in `ternary_matmul`. `fusion`
+picks the pipeline:
+
+- "fused" (the default): one single-pass kernel per packed segment, the
+  g=5 segment, then the g=4 one. Per-token activation scales are computed
+  once over the full K (`act_token_scale`) and shared by both segments; a
+  single-segment weight is written by the kernel straight in the output
+  type, a two-segment weight as one f32 partial per segment, summed and
+  then cast — the TPU path's rules.
+- "unfused": the three-pass pipeline the paper's §3.3 fusion is measured
+  against. The activations are quantized once over the full K into an int8
+  buffer (`act_quant_tokens`), each segment's slice is copied to the
+  de-interleaved (g, K/g, N) layout, the integer kernel writes int32
+  (M, N), the segments are summed in int32, and one dequant pass applies
+  w_scale × a_scale and casts. With one segment the two pipelines are
+  bit-identical; with two they agree to f32 rounding.
 
 `impl` picks the kernel: "decode" (ternary decode + integer dot, the
 default) or "lookup" (the paper's vector-LUT). The JAX package's "xla"
-impl is its shardable dry-run path and waits for the port of `dist`; the
-unfused ablation pipeline waits for the unfused kernels.
+impl is its shardable dry-run path and waits for the port of `dist`. Its
+`tiles=` override and autotuner (`kernels/autotune.py`) choose TPU VMEM
+tiles; the port's tile selection is still to come (ROADMAP A 7).
 """
 from __future__ import annotations
 
@@ -20,19 +31,22 @@ import dataclasses
 import torch
 
 from repro_torch.core.packing import PackedWeight
-from repro_torch.core.quantize import act_token_scale
+from repro_torch.core.quantize import act_quant_tokens, act_token_scale
 
-from .ternary_decode_gemm import ternary_decode_gemm_fused
-from .vlut_lookup_gemm import vlut_lookup_gemm_fused
+from .ternary_decode_gemm import ternary_decode_gemm, ternary_decode_gemm_fused
+from .vlut_lookup_gemm import vlut_lookup_gemm, vlut_lookup_gemm_fused
 
 IMPLS = ("decode", "lookup")
+FUSIONS = ("fused", "unfused")
 _KERNELS = {"decode": ternary_decode_gemm_fused, "lookup": vlut_lookup_gemm_fused}
+_INT_KERNELS = {"decode": ternary_decode_gemm, "lookup": vlut_lookup_gemm}
 
 
 @dataclasses.dataclass
 class DispatchConfig:
-    """Process-wide default for `ternary_matmul` routing."""
+    """Process-wide defaults for `ternary_matmul` routing."""
     impl: str = "decode"
+    fusion: str = "fused"
 
 
 _dispatch = DispatchConfig()
@@ -53,6 +67,14 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"unknown mpGeMM impl {impl!r}; have {IMPLS}")
 
 
+def _check_fusion(fusion: str) -> None:
+    if fusion not in FUSIONS:
+        raise ValueError(f"unknown mpGeMM fusion {fusion!r}; have {FUSIONS}")
+
+
+_CHECKS = {"impl": _check_impl, "fusion": _check_fusion}
+
+
 def configure_dispatch(**kw) -> DispatchConfig:
     """Set process-wide dispatch defaults. None values are ignored; unknown
     knobs raise."""
@@ -60,7 +82,7 @@ def configure_dispatch(**kw) -> DispatchConfig:
         if k not in _DISPATCH_FIELDS:
             raise TypeError(f"unknown dispatch knob {k!r}; have {_DISPATCH_FIELDS}")
         if v is not None:
-            _check_impl(v)
+            _CHECKS[k](v)
             setattr(_dispatch, k, v)
     return _dispatch
 
@@ -107,20 +129,81 @@ def _mpgemm_tokens(pw: PackedWeight, x: torch.Tensor, impl: str,
     return parts[0] if len(parts) == 1 else (parts[0] + parts[1]).to(out_dtype)
 
 
+def _deinterleave(a_q: torch.Tensor, g: int) -> torch.Tensor:
+    """(K, N) → (g, K//g, N) contiguous: A_r[j, k, :] = A[k*g+j, :] (§3.3
+    layout). Only the unfused pipeline materializes it, one copy per
+    segment; the fused kernels de-interleave in shared memory."""
+    k, n = a_q.shape
+    return a_q.view(k // g, g, n).permute(1, 0, 2).contiguous()
+
+
+def _segment_gemm_int(packed: torch.Tensor, a_q_seg: torch.Tensor, g: int,
+                      impl: str) -> torch.Tensor:
+    """Unfused integer segment: packed (M, KG) uint8 × a_q_seg (K, N) int8
+    → (M, N) int32, through the chosen integer kernel. Nothing is padded:
+    the kernels mask ragged edges themselves."""
+    return _INT_KERNELS[impl](packed, _deinterleave(a_q_seg, g), g=g)
+
+
+def _mpgemm_unfused(pw: PackedWeight, a: torch.Tensor, impl: str,
+                    out_dtype) -> torch.Tensor:
+    """The three-pass pipeline: a (K, N) float → (M, N) out_dtype."""
+    _check_impl(impl)
+    a_q, a_scale = act_quant_tokens(a)                               # (K, N) int8
+    parts = [_segment_gemm_int(packed, a_q[lo:hi], g, impl)
+             for packed, lo, hi, g in _segments(pw)]
+    if not parts:
+        return torch.zeros((pw.M, a.shape[1]), dtype=out_dtype, device=a.device)
+    acc = parts[0] if len(parts) == 1 else parts[0] + parts[1]      # int32 sum
+    w_scale = pw.scale.expand(pw.M)
+    return ((acc.to(torch.float32) * w_scale[:, None]) * a_scale[None, :]).to(out_dtype)
+
+
 def vlut_mpgemm(pw: PackedWeight, a: torch.Tensor, *, impl: str = "decode",
-                out_dtype=torch.float32) -> torch.Tensor:
+                out_dtype=torch.float32, fusion: str = "fused") -> torch.Tensor:
     """Kernel-backed mpGeMM with the JAX package's layout: a (K, N) float,
-    token-contiguous → (M, N)."""
+    token-contiguous → (M, N). `fusion` picks the pipeline (module
+    docstring)."""
+    _check_fusion(fusion)
+    if fusion == "unfused":
+        return _mpgemm_unfused(pw, a, impl, out_dtype)
     return _mpgemm_tokens(pw, a.T.contiguous(), impl, out_dtype).T
 
 
-def ternary_matmul(pw: PackedWeight, x: torch.Tensor, impl: str | None = None) -> torch.Tensor:
+def segment_mpgemm(packed: torch.Tensor, a: torch.Tensor, g: int, impl: str, *,
+                   fused: bool = True, out_dtype=torch.float32) -> torch.Tensor:
+    """One homogeneous-g mpGeMM with unit weight scale: packed (M, K//g)
+    uint8 × a (K, N) float → (M, N), through the fused kernel or the
+    unfused pipeline. (The JAX version is its autotuner's timing target and
+    also takes `tiles=`; the port has no tile choice yet.)"""
+    _check_impl(impl)
+    if fused:
+        x = a.T.contiguous()                                         # (N, K)
+        ones = torch.ones((1,), dtype=torch.float32, device=a.device)
+        out = _KERNELS[impl](packed, x, act_token_scale(a).contiguous(), ones, g=g,
+                             out_dtype=out_dtype)
+        return out.T
+    a_q, a_scale = act_quant_tokens(a)
+    out = _segment_gemm_int(packed, a_q, g, impl)
+    return (out.to(torch.float32) * a_scale[None, :]).to(out_dtype)
+
+
+def ternary_matmul(pw: PackedWeight, x: torch.Tensor, impl: str | None = None,
+                   fusion: str | None = None) -> torch.Tensor:
     """Model-facing packed linear: y (..., M) = x (..., K) · Wᵀ.
 
-    Reads x in its natural token-major layout and writes token-major: the
-    two transposes of the TPU path do not exist here. Routing comes from
-    the process DispatchConfig unless `impl` is given."""
+    The fused pipeline reads x in its natural token-major layout and writes
+    token-major: the two transposes of the TPU path do not exist there. The
+    unfused pipeline keeps the JAX layout, (K, N) in and (M, N) out, around
+    its passes. Routing comes from the process DispatchConfig unless `impl`
+    or `fusion` is given."""
     impl = impl if impl is not None else _dispatch.impl
+    fusion = fusion if fusion is not None else _dispatch.fusion
+    _check_fusion(fusion)
     lead = x.shape[:-1]
-    out = _mpgemm_tokens(pw, x.reshape(-1, x.shape[-1]), impl, x.dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if fusion == "unfused":
+        out = _mpgemm_unfused(pw, x2.T, impl, x.dtype).T
+    else:
+        out = _mpgemm_tokens(pw, x2, impl, x.dtype)
     return out.reshape(*lead, pw.M)

@@ -1,11 +1,13 @@
-"""Fused ternary-decode mpGeMM: the CUDA kernel's wrapper, its plain
-PyTorch version and its launch count.
+"""Ternary-decode mpGeMM: the fused kernel and its integer twin, each with
+its CUDA kernel's wrapper, its plain PyTorch version and its launch count.
 
-Port of the TPU kernel `ternary_decode_gemm_fused`
-(src/repro/kernels/ternary_decode_gemm.py). The CUDA source is
-``csrc/ternary_decode_gemm.cu``. Unlike the TPU wrapper, this one reads the
-activations in the token-major (N, K) layout the model produces and writes
-(N, M): no transposes, no padding.
+Ports of the TPU kernels `ternary_decode_gemm_fused` and
+`ternary_decode_gemm` (src/repro/kernels/ternary_decode_gemm.py). The CUDA
+source of both is ``csrc/ternary_decode_gemm.cu``. Unlike the TPU wrapper,
+the fused one reads the activations in the token-major (N, K) layout the
+model produces and writes (N, M): no transposes, no padding. The integer
+one keeps the TPU contract, pre-quantized de-interleaved int8 a_r
+(g, KG, N) → int32 (M, N), and pads nothing either.
 """
 from __future__ import annotations
 
@@ -49,6 +51,33 @@ def check_fused_args(packed, x, a_scale, w_scale, g: int, out_dtype) -> None:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
 
 
+def check_int_args(packed, a_r, g: int) -> None:
+    """Validate the integer-mpGeMM contract shared by both kernels.
+
+    packed (M, KG) uint8 contiguous; a_r (g, KG, N) int8 contiguous with
+    a_r[j, kg, n] = a_q[kg*g + j, n]; both on one device."""
+    if g not in (4, 5):
+        raise ValueError(f"group size g must be 4 or 5, got {g}")
+    if packed.dtype != torch.uint8 or packed.ndim != 2 or not packed.is_contiguous():
+        raise ValueError(f"packed must be a contiguous (M, KG) uint8 tensor, got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+    kg = packed.shape[1]
+    if (a_r.dtype != torch.int8 or a_r.ndim != 3 or tuple(a_r.shape[:2]) != (g, kg)
+            or not a_r.is_contiguous()):
+        raise ValueError(f"a_r must be a contiguous ({g}, {kg}, N) int8 tensor, got "
+                         f"{a_r.dtype} {tuple(a_r.shape)}")
+    if packed.device != a_r.device:
+        raise ValueError(f"all operands must be on one device, got "
+                         f"{packed.device} and {a_r.device}")
+
+
+def check_f32_exact(k: int) -> None:
+    """The plain versions take integer dot products in f32: exact while
+    every partial sum stays below 2^24, |sum| <= 127*K."""
+    if 127 * k >= 2 ** 24:
+        raise ValueError(f"K={k}: 127*K >= 2^24, the f32 integer dot is no longer exact")
+
+
 def quantize_tokens(x: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
     """Per-token int8 quantization of a token-major (N, K) activation, as
     exact integers in f32: f32 cast first, then divide, round half to even,
@@ -66,12 +95,8 @@ def epilogue(acc: torch.Tensor, w_scale: torch.Tensor, a_scale: torch.Tensor,
 
 def ternary_decode_gemm_fused_plain(packed, x, a_scale, w_scale, *, g: int,
                                     out_dtype=torch.float32) -> torch.Tensor:
-    """Plain version: decode the trits, one f32 matmul of exact integers.
-
-    Exact while every partial sum stays below 2^24: |sum| <= 127*K."""
-    k = x.shape[1]
-    if 127 * k >= 2 ** 24:
-        raise ValueError(f"K={k}: 127*K >= 2^24, the f32 integer dot is no longer exact")
+    """Plain version: decode the trits, one f32 matmul of exact integers."""
+    check_f32_exact(x.shape[1])
     q = quantize_tokens(x, a_scale)                                  # (N, K)
     w = unpack_ternary(packed, g).to(torch.float32)                  # (M, K)
     return epilogue(q @ w.T, w_scale, a_scale, out_dtype)
@@ -99,3 +124,41 @@ def ternary_decode_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
 
 
 ternary_decode_gemm_fused.launches = 0
+
+
+def launch_int(name: str, wrapper, packed, a_r, g: int) -> torch.Tensor:
+    """Launch the integer kernel `name` on CUDA tensors (validated by the
+    caller) into a fresh (M, N) int32 output; count it on `wrapper`."""
+    if a_r.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    out = torch.empty((packed.shape[0], a_r.shape[2]), dtype=torch.int32, device=a_r.device)
+    if out.numel() == 0 or packed.shape[1] == 0:
+        return out.zero_()
+    _build.launch_mpgemm_int(name, packed, a_r, g, out)
+    wrapper.launches += 1
+    return out
+
+
+def ternary_decode_gemm_plain(packed, a_r, *, g: int) -> torch.Tensor:
+    """Plain version of the integer kernel: decode the trits and take the
+    exact integer product W (M, K) · A_q (K, N) as one f32 matmul of exact
+    integers → (M, N) int32."""
+    _, kg, n = a_r.shape
+    check_f32_exact(kg * g)
+    a_q = a_r.permute(1, 0, 2).reshape(kg * g, n).to(torch.float32)   # (K, N)
+    w = unpack_ternary(packed, g).to(torch.float32)                  # (M, K)
+    return (w @ a_q).to(torch.int32)
+
+
+def ternary_decode_gemm(packed, a_r, *, g: int) -> torch.Tensor:
+    """packed (M, KG) uint8 × a_r (g, KG, N) int8 → (M, N) int32, exact.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    add one to ``ternary_decode_gemm.launches``) or raise."""
+    check_int_args(packed, a_r, g)
+    if a_r.device.type == "cpu":
+        return ternary_decode_gemm_plain(packed, a_r, g=g)
+    return launch_int("ternary_decode_gemm", ternary_decode_gemm, packed, a_r, g)
+
+
+ternary_decode_gemm.launches = 0

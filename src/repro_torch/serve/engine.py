@@ -56,7 +56,8 @@ class Engine:
 
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 8,
                  max_len: int = 512, temperature: float = 0.0, seed: int = 0,
-                 mpgemm_impl: str | None = None, spec=None, prefill_chunk: int = 0,
+                 mpgemm_impl: str | None = None, mpgemm_fusion: str | None = None,
+                 spec=None, prefill_chunk: int = 0,
                  paged_kv=None, obs=None, device="cuda"):
         unported = {"spec": spec is not None, "prefill_chunk": bool(prefill_chunk),
                     "paged_kv": paged_kv is not None, "obs": obs is not None}
@@ -70,7 +71,9 @@ class Engine:
         self.max_len = max_len
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.mpgemm_impl = mpgemm_impl
+        # mpGeMM routing for every BitLinear this engine runs (None: the
+        # process DispatchConfig's default)
+        self._mpgemm = dict(impl=mpgemm_impl, fusion=mpgemm_fusion)
         self.cache = init_cache(cfg, max_slots, max_len, device=self.device)
         self.slot_free = [True] * max_slots
         self.slot_req: dict[int, Request] = {}
@@ -105,7 +108,7 @@ class Engine:
             return False
         req.slot = slot
         req.t_submit = req.t_submit or time.perf_counter()
-        with kernel_ops.dispatch_override(impl=self.mpgemm_impl):
+        with kernel_ops.dispatch_override(**self._mpgemm):
             logits, self.cache, padded = prefill_into_slot(
                 self.params, self.cache, slot, req.prompt, self.cfg,
                 max_len=self.max_len,
@@ -163,7 +166,7 @@ class Engine:
         if not self.active.any():
             return
         self.decode_steps += 1
-        with kernel_ops.dispatch_override(impl=self.mpgemm_impl):
+        with kernel_ops.dispatch_override(**self._mpgemm):
             logits, self.cache = model_decode(self.params, self.last_token, self.cache, self.cfg)
         nxt_dev = self._sample(logits)                               # (B,)
         self.last_token = nxt_dev[:, None]

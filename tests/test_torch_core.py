@@ -4,6 +4,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -17,6 +18,10 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 # K = 64 and 964 carry a g=4 segment (64 = 5*12 + 4, 964 = 5*192 + 4);
 # all are multiples of 4, so each also packs as g=4 only ("i2")
 KS = (60, 64, 160, 964)
+# the JAX functions as its mpGeMM paths run them: under jit
+_jit_act_quant_tokens = jax.jit(jquant.act_quant_tokens)
+_jit_act_token_scale = jax.jit(jquant.act_token_scale)
+_jit_ref_mpgemm = jax.jit(jref.ref_mpgemm)
 
 
 def _weights(k, m=24, seed=0):
@@ -67,15 +72,18 @@ def test_packed_bytes_equal(k, mode):
 
 @pytest.mark.parametrize("k", KS)
 def test_act_quant_tokens_bit_identical(k):
+    """Against the quantizer as every JAX mpGeMM path runs it, under
+    `jax.jit`: there XLA turns the scale's division by 127 into a product
+    with the f32 reciprocal, which the port's scale follows."""
     a = _acts(k)
     a[:, 0] = 0.0  # an all-zero token takes the 1e-6 floor
-    jq, js = jquant.act_quant_tokens(jnp.asarray(a))
+    jq, js = _jit_act_quant_tokens(jnp.asarray(a))
     tq, ts = tquant.act_quant_tokens(torch.from_numpy(a))
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(
         tquant.act_token_scale(torch.from_numpy(a)).numpy(),
-        np.asarray(jquant.act_token_scale(jnp.asarray(a))))
+        np.asarray(_jit_act_token_scale(jnp.asarray(a))))
 
 
 @pytest.mark.parametrize("k", KS)
@@ -95,11 +103,14 @@ def test_ref_mpgemm_int_exact(k):
 
 @pytest.mark.parametrize("k", KS)
 def test_ref_mpgemm_float(k):
-    """Float oracle: same int result, same f32 scale order → bit equal."""
+    """Float oracle: same int result, same f32 scale order → bit equal to
+    the JAX oracle under `jax.jit`, the form its kernels run (its scale is
+    then the product with the f32 reciprocal of 127, see
+    test_act_quant_tokens_bit_identical)."""
     w, a = _weights(k), _acts(k)
     jt = jquant.ternary_quantize(jnp.asarray(w))
     jp = jpack.pack_weight(jt.values, jt.scale)
     tp = tpack.pack_weight(torch.tensor(np.asarray(jt.values)),
                            torch.tensor(np.asarray(jt.scale)))
     np.testing.assert_array_equal(tref.ref_mpgemm(tp, torch.from_numpy(a)).numpy(),
-                                  np.asarray(jref.ref_mpgemm(jp, jnp.asarray(a))))
+                                  np.asarray(_jit_ref_mpgemm(jp, jnp.asarray(a))))

@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import act_token_scale  # noqa: E402
+from repro_torch.core import act_token_scale, pack_weight, ternary_quantize  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ternary_decode_gemm as tdg  # noqa: E402
 from repro_torch.kernels import vlut_lookup_gemm as vlg  # noqa: E402
@@ -22,6 +23,10 @@ from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request  # no
 KERNELS = {
     "decode": (tdg.ternary_decode_gemm_fused, tdg.ternary_decode_gemm_fused_plain),
     "lookup": (vlg.vlut_lookup_gemm_fused, vlg.vlut_lookup_gemm_fused_plain),
+}
+INT_KERNELS = {
+    "decode": (tdg.ternary_decode_gemm, tdg.ternary_decode_gemm_plain),
+    "lookup": (vlg.vlut_lookup_gemm, vlg.vlut_lookup_gemm_plain),
 }
 
 
@@ -53,6 +58,55 @@ def test_kernel_matches_plain(cuda, impl):
                 want = plain(packed, x.to(dt), a_scale, w_scale, g=g, out_dtype=dt)
                 assert kern.launches == before + 1
                 assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+def test_int_kernel_matches_plain(cuda, impl):
+    """Each integer kernel against its plain version, bit for bit, on
+    ragged edges (M, K-groups and N not multiples of the tiles) and the
+    saturated case (all +1 weights, activations 127: every sum 127*K)."""
+    kern, plain = INT_KERNELS[impl]
+    rng = np.random.default_rng(8)
+    for m, kg, g, n in [(960, 192, 5, 4), (70, 1, 4, 3), (130, 7, 4, 33), (65, 13, 5, 17),
+                        (2560, 512, 5, 64)]:
+        packed = torch.tensor(rng.integers(0, 3 ** g, (m, kg)).astype(np.uint8), device=cuda)
+        a_r = torch.tensor(rng.integers(-127, 128, (g, kg, n)).astype(np.int8), device=cuda)
+        before = kern.launches
+        got = kern(packed, a_r, g=g)
+        want = plain(packed, a_r, g=g)
+        assert kern.launches == before + 1
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    for g in (4, 5):
+        packed = torch.full((70, 64), 3 ** g - 1, dtype=torch.uint8, device=cuda)   # all +1
+        a_r = torch.full((g, 64, 19), 127, dtype=torch.int8, device=cuda)
+        got = kern(packed, a_r, g=g)
+        assert int(got.min()) == int(got.max()) == 127 * 64 * g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+def test_unfused_pipeline_on_the_card(cuda, impl):
+    """vlut_mpgemm: the unfused pipeline through the integer kernel equals
+    the fused kernel bit for bit on one segment and to f32 rounding on two,
+    and the same pipeline on the CPU bit for bit."""
+    rng = np.random.default_rng(9)
+    for k in (960, 964):
+        w = torch.tensor(rng.standard_normal((320, k)).astype(np.float32))
+        tw = ternary_quantize(w)
+        pw = pack_weight(tw.values, tw.scale)
+        a = torch.tensor(rng.standard_normal((k, 16)).astype(np.float32))
+        cpu = ops.vlut_mpgemm(pw, a, impl=impl, fusion="unfused")
+        pw_d = pack_weight(tw.values.to(cuda), tw.scale.to(cuda))
+        before = INT_KERNELS[impl][0].launches
+        got = ops.vlut_mpgemm(pw_d, a.to(cuda), impl=impl, fusion="unfused")
+        assert INT_KERNELS[impl][0].launches == before + (2 if pw.k4 else 1)
+        fused = ops.vlut_mpgemm(pw_d, a.to(cuda), impl=impl)
+        assert torch.equal(got.cpu(), cpu)
+        if pw.k4:
+            torch.testing.assert_close(got, fused, rtol=0, atol=1e-6 * fused.abs().max().item())
+        else:
+            assert torch.equal(got, fused)
 
 
 @pytest.mark.cuda

@@ -119,7 +119,9 @@ def test_dispatch_semantics(monkeypatch):
             raise RuntimeError("boom")
     assert base.impl == "decode"                         # restored on error
     with pytest.raises(TypeError):
-        ops.configure_dispatch(fusion="unfused")
+        ops.configure_dispatch(interpret=True)             # a TPU-only knob
+    with pytest.raises(ValueError):
+        ops.configure_dispatch(fusion="staged")
     with pytest.raises(NotImplementedError):
         ops.configure_dispatch(impl="xla")
     with pytest.raises(ValueError):
