@@ -14,7 +14,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (K = 964), N in {1, 4, 16, 64, 256} tokens, for f32->f32, bf16->bf16 and
    bf16->f32 (activation->output). Expected difference: exactly 0 (the
    integer core is exact in both, and the f32 epilogue is the same
-   operations in the same order). Then the device time of one forward's 224
+   operations in the same order). The vector-LUT kernel's split-K traps
+   (its launch plan splits K across blocks that meet in an int32 workspace
+   with arrival counters): ragged shapes (M 70 and 1000, N 17 and 33, KG
+   not divisible by the plan's splits, the g=4 segment of one K-group), the
+   saturated sum 127*K at the main path's largest split, every case
+   launched twice back to back with the others (bit-equal), and a CUDA
+   graph of all of them replayed 3 times; expected difference exactly 0.
+   Each shape's plan (BM, S, chunk, blocks, shared bytes) and each
+   instantiation's registers (-Xptxas -v) are logged. Then the device time of one forward's 224
    launches at each N, beside the bound, the plain version's time and a
    bf16 `torch.matmul` against the dequantized weights (a yardstick only:
    the port never calls it).
@@ -32,7 +40,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (a) Each integer kernel (`ternary_decode_gemm`, `vlut_lookup_gemm`)
    against its plain version at the shapes and N of phase 3, plus the
    saturated case (all +1 weights, activations 127: every sum 127*K at
-   K = 2560 and 960). Expected difference: exactly 0. (b) `vlut_mpgemm`
+   K = 2560 and 960), and `vlut_lookup_gemm`'s split-K traps as in phase 3.
+   Expected difference: exactly 0. (b) `vlut_mpgemm`
    fused against unfused, both impls: bit-identical on one segment, within
    1e-6 of the output's magnitude at K = 964. (c) Serving as in phase 4
    with `Engine(mpgemm_fusion="unfused")`, once per impl: that impl's
@@ -116,6 +125,12 @@ KERNEL_META = {
 # (g, (M, KG)) of the saturated integer checks: all +1 weights, activations
 # 127, every sum 127*K (K = 2560 and 960)
 SATURATED = ((5, (2560, 512)), (4, (960, 240)))
+# The vector-LUT kernels' split-K traps, (M, KG, N, g): ragged M (70,
+# 1000), N = 17 and 33, KG not divisible by the plan's splits, the K = 964
+# weight's one-group g=4 segment, and smollm-360m's q at a decode step.
+LUT_RAGGED = ((70, 13, 17, 5), (1000, 77, 33, 5), (1000, 191, 17, 4), (70, 1, 3, 4),
+              (960, 192, 4, 5))
+LUT_REPLAYS = 3           # CUDA-graph replays before the outputs are compared
 # With two segments the fused pipeline sums one f32 partial per segment and
 # the unfused one int32 before a single dequant: f32 rounding apart.
 FUSION_RTOL = 1e-6
@@ -220,9 +235,64 @@ def bitlinear_weights(torch, model, gen) -> dict:
     return weights
 
 
+def lut_plan_row(vlg, m, kg, n, g) -> dict:
+    p = vlg.lut_plan(m, kg, n, g)
+    return {"shape": [m, kg, n, g], "bm": p.bm, "splits": p.splits, "chunk": p.chunk,
+            "blocks": p.blocks, "smem": p.smem, "kg_divisible_by_splits": kg % p.splits == 0}
+
+
+def lut_registers(_build) -> dict:
+    """`-Xptxas -v` registers of each vector-LUT kernel instantiation."""
+    regs, entry = {}, None
+    for line in _build.build_log().splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "vlut_kernel" in line else None
+        elif entry and "registers" in line:
+            regs[entry] = int(line.split("Used ")[1].split()[0])
+            entry = None
+    return regs
+
+
+def lut_traps(torch, name, kern, plain, cases) -> dict:
+    """The split-K traps of a vector-LUT kernel, each against its plain
+    version with an expected difference of exactly 0. cases: [(args,
+    kwargs)]. (1) Every case launched twice, back to back with the other
+    cases and no sync between (different shapes share the workspace and
+    counters): both launches equal the plain version. (2) One CUDA graph of
+    all cases replayed LUT_REPLAYS times (a workspace or counter left dirty
+    would add into the next replay): the outputs equal the plain version."""
+    wants = [plain(*a, **kw) for a, kw in cases]
+    firsts = [kern(*a, **kw) for a, kw in cases]
+    seconds = [kern(*a, **kw) for a, kw in cases]
+    torch.cuda.synchronize()
+    for (a, kw), want, first, second in zip(cases, wants, firsts, seconds):
+        if not (torch.equal(first, want) and torch.equal(second, first)):
+            raise AssertionError(f"{name}: repeat launches at {tuple(a[0].shape)} x "
+                                 f"{tuple(a[1].shape)} differ from the plain version or each other")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [kern(*a, **kw) for a, kw in cases]
+    for _ in range(LUT_REPLAYS):
+        graph.replay()
+    torch.cuda.synchronize()
+    for (a, kw), want, out in zip(cases, wants, outs):
+        if not torch.equal(out, want):
+            raise AssertionError(f"{name}: after {LUT_REPLAYS} graph replays the output at "
+                                 f"{tuple(a[0].shape)} x {tuple(a[1].shape)} differs from the plain version")
+    del graph
+    return {"cases": len(cases), "repeat_launches": 2, "graph_replays": LUT_REPLAYS, "max_abs_err": 0}
+
+
+def lut_largest_split(vlg) -> tuple:
+    """(M, KG, N) of the main path's plan with the most K-splits (g=5)."""
+    return max(((m, k // 5, n) for m, k in SHAPES for n in TOKENS),
+               key=lambda s: vlg.lut_plan(*s, 5).splits)
+
+
 def check_kernels(torch, model, cfg):
     """Phase 3: kernels against their plain versions, then timing."""
     from repro_torch.core import act_token_scale
+    from repro_torch.core.quantize import INV_Q_MAX
     from repro_torch.kernels import ops
     from repro_torch.kernels import ternary_decode_gemm as tdg
     from repro_torch.kernels import vlut_lookup_gemm as vlg
@@ -256,9 +326,46 @@ def check_kernels(torch, model, cfg):
                         max_err[name] = max(max_err[name], err)
                         n_checks += 1
     log(f"kernels: {n_checks} kernel-vs-plain checks, max |diff| {max_err}")
+    for n in TOKENS:
+        log(f"kernels: LUT plans at N={n}: " + "; ".join(
+            f"{m}x{k}: BM {p.bm} S {p.splits} chunk {p.chunk} blocks {p.blocks} smem {p.smem}"
+            for m, k in SHAPES for p in [vlg.lut_plan(m, k // 5, n, 5)]))
     for name, err in max_err.items():
         if err != 0.0:
             raise AssertionError(f"{name} differs from its plain version by {err} (expected 0)")
+
+    # the vector-LUT kernel's split-K traps: ragged shapes, repeat and
+    # back-to-back launches, graph replays, the saturated sum at the
+    # largest split
+    cases = []
+    for m, kg, n, g in LUT_RAGGED:
+        packed = torch.randint(0, 3 ** g, (m, kg), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.uint8)
+        x = torch.randn((n, kg * g), generator=gen, device=dev) * 3.0
+        w_scale = torch.rand((m,), generator=gen, device=dev)
+        for dt in ((torch.float32, torch.bfloat16) if (m, n) == (960, 4) else (torch.float32,)):
+            cases.append(((packed, x.to(dt), act_token_scale(x.to(dt).T).contiguous(), w_scale),
+                          dict(g=g, out_dtype=dt)))
+    m, kg, n = lut_largest_split(vlg)
+    sat = ((torch.full((m, kg), 3 ** 5 - 1, dtype=torch.uint8, device=dev),
+            torch.ones((n, kg * 5), device=dev), torch.full((n,), 1.0, device=dev) * INV_Q_MAX,
+            torch.ones((m,), device=dev)), dict(g=5, out_dtype=torch.float32))
+    sat_out = vlg.vlut_lookup_gemm_fused(*sat[0], **sat[1])
+    if not torch.equal(sat_out, vlg.vlut_lookup_gemm_fused_plain(*sat[0], **sat[1])):
+        raise AssertionError("vlut_lookup_gemm_fused: saturated sums differ from the plain version")
+    traps = lut_traps(torch, "vlut_lookup_gemm_fused", vlg.vlut_lookup_gemm_fused,
+                      vlg.vlut_lookup_gemm_fused_plain, cases + [sat])
+    traps["plans"] = [lut_plan_row(vlg, *shape) for shape in LUT_RAGGED]
+    traps["saturated"] = {"shape": [m, kg, n], "splits": vlg.lut_plan(m, kg, n, 5).splits,
+                          "sum": 127 * kg * 5}
+    if all(row["kg_divisible_by_splits"] for row in traps["plans"]):
+        raise AssertionError("no LUT trap shape has KG indivisible by its splits")
+    log(f"kernels: vlut_lookup_gemm_fused traps: {traps['cases']} cases (ragged, saturated sums "
+        f"127*K at the largest split {traps['saturated']}), each launched twice back to back "
+        f"and in a CUDA graph replayed {LUT_REPLAYS} times: max |diff| 0")
+    for row in traps["plans"]:
+        log(f"kernels: LUT plan (M, KG, N, g) = {tuple(row['shape'])}: BM {row['bm']}, S "
+            f"{row['splits']}, chunk {row['chunk']}, {row['blocks']} blocks, {row['smem']} B shared")
 
     # device time of one forward's 224 launches (all 32 layers' weights,
     # so the ~63 MB of packed weights stream from memory as in serving)
@@ -293,7 +400,7 @@ def check_kernels(torch, model, cfg):
                         f"plain {row[nm]['plain_ms']:.4f})" for nm in kernels)
             + f", bf16 matmul yardstick {row['library_ms']:.4f} ms")
     del dense
-    return max_err, per_n, weights
+    return max_err, per_n, weights, traps
 
 
 def serve(torch, model, cfg, impl: str, prompts, counters, fusion: str = "fused"):
@@ -398,6 +505,29 @@ def check_unfused(torch, model, cfg, weights, prompts, counters, fused_runs, per
     for name, err in max_err.items():
         if err != 0:
             raise AssertionError(f"{name} differs from its plain version by {err} (expected 0)")
+
+    # the vector-LUT integer kernel's split-K traps, as phase 3's
+    cases = []
+    for m, kg, n, g in LUT_RAGGED:
+        cases.append(((torch.randint(0, 3 ** g, (m, kg), generator=gen, device=dev,
+                                     dtype=torch.int32).to(torch.uint8),
+                       torch.randint(-127, 128, (g, kg, n), generator=gen, device=dev,
+                                     dtype=torch.int32).to(torch.int8)), dict(g=g)))
+    m, kg, n = lut_largest_split(vlg)
+    sat = ((torch.full((m, kg), 3 ** 5 - 1, dtype=torch.uint8, device=dev),
+            torch.full((5, kg, n), 127, dtype=torch.int8, device=dev)), dict(g=5))
+    out = vlg.vlut_lookup_gemm(*sat[0], **sat[1])
+    torch.cuda.synchronize()
+    if not int(out.min()) == int(out.max()) == 127 * kg * 5:
+        raise AssertionError(f"vlut_lookup_gemm: saturated sums {int(out.min())}..{int(out.max())} "
+                             f"at the largest split, expected {127 * kg * 5}")
+    traps = lut_traps(torch, "vlut_lookup_gemm", vlg.vlut_lookup_gemm, vlg.vlut_lookup_gemm_plain,
+                      cases + [sat])
+    traps["saturated"] = {"shape": [m, kg, n], "splits": vlg.lut_plan(m, kg, n, 5).splits,
+                          "sum": 127 * kg * 5}
+    log(f"unfused: vlut_lookup_gemm traps: {traps['cases']} cases (ragged, saturated sums 127*K "
+        f"at the largest split {traps['saturated']}), each launched twice back to back and in "
+        f"a CUDA graph replayed {LUT_REPLAYS} times: max |diff| 0")
 
     # (b) vlut_mpgemm fused against unfused
     fu_err = {impl: 0.0 for impl in IMPLS}
@@ -524,7 +654,8 @@ def check_unfused(torch, model, cfg, weights, prompts, counters, fused_runs, per
         log(f"compare: (M, K) = {COMPARE_SHAPE}, N={n}: "
             + ", ".join(f"{nm} {v['ms']:.4f}" for nm, v in row.items())
             + f" ms; winner {winner}")
-    return {"max_abs_err": max_err, "checks": n_checks, "fused_vs_unfused_max_abs_diff": fu_err,
+    return {"max_abs_err": max_err, "checks": n_checks, "lut_traps": traps,
+            "fused_vs_unfused_max_abs_diff": fu_err,
             "serve": runs, "per_tokens": per_n_unfused, "compare": compare}
 
 
@@ -800,6 +931,8 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"build: {line.strip()}")
+    for entry, n_regs in lut_registers(_build).items():
+        log(f"build: vector-LUT instantiation {entry}: {n_regs} registers")
 
     # model for phases 3 to 5
     cfg = get_config("smollm-360m")
@@ -809,7 +942,7 @@ def main() -> int:
     log(f"model: {cfg.name} {cfg.dtype}, {cfg.n_layers} layers, packed in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels
-    max_err, per_n, weights = check_kernels(torch, model, cfg)
+    max_err, per_n, weights, lut_fused_traps = check_kernels(torch, model, cfg)
 
     # 4. serve
     rng = np.random.default_rng(0)
@@ -901,7 +1034,9 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches (unfused pipelines: 224 BitLinears); compare: one call at (M, K) = (2560, 960); flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
-        "per_tokens": per_n, "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+        "per_tokens": per_n, "lut_fused_traps": lut_fused_traps,
+        "lut_registers": lut_registers(_build),
+        "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
                                        for k, v in runs.items()},
         "unfused": {**unfused, "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
                                          for k, v in unfused["serve"].items()}},

@@ -10,10 +10,11 @@ fake-quants (STE) of the QAT training path.
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, and the
 quantizers divide by the scale (never multiply by a reciprocal), so both
-packages produce the same bits. The mpGeMM scale `act_token_scale` is the
-jitted JAX form, a product with 1/127 rounded to f32 (`INV_Q_MAX`); the QAT
-fake-quant `act_quant_int8` keeps the division of eager JAX (under `jit`
-the two differ by one ulp in some scales).
+packages produce the same bits. Both activation scales, the mpGeMM
+`act_token_scale` and the QAT `act_quant_int8`, are the jitted JAX form, a
+product with 1/127 rounded to f32 (`INV_Q_MAX`): the JAX package runs both
+under `jit` (its mpGeMM entries and its train step), where XLA rewrites the
+division by 127; eager JAX divides and differs by one ulp in some scales.
 
 The STE form is ``w + (wq - w).detach()``: forward ``wq`` (up to the
 rounding of the two adds in the working dtype, as in JAX), backward the
@@ -51,8 +52,8 @@ def ternary_quantize(w: torch.Tensor, per_channel: bool = True) -> TernaryWeight
 #: 1/127 rounded to f32. Under `jax.jit`, XLA rewrites the JAX package's
 #: ``max(amax, eps) / 127`` (a division by a constant) into a product with
 #: this reciprocal, which differs from the true quotient by one ulp for some
-#: values; the mpGeMM scale follows the jitted form, the one every JAX
-#: mpGeMM path runs.
+#: values; the activation scales follow the jitted form, the one every JAX
+#: mpGeMM path and the JAX train step run.
 INV_Q_MAX = float(np.float32(1.0) / np.float32(Q_MAX))
 
 
@@ -106,10 +107,11 @@ class QuantizedActivation(NamedTuple):
 
 def act_quant_int8(a: torch.Tensor, axis: int = -1) -> QuantizedActivation:
     """Symmetric per-token int8 quantization; `axis` is the feature axis that
-    is reduced (each token keeps its own scale)."""
+    is reduced (each token keeps its own scale). The scale is the jitted JAX
+    form (`INV_Q_MAX`), as the JAX train step computes it."""
     a = a.to(torch.float32)
     amax = a.abs().amax(axis, keepdim=True)
-    scale = torch.clamp_min(amax, EPS) / Q_MAX
+    scale = torch.clamp_min(amax, EPS) * INV_Q_MAX
     q = torch.round(a / scale).clamp(-Q_MAX, Q_MAX).to(torch.int8)
     return QuantizedActivation(q, scale)
 

@@ -1,6 +1,8 @@
-// Shared pieces of the mpGeMM kernels: tile geometry, the prologues (the
-// fused kernels' activation quantization, the integer kernels' int8 tile
-// copy) and the epilogues (scaled float store, raw int32 store).
+// Shared pieces of the mpGeMM kernels: the layout contracts, the tile
+// geometry and the token-scale load of all four, and the decode kernels'
+// prologues (the fused kernel's activation quantization, the integer
+// kernel's int8 tile copy) and epilogues (scaled float store, raw int32
+// store); the vector-LUT kernels keep their own in vlut_lookup_gemm.cu.
 //
 // Layout contract of the fused kernels:
 //   packed  (M, KG) uint8, row-major, trit codes of one homogeneous-g segment
@@ -125,7 +127,8 @@ __device__ __forceinline__ void write_row(TO* __restrict__ out, long long ldo,
 
 }  // namespace vlut
 
-// The C entry of each fused kernel:
+// The C entry of the fused decode kernel (the vector-LUT kernels' entries,
+// which also take their launch plan, are in vlut_lookup_gemm.cu):
 //   int <name>(packed, a, a_scale, w_scale, out, M, KG, N, g, lda, ldo,
 //              ws_stride, a_bf16, out_bf16, stream)
 // launches on `stream` and returns cudaGetLastError().
@@ -135,7 +138,7 @@ __device__ __forceinline__ void write_row(TO* __restrict__ out, long long ldo,
       long long lda, long long ldo, int ws_stride, int a_bf16, int out_bf16, \
       void *stream
 
-// The C entry of each integer kernel:
+// The C entry of the integer decode kernel:
 //   int <name>(packed, a_r, out, M, KG, N, g, stream)
 // launches on `stream` and returns cudaGetLastError().
 #define VLUT_INT_ENTRY_ARGS                                               \

@@ -41,6 +41,23 @@ _INT_ARGTYPES = (                    # VLUT_INT_ENTRY_ARGS (mpgemm_common.cuh)
     + [ctypes.c_int] * 4             # M, KG, N, g
     + [ctypes.c_void_p]              # stream
 )
+_PLAN_ARGTYPES = (                   # the launch plan (vlut_lookup_gemm.cu)
+    [ctypes.c_int] * 3               # bm, splits, chunk
+    + [ctypes.c_longlong]            # dynamic shared bytes
+    + [ctypes.c_void_p]              # stream
+)
+_LUT_ARGTYPES = (                    # VLUT_LUT_ENTRY_ARGS (vlut_lookup_gemm.cu)
+    [ctypes.c_void_p] * 7            # packed, a, a_scale, w_scale, out, ws, counters
+    + [ctypes.c_int] * 4             # M, KG, N, g
+    + [ctypes.c_longlong] * 2        # lda, ldo
+    + [ctypes.c_int] * 3             # ws_stride, a_bf16, out_bf16
+    + _PLAN_ARGTYPES
+)
+_LUT_INT_ARGTYPES = (                # VLUT_LUT_INT_ENTRY_ARGS (vlut_lookup_gemm.cu)
+    [ctypes.c_void_p] * 5            # packed, a_r, out, ws, counters
+    + [ctypes.c_int] * 4             # M, KG, N, g
+    + _PLAN_ARGTYPES
+)
 _FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
     [ctypes.c_void_p] * 4            # q, k, v, o
     + [ctypes.c_int] * 6             # B, H, KV, Sq, Sk, D
@@ -56,9 +73,9 @@ ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused",
 #: the ctypes signature of every entry
 _ARGTYPES = {
     "ternary_decode_gemm_fused": _MPGEMM_ARGTYPES,
-    "vlut_lookup_gemm_fused": _MPGEMM_ARGTYPES,
+    "vlut_lookup_gemm_fused": _LUT_ARGTYPES,
     "ternary_decode_gemm": _INT_ARGTYPES,
-    "vlut_lookup_gemm": _INT_ARGTYPES,
+    "vlut_lookup_gemm": _LUT_INT_ARGTYPES,
     "flash_attention_fwd": _FLASH_ARGTYPES,
 }
 
@@ -177,6 +194,43 @@ def launch_mpgemm_int(name: str, packed: torch.Tensor, a_r: torch.Tensor, g: int
             packed.shape[1], a_r.shape[2], g, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def launch_lut(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,
+               w_scale: torch.Tensor, g: int, out: torch.Tensor, plan, ws, counters) -> None:
+    """Call `vlut_lookup_gemm_fused` with its launch plan (a `LutPlan`) and,
+    for plan.splits > 1, the zeroed int32 workspace and counters, on
+    PyTorch's current stream; raise on any CUDA error the launch reports
+    (a plan the kernel refuses included). Arguments are validated by the
+    caller."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = load().vlut_lookup_gemm_fused(
+        packed.data_ptr(), x.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), _ptr(ws), _ptr(counters), packed.shape[0], packed.shape[1],
+        x.shape[0], g, x.stride(0), out.stride(0), 1 if w_scale.shape[0] > 1 else 0,
+        int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
+        plan.bm, plan.splits, plan.chunk, plan.smem, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"vlut_lookup_gemm_fused: CUDA error {rc} at launch ({plan})")
+
+
+def launch_lut_int(packed: torch.Tensor, a_r: torch.Tensor, g: int, out: torch.Tensor,
+                   plan, ws, counters) -> None:
+    """Call `vlut_lookup_gemm` (packed (M, KG) u8, a_r (g, KG, N) i8 → out
+    (M, N) i32) as `launch_lut` calls the fused entry."""
+    stream = torch.cuda.current_stream(a_r.device).cuda_stream
+    rc = load().vlut_lookup_gemm(
+        packed.data_ptr(), a_r.data_ptr(), out.data_ptr(), _ptr(ws), _ptr(counters),
+        packed.shape[0], packed.shape[1], a_r.shape[2], g,
+        plan.bm, plan.splits, plan.chunk, plan.smem, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"vlut_lookup_gemm: CUDA error {rc} at launch ({plan})")
 
 
 def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,

@@ -126,19 +126,6 @@ def ternary_decode_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
 ternary_decode_gemm_fused.launches = 0
 
 
-def launch_int(name: str, wrapper, packed, a_r, g: int) -> torch.Tensor:
-    """Launch the integer kernel `name` on CUDA tensors (validated by the
-    caller) into a fresh (M, N) int32 output; count it on `wrapper`."""
-    if a_r.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
-    out = torch.empty((packed.shape[0], a_r.shape[2]), dtype=torch.int32, device=a_r.device)
-    if out.numel() == 0 or packed.shape[1] == 0:
-        return out.zero_()
-    _build.launch_mpgemm_int(name, packed, a_r, g, out)
-    wrapper.launches += 1
-    return out
-
-
 def ternary_decode_gemm_plain(packed, a_r, *, g: int) -> torch.Tensor:
     """Plain version of the integer kernel: decode the trits and take the
     exact integer product W (M, K) · A_q (K, N) as one f32 matmul of exact
@@ -158,7 +145,14 @@ def ternary_decode_gemm(packed, a_r, *, g: int) -> torch.Tensor:
     check_int_args(packed, a_r, g)
     if a_r.device.type == "cpu":
         return ternary_decode_gemm_plain(packed, a_r, g=g)
-    return launch_int("ternary_decode_gemm", ternary_decode_gemm, packed, a_r, g)
+    if a_r.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    out = torch.empty((packed.shape[0], a_r.shape[2]), dtype=torch.int32, device=a_r.device)
+    if out.numel() == 0 or packed.shape[1] == 0:
+        return out.zero_()
+    _build.launch_mpgemm_int("ternary_decode_gemm", packed, a_r, g, out)
+    ternary_decode_gemm.launches += 1
+    return out
 
 
 ternary_decode_gemm.launches = 0

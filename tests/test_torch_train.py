@@ -35,7 +35,8 @@ def test_fake_quant_forward_matches_jax(dtype):
     fake_act_quant. The absmean scale is a float mean summed in another
     order than XLA's (a few f32 ulp, ROADMAP C), so dequantized weights
     agree to 1e-6 relative; the ternary codes, the int8 codes and the
-    activation path (amax, divide, round half to even) agree exactly."""
+    activation path (amax, scale, divide, round half to even) agree exactly
+    with jitted JAX, as the JAX train step runs it."""
     rng = np.random.default_rng(0)
     w = rng.standard_normal((3, 40, 24)).astype(np.float32)
     a = (rng.standard_normal((5, 7, 40)) * 3).astype(np.float32)
@@ -52,12 +53,36 @@ def test_fake_quant_forward_matches_jax(dtype):
     np.testing.assert_allclose(tq.ternary_dequantize(tt).numpy(),
                                np.asarray(jq.ternary_dequantize(jt)), rtol=1e-6)
     for axis in (-1, 0):
-        jqa, tqa = jq.act_quant_int8(ja, axis), tq.act_quant_int8(ta, axis)
-        np.testing.assert_array_equal(tqa.values.numpy(), np.asarray(jqa.values))
-        np.testing.assert_array_equal(tqa.scale.numpy(), np.asarray(jqa.scale))
-        got, want = tq.fake_act_quant(ta, axis), jq.fake_act_quant(ja, axis)
-        assert got.dtype == tdt
-        np.testing.assert_array_equal(_np(got), _np(want))
+        _check_act_quant(ja, ta, axis)
+
+
+# the JAX train step runs the activation quantizers under jit, where XLA
+# multiplies by the f32 reciprocal of 127 instead of dividing
+_jit_act_quant = jax.jit(jq.act_quant_int8, static_argnums=1)
+_jit_fake_act_quant = jax.jit(jq.fake_act_quant, static_argnums=1)
+
+
+def _check_act_quant(ja, ta, axis):
+    """act_quant_int8 (codes and scales) and fake_act_quant bit for bit
+    against the jitted JAX functions."""
+    jqa, tqa = _jit_act_quant(ja, axis), tq.act_quant_int8(ta, axis)
+    np.testing.assert_array_equal(tqa.values.numpy(), np.asarray(jqa.values))
+    np.testing.assert_array_equal(tqa.scale.numpy(), np.asarray(jqa.scale))
+    got, want = tq.fake_act_quant(ta, axis), _jit_fake_act_quant(ja, axis)
+    assert got.dtype == ta.dtype
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_act_quant_matches_jitted_jax_where_eager_differs():
+    """4096 tokens × 64 features (numpy seed 0, × 3): some per-token scales
+    of eager JAX (a true division by 127) differ from the jitted ones (a
+    product with its f32 reciprocal); the port equals the jitted form."""
+    a = (np.random.default_rng(0).standard_normal((4096, 64)) * 3).astype(np.float32)
+    ja, ta = jnp.asarray(a), torch.tensor(a)
+    eager = np.asarray(jq.act_quant_int8(ja, -1).scale)
+    jitted = np.asarray(_jit_act_quant(ja, -1).scale)
+    assert (eager != jitted).sum() > 0
+    _check_act_quant(ja, ta, -1)
 
 
 @pytest.mark.parametrize("fn", ["fake_ternary", "fake_ternary_cols", "fake_act_quant"])
