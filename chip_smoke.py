@@ -61,14 +61,23 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    quantization, within the JAX suite's rtol 0.1 / atol 0.15) and timed;
    the winner per N.
 6. flash: the flash-attention kernel against its plain PyTorch version on
-   the card: smollm-360m's heads (H 15, KV 5, D 64) and odd ones (D 20, 32,
-   128; H/KV 1 and 3), S in {1, 17, 256, 512, 2048}, causal or not, window
-   0 or 24, softcap 0 or 20, f32 and bf16, q/k/v read as transposed views
-   of the model's (B, S, H, D) tensors. Then the gradients of
+   the card (bf16 with D <= 128 runs the tensor-core kernel, f32 the
+   CUDA-core one): smollm-360m's heads (H 15, KV 5, D 64) and odd ones (D
+   20, 32, 128; H/KV 1 and 3), S in {1, 17, 256, 512, 2048}, causal or
+   not, window 0 or 24, softcap 0 or 20, f32 and bf16, q/k/v read as
+   transposed views of the model's (B, S, H, D) tensors. The tensor-core
+   kernel's traps, each against the plain version: S 2048 causal with
+   window 24 (key tiles skipped at both ends of a query tile's range), the
+   contiguous (B, H, S, D) layout, two launches back to back with no sync
+   between (and a repeat launch bit-equal to the first), and a CUDA graph
+   of the training-shape launch replayed 3 times with new inputs copied in
+   before each replay. Each kernel's registers, spills and shared memory
+   (-Xptxas -v) are logged. Then the gradients of
    `flash_attention_trainable` against autograd through the plain version,
    and the device time at the training shape (B 8, S 512, causal, bf16)
-   beside the bound, the plain version and `scaled_dot_product_attention`
-   (a yardstick only: the port never calls it).
+   beside the bound, the plain version, the f32 kernel at the same shape
+   and `scaled_dot_product_attention` (a yardstick only: the port never
+   calls it).
 7. train: smollm-360m at full width and depth in bf16 with
    attn_impl="flash" and per-layer remat, random weights from a seeded
    generator on the card, 30 QAT steps of B 8 x S 512 on the synthetic
@@ -131,6 +140,7 @@ SATURATED = ((5, (2560, 512)), (4, (960, 240)))
 LUT_RAGGED = ((70, 13, 17, 5), (1000, 77, 33, 5), (1000, 191, 17, 4), (70, 1, 3, 4),
               (960, 192, 4, 5))
 LUT_REPLAYS = 3           # CUDA-graph replays before the outputs are compared
+FLASH_REPLAYS = 3         # CUDA-graph replays of the flash launch, each compared
 # With two segments the fused pipeline sums one f32 partial per segment and
 # the unfused one int32 before a single dequant: f32 rounding apart.
 FUSION_RTOL = 1e-6
@@ -443,6 +453,8 @@ def serve(torch, model, cfg, impl: str, prompts, counters, fusion: str = "fused"
         "decode_steps": stats.decode_steps,
         "prefill_tok_s": stats.prefill_tokens / spent["prefill"],
         "decode_tok_s": stats.decode_tokens / spent["decode"],
+        # ServeStats' rates: the same tokens over the whole run's wall time
+        "run_prefill_tok_s": stats.prefill_tok_s, "run_decode_tok_s": stats.decode_tok_s,
         "ttft_p50_ms": sorted(stats.ttft_s)[len(stats.ttft_s) // 2] * 1e3,
         "wall_s": stats.wall_s,
     }
@@ -698,16 +710,103 @@ def profile_decode(torch, model, cfg, prompts, steps: int = 4) -> dict:
             "top_kernels_ms_per_step": [[name[:90], ms] for ms, name in by_name[:8]]}
 
 
-def flash_inputs(torch, b, s, h, kv, d, dtype, gen):
+def flash_inputs(torch, b, s, h, kv, d, dtype, gen, contiguous=False):
     """q (B, H, S, D), k, v (B, KV, S, D): transposed views of (B, S, ., D)
-    tensors, as the model passes them."""
+    tensors, as the model passes them (or contiguous (B, ., S, D) ones)."""
+    if contiguous:
+        return tuple(torch.randn((b, n, s, d), generator=gen, device="cuda").to(dtype)
+                     for n in (h, kv, kv))
     return tuple(torch.randn((b, s, n, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
                  for n in (h, kv, kv))
 
 
+def flash_registers(_build) -> dict:
+    """`-Xptxas -v` of each flash kernel instantiation: registers, spill
+    bytes (stores + loads) and static shared memory."""
+    out, entry = {}, None
+    for line in _build.build_log().splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "flash" in line else None
+            if entry:
+                out[entry] = {}
+        elif entry and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[entry]["spill_bytes"] = nums[1] + nums[2]
+        elif entry and "registers" in line:
+            out[entry]["registers"] = int(line.split("Used ")[1].split()[0])
+            out[entry]["smem_static"] = int(line.split(" bytes smem")[0].split()[-1]) \
+                if "bytes smem" in line else 0
+    return out
+
+
+def flash_check(torch, fa, got, q, k, v, what, **kw) -> float:
+    """|got - plain| within FLASH_TOL of the plain version; returns the error."""
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    dt = str(q.dtype).removeprefix("torch.")
+    assert got.shape == want.shape and got.dtype == q.dtype and got.stride() == q.stride()
+    err = (got.float() - want.float()).abs().max().item()
+    bound = FLASH_TOL[dt] * max(1.0, want.float().abs().max().item())
+    if not err <= bound:
+        raise AssertionError(f"flash ({what}) differs from its plain version by {err} > {bound} "
+                             f"at q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} {kw}")
+    return err
+
+
+def flash_traps(torch, fa, gen) -> dict:
+    """The tensor-core kernel's traps (phase 6), each against the plain
+    version within FLASH_TOL."""
+    errs = {}
+    # S 2048, causal, window 24: a middle query tile walks key tiles that
+    # start after 0 and end before the last
+    q, k, v = flash_inputs(torch, 1, 2048, 15, 5, 64, torch.bfloat16, gen)
+    kw = dict(causal=True, window=24, softcap=0.0)
+    out = fa.flash_attention(q, k, v, **kw)
+    plan = fa.plan_for(q, k, v, out, causal=True, window=24)
+    kts = plan.key_tiles(plan.grid[1] // 2)
+    assert plan.kernel == "mma" and plan.aligned and 0 < kts.start and kts.stop < 2048 // plan.bk
+    errs["s2048_window24"] = flash_check(torch, fa, out, q, k, v, "S 2048 window 24", **kw)
+    # the contiguous (B, H, S, D) layout, aligned (D 64) and not (D 20)
+    for h, kv, d, s in ((15, 5, 64, 512), (3, 3, 20, 17), (3, 1, 128, 256)):
+        q, k, v = flash_inputs(torch, 2, s, h, kv, d, torch.bfloat16, gen, contiguous=True)
+        for causal, window in ((True, 0), (False, 24)):
+            kw = dict(causal=causal, window=window, softcap=0.0)
+            errs[f"contiguous_d{d}_s{s}_{causal}_{window}"] = flash_check(
+                torch, fa, fa.flash_attention(q, k, v, **kw), q, k, v, "contiguous", **kw)
+    # two launches back to back, no sync between; a repeat launch is bit-equal
+    a = flash_inputs(torch, 8, 512, 15, 5, 64, torch.bfloat16, gen)
+    c = flash_inputs(torch, 2, 17, 3, 3, 20, torch.bfloat16, gen)
+    out_a = fa.flash_attention(*a, causal=True)
+    out_c = fa.flash_attention(*c, causal=False, window=24, softcap=20.0)
+    out_a2 = fa.flash_attention(*a, causal=True)
+    errs["back_to_back_a"] = flash_check(torch, fa, out_a, *a, "back to back", causal=True)
+    errs["back_to_back_c"] = flash_check(torch, fa, out_c, *c, "back to back", causal=False,
+                                         window=24, softcap=20.0)
+    if not torch.equal(out_a, out_a2):
+        raise AssertionError("flash: a repeat launch differs from the first")
+    # a CUDA graph of the training-shape launch, replayed with new inputs
+    q, k, v = a
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention(q, k, v, causal=True)
+    for i in range(FLASH_REPLAYS):
+        for t, new in zip((q, k, v), flash_inputs(torch, 8, 512, 15, 5, 64, torch.bfloat16, gen)):
+            t.copy_(new)
+        graph.replay()
+        errs[f"graph_replay_{i}"] = flash_check(torch, fa, out, q, k, v, f"graph replay {i}",
+                                                causal=True)
+    del graph
+    return errs
+
+
 def check_flash(torch) -> dict:
-    """Phase 5: the flash kernel against its plain version, the gradients,
-    and the device time at the training shape."""
+    """Phase 6: the flash kernels against their plain version, the traps,
+    the gradients, and the device time at the training shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -737,6 +836,11 @@ def check_flash(torch) -> dict:
                             max_err = max(max_err, err)
                             n_checks += 1
     log(f"flash: {n_checks} kernel-vs-plain checks, max |diff| {max_err:.3g}")
+    traps = flash_traps(torch, fa, gen)
+    max_err = max(max_err, *traps.values())
+    log(f"flash: {len(traps)} trap checks (S 2048 window 24, contiguous layout, back-to-back "
+        f"launches, {FLASH_REPLAYS} graph replays with new inputs): max |diff| "
+        f"{max(traps.values()):.3g}")
 
     # gradients of the autograd.Function against autograd through the plain version
     grad_err = 0.0
@@ -768,16 +872,22 @@ def check_flash(torch) -> dict:
     row = {"shape": dict(B=b, S=s, H=h, KV=kv, D=d, causal=True, dtype="bfloat16"),
            "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    row["plan"] = repr(fa.plan_for(q, k, v, torch.empty_like(q), causal=True, window=0))
     row["ms"] = device_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
     row["plain_ms"] = device_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=True))
     row["library_ms"] = device_ms(torch, lambda: F.scaled_dot_product_attention(
         qc, kc, vc, is_causal=True, enable_gqa=True), reps=20)
+    row["f32_kernel_ms"] = device_ms(torch, lambda: fa.flash_attention(qf, kf, vf, causal=True),
+                                     reps=20)
     row["ms_repeat"] = device_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
     log(f"flash: B{b} S{s} H{h}/KV{kv} D{d} causal bf16: kernel {row['ms']:.4f} ms "
         f"(repeat {row['ms_repeat']:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain {row['plain_ms']:.4f} ms, "
-        f"sdpa yardstick {row['library_ms']:.4f} ms")
-    return {"checks": n_checks, "max_abs_err": max_err, "grad_max_abs_err": grad_err, "time": row}
+        f"sdpa yardstick {row['library_ms']:.4f} ms, f32 (CUDA-core) kernel "
+        f"{row['f32_kernel_ms']:.4f} ms; plan {row['plan']}")
+    return {"checks": n_checks, "max_abs_err": max_err, "traps": traps,
+            "grad_max_abs_err": grad_err, "time": row}
 
 
 def cpu_loss_check(torch, model, cfg, batch) -> dict:
@@ -800,7 +910,7 @@ def cpu_loss_check(torch, model, cfg, batch) -> dict:
 
 
 def train(torch, counters) -> dict:
-    """Phase 6: QAT training of full-width smollm-360m through the flash
+    """Phase 7: QAT training of full-width smollm-360m through the flash
     kernel, checkpoint and resume, card vs CPU loss, one profiled step."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -933,6 +1043,9 @@ def main() -> int:
             log(f"build: {line.strip()}")
     for entry, n_regs in lut_registers(_build).items():
         log(f"build: vector-LUT instantiation {entry}: {n_regs} registers")
+    for entry, r in flash_registers(_build).items():
+        log(f"build: flash instantiation {entry}: {r.get('registers')} registers, "
+            f"{r.get('spill_bytes')} spill bytes, {r.get('smem_static')} static shared bytes")
 
     # model for phases 3 to 5
     cfg = get_config("smollm-360m")
@@ -1035,7 +1148,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches (unfused pipelines: 224 BitLinears); compare: one call at (M, K) = (2560, 960); flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
         "per_tokens": per_n, "lut_fused_traps": lut_fused_traps,
-        "lut_registers": lut_registers(_build),
+        "lut_registers": lut_registers(_build), "flash_registers": flash_registers(_build),
         "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
                                        for k, v in runs.items()},
         "unfused": {**unfused, "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}

@@ -65,6 +65,8 @@ _FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
     + [ctypes.c_int] * 2             # causal, window
     + [ctypes.c_float] * 2           # scale, softcap
     + [ctypes.c_int]                 # bf16
+    + [ctypes.c_int] * 5             # the plan: bq, bk, dp, stages, aligned
+    + [ctypes.c_longlong]            # the plan's dynamic shared bytes
     + [ctypes.c_void_p]              # stream
 )
 #: the library's C entries; each returns a cudaError_t
@@ -233,18 +235,20 @@ def launch_lut_int(packed: torch.Tensor, a_r: torch.Tensor, g: int, out: torch.T
         raise RuntimeError(f"vlut_lookup_gemm: CUDA error {rc} at launch ({plan})")
 
 
-def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
-                 causal: bool, window: int, scale: float, softcap: float) -> None:
-    """Call `flash_attention_fwd` on PyTorch's current stream; raise on any
-    CUDA error the launch reports. q, out (B, H, Sq, D); k, v (B, KV, Sk, D);
-    arguments are validated by the caller."""
+def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                 plan, *, causal: bool, window: int, scale: float, softcap: float) -> None:
+    """Call `flash_attention_fwd` with its launch plan (a `FlashPlan`) on
+    PyTorch's current stream; raise on any CUDA error the launch reports (a
+    plan the entry refuses included). q, out (B, H, Sq, D); k, v (B, KV,
+    Sk, D); arguments are validated by the caller."""
     b, h, sq, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = load().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, k.shape[1], sq, k.shape[2], d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(causal), int(window), scale, softcap, int(q.dtype == torch.bfloat16), stream,
+        int(causal), int(window), scale, softcap, int(q.dtype == torch.bfloat16),
+        plan.bq, plan.bk, plan.dp, plan.stages, int(plan.aligned), plan.smem, stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd: CUDA error {rc} at launch")
+        raise RuntimeError(f"flash_attention_fwd: CUDA error {rc} at launch ({plan})")

@@ -40,6 +40,14 @@ class ServeStats:
     def throughput_tok_s(self) -> float:
         return self.total_tokens / self.wall_s if self.wall_s else 0.0
 
+    @property
+    def decode_tok_s(self) -> float:
+        return self.decode_tokens / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def prefill_tok_s(self) -> float:
+        return self.prefill_tokens / self.wall_s if self.wall_s else 0.0
+
 
 class ContinuousBatchingScheduler:
     def __init__(self, engine: Engine):

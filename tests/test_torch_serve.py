@@ -107,3 +107,41 @@ def test_temperature_sampling_distribution(top_k):
         assert set(np.unique(tdraw)) <= set(np.argsort(-base)[:top_k])
     with pytest.raises(ValueError):
         ts.sample(torch.from_numpy(logits[:1]), temperature=1.0, top_k=-1)
+
+
+def test_top_k_keeps_exactly_k_on_ties():
+    """Mirror of tests/test_serve.py's tie regression: three tied logits and
+    top_k=2 keep exactly tokens 0 and 1 (ties break toward lower ids)."""
+    logits = torch.tensor([[1.0, 1.0, 1.0, 0.0, 0.0, 0.0]])
+    seen = {int(ts.sample(logits, torch.Generator().manual_seed(s), temperature=1.0,
+                          top_k=2)[0]) for s in range(64)}
+    assert seen == {0, 1}
+
+
+@pytest.mark.parametrize("row,top_k", [([1.0, 5.0, 3.0, 5.0, 5.0, 0.0, 5.0], 2),
+                                       ([1.0, 5.0, 3.0, 5.0, 5.0, 0.0, 5.0], 3),
+                                       ([2.0, 2.0, 2.0, 2.0], 1),
+                                       ([0.5, -1.0, 0.5, 3.0, 0.5], 3)])
+def test_top_k_kept_set_matches_jax(row, top_k):
+    """The kept set is the one jax.lax.top_k picks, ties at the k-th logit
+    included ([1, 5, 3, 5, 5, 0, 5], k=2 keeps {1, 3}; torch.topk would keep
+    {3, 6}). Draws at a high temperature reach every kept token."""
+    logits = np.asarray([row], np.float32)
+    _, jidx = jax.lax.top_k(jnp.asarray(logits), top_k)
+    want = set(np.asarray(jidx)[0].tolist())
+    n = 4000
+    tdraw = ts.sample(torch.from_numpy(np.tile(logits, (n, 1))), torch.Generator().manual_seed(0),
+                      temperature=100.0, top_k=top_k).numpy()
+    jdraw = np.asarray(js.sample(jnp.asarray(np.tile(logits, (n, 1))), jax.random.PRNGKey(0),
+                                 temperature=100.0, top_k=top_k))
+    assert set(np.unique(tdraw).tolist()) == want == set(np.unique(jdraw).tolist())
+
+
+@pytest.mark.parametrize("wall_s,prefill,decode", [(0.0, 5, 7), (2.5, 100, 40), (0.125, 3, 0)])
+def test_serve_stats_rates_match_jax(wall_s, prefill, decode):
+    """ServeStats.decode_tok_s and prefill_tok_s: tokens over wall_s, 0 when
+    wall_s is 0, as JAX's ServeStats defines them on the same counts."""
+    kw = dict(wall_s=wall_s, prefill_tokens=prefill, decode_tokens=decode)
+    got, want = ts.ServeStats(**kw), js.ServeStats(**kw)
+    for name in ("decode_tok_s", "prefill_tok_s", "throughput_tok_s"):
+        assert getattr(got, name) == getattr(want, name), name
