@@ -14,15 +14,17 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (K = 964), N in {1, 4, 16, 64, 256} tokens, for f32->f32, bf16->bf16 and
    bf16->f32 (activation->output). Expected difference: exactly 0 (the
    integer core is exact in both, and the f32 epilogue is the same
-   operations in the same order). The vector-LUT kernel's split-K traps
-   (its launch plan splits K across blocks that meet in an int32 workspace
-   with arrival counters): ragged shapes (M 70 and 1000, N 17 and 33, KG
-   not divisible by the plan's splits, the g=4 segment of one K-group), the
-   saturated sum 127*K at the main path's largest split, every case
-   launched twice back to back with the others (bit-equal), and a CUDA
-   graph of all of them replayed 3 times; expected difference exactly 0.
-   Each shape's plan (BM, S, chunk, blocks, shared bytes) and each
-   instantiation's registers (-Xptxas -v) are logged. Then the device time of one forward's 224
+   operations in the same order). Each fused kernel's split-K traps (both
+   launch plans split K across blocks that meet in one shared int32
+   workspace with arrival counters): ragged shapes (M 70 and 1000, N 17
+   and 33, KG not divisible by the plan's splits, the g=4 segment of one
+   K-group), the saturated sum 127*K at the main path's largest split of
+   that kernel's plan, every case launched twice back to back with the
+   others (bit-equal), and a CUDA graph of all of them replayed 3 times;
+   expected difference exactly 0. Each shape's plans (vector-LUT: BM, S,
+   chunk, blocks, shared bytes; decode: BM x BN, S, K-groups per step,
+   alignment, blocks, shared bytes) and each instantiation's registers and
+   spills (-Xptxas -v) are logged. Then the device time of one forward's 224
    launches at each N, beside the bound, the plain version's time and a
    bf16 `torch.matmul` against the dequantized weights (a yardstick only:
    the port never calls it).
@@ -40,7 +42,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (a) Each integer kernel (`ternary_decode_gemm`, `vlut_lookup_gemm`)
    against its plain version at the shapes and N of phase 3, plus the
    saturated case (all +1 weights, activations 127: every sum 127*K at
-   K = 2560 and 960), and `vlut_lookup_gemm`'s split-K traps as in phase 3.
+   K = 2560 and 960), and both integer kernels' split-K traps as in phase 3.
    Expected difference: exactly 0. (b) `vlut_mpgemm`
    fused against unfused, both impls: bit-identical on one segment, within
    1e-6 of the output's magnitude at K = 964. (c) Serving as in phase 4
@@ -245,32 +247,41 @@ def bitlinear_weights(torch, model, gen) -> dict:
     return weights
 
 
-def lut_plan_row(vlg, m, kg, n, g) -> dict:
-    p = vlg.lut_plan(m, kg, n, g)
-    return {"shape": [m, kg, n, g], "bm": p.bm, "splits": p.splits, "chunk": p.chunk,
-            "blocks": p.blocks, "smem": p.smem, "kg_divisible_by_splits": kg % p.splits == 0}
+def plan_row(p) -> dict:
+    """A launch plan (`LutPlan` or `DecodePlan`) as a JSON row."""
+    row = {"shape": [p.m, p.kg, p.n, p.g], "splits": p.splits, "blocks": p.blocks,
+           "smem": p.smem, "kg_divisible_by_splits": p.kg % p.splits == 0}
+    for key in ("bm", "bn", "chunk", "kstep", "codes_aligned", "acts_aligned"):
+        if hasattr(p, key):
+            row[key] = getattr(p, key)
+    return row
 
 
-def lut_registers(_build) -> dict:
-    """`-Xptxas -v` registers of each vector-LUT kernel instantiation."""
-    regs, entry = {}, None
+def kernel_registers(_build, tag: str) -> dict:
+    """`-Xptxas -v` of each instantiation whose name holds `tag`: registers
+    and spill bytes (stores + loads)."""
+    out, entry = {}, None
     for line in _build.build_log().splitlines():
         if "Compiling entry" in line:
-            entry = line.split("'")[1] if "vlut_kernel" in line else None
+            entry = line.split("'")[1] if tag in line else None
+            if entry:
+                out[entry] = {}
+        elif entry and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[entry]["spill_bytes"] = nums[1] + nums[2]
         elif entry and "registers" in line:
-            regs[entry] = int(line.split("Used ")[1].split()[0])
-            entry = None
-    return regs
+            out[entry]["registers"] = int(line.split("Used ")[1].split()[0])
+    return out
 
 
-def lut_traps(torch, name, kern, plain, cases) -> dict:
-    """The split-K traps of a vector-LUT kernel, each against its plain
-    version with an expected difference of exactly 0. cases: [(args,
-    kwargs)]. (1) Every case launched twice, back to back with the other
-    cases and no sync between (different shapes share the workspace and
-    counters): both launches equal the plain version. (2) One CUDA graph of
-    all cases replayed LUT_REPLAYS times (a workspace or counter left dirty
-    would add into the next replay): the outputs equal the plain version."""
+def splitk_traps(torch, name, kern, plain, cases) -> dict:
+    """The split-K traps of a kernel, each against its plain version with
+    an expected difference of exactly 0. cases: [(args, kwargs)]. (1) Every
+    case launched twice, back to back with the other cases and no sync
+    between (different shapes share the workspace and counters): both
+    launches equal the plain version. (2) One CUDA graph of all cases
+    replayed LUT_REPLAYS times (a workspace or counter left dirty would add
+    into the next replay): the outputs equal the plain version."""
     wants = [plain(*a, **kw) for a, kw in cases]
     firsts = [kern(*a, **kw) for a, kw in cases]
     seconds = [kern(*a, **kw) for a, kw in cases]
@@ -293,10 +304,17 @@ def lut_traps(torch, name, kern, plain, cases) -> dict:
     return {"cases": len(cases), "repeat_launches": 2, "graph_replays": LUT_REPLAYS, "max_abs_err": 0}
 
 
-def lut_largest_split(vlg) -> tuple:
-    """(M, KG, N) of the main path's plan with the most K-splits (g=5)."""
+def largest_split(plan) -> tuple:
+    """(M, KG, N) of the main path's plan with the most K-splits (g=5), by
+    `plan(M, KG, N, g)` (`lut_plan` or `decode_plan`)."""
     return max(((m, k // 5, n) for m, k in SHAPES for n in TOKENS),
-               key=lambda s: vlg.lut_plan(*s, 5).splits)
+               key=lambda s: plan(*s, 5).splits)
+
+
+def decode_plan_for(tdg, m, kg, n, g):
+    """The decode plan the main path launches: contiguous operands, word
+    loads where KG % 4 == 0."""
+    return tdg.decode_plan(m, kg, n, g, codes_aligned=kg % 4 == 0, acts_aligned=kg % 4 == 0)
 
 
 def check_kernels(torch, model, cfg):
@@ -344,38 +362,45 @@ def check_kernels(torch, model, cfg):
         if err != 0.0:
             raise AssertionError(f"{name} differs from its plain version by {err} (expected 0)")
 
-    # the vector-LUT kernel's split-K traps: ragged shapes, repeat and
+    for n in TOKENS:
+        log(f"kernels: decode plans at N={n}: " + "; ".join(
+            f"{m}x{k}: BM {p.bm} BN {p.bn} S {p.splits} step {p.kstep} blocks {p.blocks} "
+            f"smem {p.smem}" for m, k in SHAPES for p in [decode_plan_for(tdg, m, k // 5, n, 5)]))
+
+    # each fused kernel's split-K traps: ragged shapes, repeat and
     # back-to-back launches, graph replays, the saturated sum at the
-    # largest split
-    cases = []
-    for m, kg, n, g in LUT_RAGGED:
-        packed = torch.randint(0, 3 ** g, (m, kg), generator=gen, device=dev,
-                               dtype=torch.int32).to(torch.uint8)
-        x = torch.randn((n, kg * g), generator=gen, device=dev) * 3.0
-        w_scale = torch.rand((m,), generator=gen, device=dev)
-        for dt in ((torch.float32, torch.bfloat16) if (m, n) == (960, 4) else (torch.float32,)):
-            cases.append(((packed, x.to(dt), act_token_scale(x.to(dt).T).contiguous(), w_scale),
-                          dict(g=g, out_dtype=dt)))
-    m, kg, n = lut_largest_split(vlg)
-    sat = ((torch.full((m, kg), 3 ** 5 - 1, dtype=torch.uint8, device=dev),
-            torch.ones((n, kg * 5), device=dev), torch.full((n,), 1.0, device=dev) * INV_Q_MAX,
-            torch.ones((m,), device=dev)), dict(g=5, out_dtype=torch.float32))
-    sat_out = vlg.vlut_lookup_gemm_fused(*sat[0], **sat[1])
-    if not torch.equal(sat_out, vlg.vlut_lookup_gemm_fused_plain(*sat[0], **sat[1])):
-        raise AssertionError("vlut_lookup_gemm_fused: saturated sums differ from the plain version")
-    traps = lut_traps(torch, "vlut_lookup_gemm_fused", vlg.vlut_lookup_gemm_fused,
-                      vlg.vlut_lookup_gemm_fused_plain, cases + [sat])
-    traps["plans"] = [lut_plan_row(vlg, *shape) for shape in LUT_RAGGED]
-    traps["saturated"] = {"shape": [m, kg, n], "splits": vlg.lut_plan(m, kg, n, 5).splits,
-                          "sum": 127 * kg * 5}
-    if all(row["kg_divisible_by_splits"] for row in traps["plans"]):
-        raise AssertionError("no LUT trap shape has KG indivisible by its splits")
-    log(f"kernels: vlut_lookup_gemm_fused traps: {traps['cases']} cases (ragged, saturated sums "
-        f"127*K at the largest split {traps['saturated']}), each launched twice back to back "
-        f"and in a CUDA graph replayed {LUT_REPLAYS} times: max |diff| 0")
-    for row in traps["plans"]:
-        log(f"kernels: LUT plan (M, KG, N, g) = {tuple(row['shape'])}: BM {row['bm']}, S "
-            f"{row['splits']}, chunk {row['chunk']}, {row['blocks']} blocks, {row['smem']} B shared")
+    # largest split of its plan
+    traps = {}
+    for name, plan in (("vlut_lookup_gemm_fused", vlg.lut_plan),
+                       ("ternary_decode_gemm_fused", lambda *s: decode_plan_for(tdg, *s))):
+        kern, plain = kernels[name]
+        cases = []
+        for m, kg, n, g in LUT_RAGGED:
+            packed = torch.randint(0, 3 ** g, (m, kg), generator=gen, device=dev,
+                                   dtype=torch.int32).to(torch.uint8)
+            x = torch.randn((n, kg * g), generator=gen, device=dev) * 3.0
+            w_scale = torch.rand((m,), generator=gen, device=dev)
+            for dt in ((torch.float32, torch.bfloat16) if (m, n) == (960, 4) else (torch.float32,)):
+                cases.append(((packed, x.to(dt), act_token_scale(x.to(dt).T).contiguous(), w_scale),
+                              dict(g=g, out_dtype=dt)))
+        m, kg, n = largest_split(plan)
+        sat = ((torch.full((m, kg), 3 ** 5 - 1, dtype=torch.uint8, device=dev),
+                torch.ones((n, kg * 5), device=dev), torch.full((n,), 1.0, device=dev) * INV_Q_MAX,
+                torch.ones((m,), device=dev)), dict(g=5, out_dtype=torch.float32))
+        if not torch.equal(kern(*sat[0], **sat[1]), plain(*sat[0], **sat[1])):
+            raise AssertionError(f"{name}: saturated sums differ from the plain version")
+        t = splitk_traps(torch, name, kern, plain, cases + [sat])
+        t["plans"] = [plan_row(plan(*shape)) for shape in LUT_RAGGED]
+        t["saturated"] = {"shape": [m, kg, n], "splits": plan(m, kg, n, 5).splits, "sum": 127 * kg * 5}
+        if all(row["kg_divisible_by_splits"] for row in t["plans"]):
+            raise AssertionError(f"{name}: no trap shape has KG indivisible by its splits")
+        log(f"kernels: {name} traps: {t['cases']} cases (ragged, saturated sums 127*K at the "
+            f"largest split {t['saturated']}), each launched twice back to back and in a CUDA "
+            f"graph replayed {LUT_REPLAYS} times: max |diff| 0")
+        for row in t["plans"]:
+            log(f"kernels: {name} plan (M, KG, N, g) = {tuple(row['shape'])}: "
+                + ", ".join(f"{k} {v}" for k, v in row.items() if k not in ("shape",)))
+        traps[name] = t
 
     # device time of one forward's 224 launches (all 32 layers' weights,
     # so the ~63 MB of packed weights stream from memory as in serving)
@@ -518,28 +543,31 @@ def check_unfused(torch, model, cfg, weights, prompts, counters, fused_runs, per
         if err != 0:
             raise AssertionError(f"{name} differs from its plain version by {err} (expected 0)")
 
-    # the vector-LUT integer kernel's split-K traps, as phase 3's
-    cases = []
-    for m, kg, n, g in LUT_RAGGED:
-        cases.append(((torch.randint(0, 3 ** g, (m, kg), generator=gen, device=dev,
-                                     dtype=torch.int32).to(torch.uint8),
-                       torch.randint(-127, 128, (g, kg, n), generator=gen, device=dev,
-                                     dtype=torch.int32).to(torch.int8)), dict(g=g)))
-    m, kg, n = lut_largest_split(vlg)
-    sat = ((torch.full((m, kg), 3 ** 5 - 1, dtype=torch.uint8, device=dev),
-            torch.full((5, kg, n), 127, dtype=torch.int8, device=dev)), dict(g=5))
-    out = vlg.vlut_lookup_gemm(*sat[0], **sat[1])
-    torch.cuda.synchronize()
-    if not int(out.min()) == int(out.max()) == 127 * kg * 5:
-        raise AssertionError(f"vlut_lookup_gemm: saturated sums {int(out.min())}..{int(out.max())} "
-                             f"at the largest split, expected {127 * kg * 5}")
-    traps = lut_traps(torch, "vlut_lookup_gemm", vlg.vlut_lookup_gemm, vlg.vlut_lookup_gemm_plain,
-                      cases + [sat])
-    traps["saturated"] = {"shape": [m, kg, n], "splits": vlg.lut_plan(m, kg, n, 5).splits,
+    # each integer kernel's split-K traps, as phase 3's
+    traps = {}
+    for name, plan in (("vlut_lookup_gemm", vlg.lut_plan), ("ternary_decode_gemm", tdg.decode_plan)):
+        kern, plain = kernels[name]
+        cases = []
+        for m, kg, n, g in LUT_RAGGED:
+            cases.append(((torch.randint(0, 3 ** g, (m, kg), generator=gen, device=dev,
+                                         dtype=torch.int32).to(torch.uint8),
+                           torch.randint(-127, 128, (g, kg, n), generator=gen, device=dev,
+                                         dtype=torch.int32).to(torch.int8)), dict(g=g)))
+        m, kg, n = largest_split(plan)
+        sat = ((torch.full((m, kg), 3 ** 5 - 1, dtype=torch.uint8, device=dev),
+                torch.full((5, kg, n), 127, dtype=torch.int8, device=dev)), dict(g=5))
+        out = kern(*sat[0], **sat[1])
+        torch.cuda.synchronize()
+        if not int(out.min()) == int(out.max()) == 127 * kg * 5:
+            raise AssertionError(f"{name}: saturated sums {int(out.min())}..{int(out.max())} "
+                                 f"at the largest split, expected {127 * kg * 5}")
+        t = splitk_traps(torch, name, kern, plain, cases + [sat])
+        t["saturated"] = {"shape": [m, kg, n], "splits": plan(m, kg, n, 5).splits,
                           "sum": 127 * kg * 5}
-    log(f"unfused: vlut_lookup_gemm traps: {traps['cases']} cases (ragged, saturated sums 127*K "
-        f"at the largest split {traps['saturated']}), each launched twice back to back and in "
-        f"a CUDA graph replayed {LUT_REPLAYS} times: max |diff| 0")
+        log(f"unfused: {name} traps: {t['cases']} cases (ragged, saturated sums 127*K at the "
+            f"largest split {t['saturated']}), each launched twice back to back and in a CUDA "
+            f"graph replayed {LUT_REPLAYS} times: max |diff| 0")
+        traps[name] = t
 
     # (b) vlut_mpgemm fused against unfused
     fu_err = {impl: 0.0 for impl in IMPLS}
@@ -666,7 +694,7 @@ def check_unfused(torch, model, cfg, weights, prompts, counters, fused_runs, per
         log(f"compare: (M, K) = {COMPARE_SHAPE}, N={n}: "
             + ", ".join(f"{nm} {v['ms']:.4f}" for nm, v in row.items())
             + f" ms; winner {winner}")
-    return {"max_abs_err": max_err, "checks": n_checks, "lut_traps": traps,
+    return {"max_abs_err": max_err, "checks": n_checks, "splitk_traps": traps,
             "fused_vs_unfused_max_abs_diff": fu_err,
             "serve": runs, "per_tokens": per_n_unfused, "compare": compare}
 
@@ -1014,6 +1042,7 @@ def main() -> int:
 
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build
+        from repro_torch.kernels import ternary_decode_gemm as tdg
         from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.ternary_decode_gemm import (
             ternary_decode_gemm,
@@ -1041,8 +1070,10 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"build: {line.strip()}")
-    for entry, n_regs in lut_registers(_build).items():
-        log(f"build: vector-LUT instantiation {entry}: {n_regs} registers")
+    for template, tag in (("vector-LUT", "vlut_kernel"), ("decode", "decode_kernel")):
+        for entry, r in kernel_registers(_build, tag).items():
+            log(f"build: {template} instantiation {entry}: {r.get('registers')} registers, "
+                f"{r.get('spill_bytes')} spill bytes")
     for entry, r in flash_registers(_build).items():
         log(f"build: flash instantiation {entry}: {r.get('registers')} registers, "
             f"{r.get('spill_bytes')} spill bytes, {r.get('smem_static')} static shared bytes")
@@ -1055,7 +1086,7 @@ def main() -> int:
     log(f"model: {cfg.name} {cfg.dtype}, {cfg.n_layers} layers, packed in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels
-    max_err, per_n, weights, lut_fused_traps = check_kernels(torch, model, cfg)
+    max_err, per_n, weights, fused_traps = check_kernels(torch, model, cfg)
 
     # 4. serve
     rng = np.random.default_rng(0)
@@ -1147,8 +1178,12 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches (unfused pipelines: 224 BitLinears); compare: one call at (M, K) = (2560, 960); flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
-        "per_tokens": per_n, "lut_fused_traps": lut_fused_traps,
-        "lut_registers": lut_registers(_build), "flash_registers": flash_registers(_build),
+        "per_tokens": per_n, "splitk_fused_traps": fused_traps,
+        "decode_plans": {n: [plan_row(decode_plan_for(tdg, m, k // 5, n, 5)) for m, k in SHAPES]
+                         for n in TOKENS},
+        "lut_registers": kernel_registers(_build, "vlut_kernel"),
+        "decode_registers": kernel_registers(_build, "decode_kernel"),
+        "flash_registers": flash_registers(_build),
         "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
                                        for k, v in runs.items()},
         "unfused": {**unfused, "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}

@@ -29,17 +29,22 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_MPGEMM_ARGTYPES = (                 # VLUT_ENTRY_ARGS (mpgemm_common.cuh)
-    [ctypes.c_void_p] * 5            # packed, a, a_scale, w_scale, out
+_DECODE_PLAN_ARGTYPES = (           # the decode plan (ternary_decode_gemm.cu)
+    [ctypes.c_int] * 6               # bm, bn, splits, kstep, codes_aligned, acts_aligned
+    + [ctypes.c_longlong]            # dynamic shared bytes
+    + [ctypes.c_void_p]              # stream
+)
+_DECODE_ARGTYPES = (                 # ternary_decode_gemm_fused (ternary_decode_gemm.cu)
+    [ctypes.c_void_p] * 7            # packed, a, a_scale, w_scale, out, ws, counters
     + [ctypes.c_int] * 4             # M, KG, N, g
     + [ctypes.c_longlong] * 2        # lda, ldo
     + [ctypes.c_int] * 3             # ws_stride, a_bf16, out_bf16
-    + [ctypes.c_void_p]              # stream
+    + _DECODE_PLAN_ARGTYPES
 )
-_INT_ARGTYPES = (                    # VLUT_INT_ENTRY_ARGS (mpgemm_common.cuh)
-    [ctypes.c_void_p] * 3            # packed, a_r, out
+_DECODE_INT_ARGTYPES = (             # ternary_decode_gemm (ternary_decode_gemm.cu)
+    [ctypes.c_void_p] * 5            # packed, a_r, out, ws, counters
     + [ctypes.c_int] * 4             # M, KG, N, g
-    + [ctypes.c_void_p]              # stream
+    + _DECODE_PLAN_ARGTYPES
 )
 _PLAN_ARGTYPES = (                   # the launch plan (vlut_lookup_gemm.cu)
     [ctypes.c_int] * 3               # bm, splits, chunk
@@ -74,9 +79,9 @@ ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused",
            "ternary_decode_gemm", "vlut_lookup_gemm", "flash_attention_fwd")
 #: the ctypes signature of every entry
 _ARGTYPES = {
-    "ternary_decode_gemm_fused": _MPGEMM_ARGTYPES,
+    "ternary_decode_gemm_fused": _DECODE_ARGTYPES,
     "vlut_lookup_gemm_fused": _LUT_ARGTYPES,
-    "ternary_decode_gemm": _INT_ARGTYPES,
+    "ternary_decode_gemm": _DECODE_INT_ARGTYPES,
     "vlut_lookup_gemm": _LUT_INT_ARGTYPES,
     "flash_attention_fwd": _FLASH_ARGTYPES,
 }
@@ -167,39 +172,45 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def launch_mpgemm(name: str, packed: torch.Tensor, x: torch.Tensor,
-                  a_scale: torch.Tensor, w_scale: torch.Tensor, g: int,
-                  out: torch.Tensor) -> None:
-    """Call the C entry `name` on PyTorch's current stream; raise on any
-    CUDA error the launch reports. Arguments are validated by the caller."""
-    fn = getattr(load(), name)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(
-        packed.data_ptr(), x.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
-        out.data_ptr(), packed.shape[0], packed.shape[1], x.shape[0], g,
-        x.stride(0), out.stride(0), 1 if w_scale.shape[0] > 1 else 0,
-        int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-
-
-def launch_mpgemm_int(name: str, packed: torch.Tensor, a_r: torch.Tensor, g: int,
-                      out: torch.Tensor) -> None:
-    """Call the integer C entry `name` (packed (M, KG) u8, a_r (g, KG, N)
-    i8 → out (M, N) i32, all contiguous) on PyTorch's current stream; raise
-    on any CUDA error the launch reports. Arguments are validated by the
-    caller."""
-    fn = getattr(load(), name)
-    stream = torch.cuda.current_stream(a_r.device).cuda_stream
-    rc = fn(packed.data_ptr(), a_r.data_ptr(), out.data_ptr(), packed.shape[0],
-            packed.shape[1], a_r.shape[2], g, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-
-
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def _decode_plan_args(plan) -> tuple:
+    return (plan.bm, plan.bn, plan.splits, plan.kstep, int(plan.codes_aligned),
+            int(plan.acts_aligned), plan.smem)
+
+
+def launch_decode(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,
+                  w_scale: torch.Tensor, g: int, out: torch.Tensor, plan, ws, counters) -> None:
+    """Call `ternary_decode_gemm_fused` with its launch plan (a
+    `DecodePlan`) and, for plan.splits > 1, the zeroed int32 workspace and
+    counters, on PyTorch's current stream; raise on any CUDA error the
+    launch reports (a plan the kernel refuses included). Arguments are
+    validated by the caller."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = load().ternary_decode_gemm_fused(
+        packed.data_ptr(), x.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), _ptr(ws), _ptr(counters), packed.shape[0], packed.shape[1],
+        x.shape[0], g, x.stride(0), out.stride(0), 1 if w_scale.shape[0] > 1 else 0,
+        int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
+        *_decode_plan_args(plan), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ternary_decode_gemm_fused: CUDA error {rc} at launch ({plan})")
+
+
+def launch_decode_int(packed: torch.Tensor, a_r: torch.Tensor, g: int, out: torch.Tensor,
+                      plan, ws, counters) -> None:
+    """Call `ternary_decode_gemm` (packed (M, KG) u8, a_r (g, KG, N) i8 →
+    out (M, N) i32) as `launch_decode` calls the fused entry."""
+    stream = torch.cuda.current_stream(a_r.device).cuda_stream
+    rc = load().ternary_decode_gemm(
+        packed.data_ptr(), a_r.data_ptr(), out.data_ptr(), _ptr(ws), _ptr(counters),
+        packed.shape[0], packed.shape[1], a_r.shape[2], g, *_decode_plan_args(plan), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ternary_decode_gemm: CUDA error {rc} at launch ({plan})")
 
 
 def launch_lut(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,

@@ -3,22 +3,161 @@ its CUDA kernel's wrapper, its plain PyTorch version and its launch count.
 
 Ports of the TPU kernels `ternary_decode_gemm_fused` and
 `ternary_decode_gemm` (src/repro/kernels/ternary_decode_gemm.py). The CUDA
-source of both is ``csrc/ternary_decode_gemm.cu``. Unlike the TPU wrapper,
+source of both is ``csrc/ternary_decode_gemm.cu``: one int8 tensor-core
+product per trit, as the TPU kernel's MXU core. Unlike the TPU wrapper,
 the fused one reads the activations in the token-major (N, K) layout the
 model produces and writes (N, M): no transposes, no padding. The integer
 one keeps the TPU contract, pre-quantized de-interleaved int8 a_r
 (g, KG, N) → int32 (M, N), and pads nothing either.
+
+`decode_plan` is the kernels' launch plan: the block's rows and tokens,
+the K-splits and the K-groups per step, chosen on the host from
+(M, KG, N, g) so that the grid fills the card, and the alignment claims
+that allow word loads. The split-K sums meet in the zeroed int32 workspace
+both mpGeMM templates share (`_splitk`).
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from repro_torch.core.packing import unpack_ternary
 from repro_torch.core.quantize import Q_MAX
 
-from . import _build
+from . import _build, _splitk
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# The launch plan's constants (the kernel's are in csrc/ternary_decode_gemm.cu)
+WAVE = 132                  # SMs of an H100: blocks in one wave
+SUB = 32                    # K-groups of one k32 tensor-core product
+MAX_STEP = 64               # K-groups staged per step, at most
+#: (most tokens, rows BM, tokens BN) of a block, one m16 tile per warp and
+#: two n8 tiles: 4 warps at decode N; 8 warps at prefill N, so that each
+#: quantized activation tile feeds twice the rows (32 or 64 tokens a block
+#: timed slower on the card at smollm-360m's shapes)
+TILES = ((16, 64, 16), (None, 128, 16))
+
+
+def row_bytes(kstep: int) -> int:
+    """Shared bytes of one (trit, token) row of a step (`decode_row_bytes`
+    in the kernel): 8 or 24 words modulo 32, so that a half-warp's 8-byte
+    B loads fall on distinct bank pairs."""
+    return kstep + 32 if kstep % 64 == 0 else kstep
+
+
+def decode_smem_bytes(g: int, bn: int, kstep: int) -> int:
+    """Dynamic shared memory of one block: the step's int8 activations
+    [g][bn][row_bytes(kstep)]."""
+    return g * bn * row_bytes(kstep)
+
+
+def _split_bound(z: int, kg: int, splits: int) -> int:
+    """First K-group of split z: z*KG/S rounded down to a multiple of 32
+    where 32*S <= KG, else of 4 where KG % 4 == 0 and 4*S <= KG; split S
+    ends at KG (`split_bound` in the kernel)."""
+    if z >= splits:
+        return kg
+    b = z * kg // splits
+    a = 32 if 32 * splits <= kg else (4 if kg % 4 == 0 and 4 * splits <= kg else 1)
+    return b - b % a
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The launch of one decode-kernel call: block (x, y, z) owns rows
+    `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z)`, which it walks
+    `kstep` K-groups at a time. `codes_aligned`: the codes are read as
+    32-bit words; `acts_aligned`: the activations as 16-byte (f32), 8-byte
+    (bf16) or 4-byte (a_r) vectors."""
+    m: int
+    kg: int
+    n: int
+    g: int
+    bm: int
+    bn: int
+    splits: int
+    kstep: int
+    codes_aligned: bool
+    acts_aligned: bool
+    smem: int
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.m // self.bm)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.n // self.bn)
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles * self.splits
+
+    def rows(self, x: int) -> tuple[int, int]:
+        return x * self.bm, min(self.m, (x + 1) * self.bm)
+
+    def tokens(self, y: int) -> tuple[int, int]:
+        return y * self.bn, min(self.n, (y + 1) * self.bn)
+
+    def kgroups(self, z: int) -> tuple[int, int]:
+        return _split_bound(z, self.kg, self.splits), _split_bound(z + 1, self.kg, self.splits)
+
+    def steps(self, z: int) -> list[tuple[int, int]]:
+        """The K-groups of each step of split z."""
+        lo, hi = self.kgroups(z)
+        return [(k, min(hi, k + self.kstep)) for k in range(lo, hi, self.kstep)]
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(m: int, kg: int, n: int, g: int, *, codes_aligned: bool = False,
+                acts_aligned: bool = False) -> DecodePlan:
+    """The launch of one call, from its shape and alignment claims (cached:
+    the serving path asks for the same few shapes at every step):
+
+    - BM x BN: `TILES` for this many tokens;
+    - S = 1 where M-tiles × token tiles fill a wave (132 blocks); else the
+      most splits that keep the grid within two waves, at most KG (KG/4
+      where KG % 4 == 0, so that every K-slice starts on a code word);
+    - K-groups per step: 32, or 64 where a K-slice is longer than 32.
+
+    The alignment claims come from `fused_aligned` / `int_aligned`; the
+    default claims none (byte and element loads)."""
+    bm, bn = next((bm, bn) for most, bm, bn in TILES if most is None or n <= most)
+    tiles = -(-m // bm) * -(-n // bn)
+    cap = kg // 4 if kg % 4 == 0 else kg
+    splits = 1 if tiles >= WAVE else max(1, min(cap, 2 * WAVE // tiles))
+    longest = max(_split_bound(z + 1, kg, splits) - _split_bound(z, kg, splits)
+                  for z in range(splits))
+    kstep = SUB if longest <= SUB else MAX_STEP
+    return DecodePlan(m, kg, n, g, bm, bn, splits, kstep, codes_aligned, acts_aligned,
+                      decode_smem_bytes(g, bn, kstep))
+
+
+def fused_aligned(packed: torch.Tensor, x: torch.Tensor) -> tuple[bool, bool]:
+    """The fused kernel's alignment claims: codes as words where KG % 4 == 0
+    and the codes' base is 4-byte aligned; activations as 4-element vectors
+    where, besides KG % 4 == 0 (every K-slice then starts on a multiple of
+    4 features), x's row stride is a multiple of 4 elements and its base is
+    aligned to 4 elements. The K = 964 weight's one-K-group g=4 segment and
+    its `x[:, 960:964]` slice claim neither."""
+    kg = packed.shape[1]
+    codes = kg % 4 == 0 and packed.data_ptr() % 4 == 0
+    acts = (kg % 4 == 0 and x.stride(0) % 4 == 0
+            and x.data_ptr() % (4 * x.element_size()) == 0)
+    return codes, acts
+
+
+def int_aligned(packed: torch.Tensor, a_r: torch.Tensor) -> tuple[bool, bool]:
+    """The integer kernel's alignment claims: codes as for `fused_aligned`;
+    a_r in 4-byte words of 4 tokens where KG % 4 == 0, N % 4 == 0 and a_r's
+    base is 4-byte aligned."""
+    kg = packed.shape[1]
+    codes = kg % 4 == 0 and packed.data_ptr() % 4 == 0
+    acts = kg % 4 == 0 and a_r.shape[2] % 4 == 0 and a_r.data_ptr() % 4 == 0
+    return codes, acts
 
 
 def check_fused_args(packed, x, a_scale, w_scale, g: int, out_dtype) -> None:
@@ -118,7 +257,10 @@ def ternary_decode_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
     out = torch.empty((x.shape[0], packed.shape[0]), dtype=out_dtype, device=x.device)
     if out.numel() == 0 or packed.shape[1] == 0:
         return out.zero_()
-    _build.launch_mpgemm("ternary_decode_gemm_fused", packed, x, a_scale, w_scale, g, out)
+    codes, acts = fused_aligned(packed, x)
+    plan = decode_plan(*packed.shape, x.shape[0], g, codes_aligned=codes, acts_aligned=acts)
+    _build.launch_decode(packed, x, a_scale, w_scale, g, out, plan,
+                         *_splitk.launch_args(plan, x.device))
     ternary_decode_gemm_fused.launches += 1
     return out
 
@@ -150,7 +292,9 @@ def ternary_decode_gemm(packed, a_r, *, g: int) -> torch.Tensor:
     out = torch.empty((packed.shape[0], a_r.shape[2]), dtype=torch.int32, device=a_r.device)
     if out.numel() == 0 or packed.shape[1] == 0:
         return out.zero_()
-    _build.launch_mpgemm_int("ternary_decode_gemm", packed, a_r, g, out)
+    codes, acts = int_aligned(packed, a_r)
+    plan = decode_plan(*packed.shape, a_r.shape[2], g, codes_aligned=codes, acts_aligned=acts)
+    _build.launch_decode_int(packed, a_r, g, out, plan, *_splitk.launch_args(plan, a_r.device))
     ternary_decode_gemm.launches += 1
     return out
 

@@ -13,7 +13,8 @@ select with equal integers; the port has one, the gather.
 `lut_plan` is the kernels' launch plan: rows per block, K-splits and the
 K-groups of each shared-memory chunk, chosen on the host from (M, KG, N, g)
 so that the grid fills the card; the split-K sums meet in a zeroed int32
-workspace that the wrappers own (`_workspace`).
+workspace that the wrappers own (`_splitk.launch_args`, shared with the
+decode kernels).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.core.vlut import sign_matrix_on
 
-from . import _build
+from . import _build, _splitk
 from .ternary_decode_gemm import (
     _KERNEL_DTYPES,
     check_fused_args,
@@ -139,39 +140,8 @@ def lut_plan(m: int, kg: int, n: int, g: int) -> LutPlan:
     return LutPlan(m, kg, n, g, bm, splits, chunk, lut_smem_bytes(g, bm, chunk, bnt))
 
 
-#: device → (workspace, counters): zeroed int32, left zeroed by every launch
-_WORKSPACE: dict = {}
-#: workspaces outgrown by a larger call; kept alive because a CUDA graph
-#: captured earlier may still point at them
-_RETIRED: list = []
-
-
-def _workspace(device: torch.device, plan: LutPlan) -> tuple[torch.Tensor, torch.Tensor]:
-    """The zeroed int32 workspace (≥ N*M entries) and counters (≥ one per
-    output tile) of a split-K launch. Every launch on the device shares
-    them, so two launches must not run at once on two streams. Grown only
-    by an eager call: a first allocation inside a CUDA-graph capture would
-    come from the graph's private pool, so it raises there instead."""
-    need_ws, need_cnt = plan.m * plan.n, plan.m_tiles * plan.n_tiles
-    cur = _WORKSPACE.get(device)
-    if cur is None or cur[0].numel() < need_ws or cur[1].numel() < need_cnt:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "vector-LUT split-K workspace too small inside a CUDA-graph capture: "
-                f"call the kernel once eagerly at (M, N) = ({plan.m}, {plan.n}) first")
-        old_ws, old_cnt = cur if cur is not None else (None, None)
-        cur = (torch.zeros(max(need_ws, 0 if old_ws is None else old_ws.numel()),
-                           dtype=torch.int32, device=device),
-               torch.zeros(max(need_cnt, 0 if old_cnt is None else old_cnt.numel()),
-                           dtype=torch.int32, device=device))
-        if old_ws is not None:
-            _RETIRED.append((old_ws, old_cnt))
-        _WORKSPACE[device] = cur
-    return cur
-
-
 def _launch_args(plan: LutPlan, device: torch.device):
-    return _workspace(device, plan) if plan.splits > 1 else (None, None)
+    return _splitk.launch_args(plan, device)
 
 
 def _lut_gather_int(q: torch.Tensor, packed: torch.Tensor, g: int) -> torch.Tensor:

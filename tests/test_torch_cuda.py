@@ -5,6 +5,8 @@ file imports no JAX, so it runs on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -88,9 +90,11 @@ def test_int_kernel_matches_plain(cuda, impl):
 # splits, a g=4 segment of one K-group, smollm-360m's q at a decode step
 LUT_TRAPS = [(70, 13, 17, 5), (1000, 77, 33, 5), (1000, 191, 17, 4), (70, 1, 3, 4),
              (960, 192, 4, 5)]
+#: each impl's launch plan: (M, KG, N, g) -> a plan with `splits`
+PLANS = {"decode": tdg.decode_plan, "lookup": vlg.lut_plan}
 
 
-def _lut_cases(cuda, fused):
+def _lut_cases(cuda, fused, impl):
     rng = np.random.default_rng(10)
     cases = []
     for m, kg, n, g in LUT_TRAPS:
@@ -102,18 +106,19 @@ def _lut_cases(cuda, fused):
         else:
             a_r = torch.tensor(rng.integers(-127, 128, (g, kg, n)).astype(np.int8), device=cuda)
             cases.append(((packed, a_r), dict(g=g)))
-    assert any(kg % vlg.lut_plan(m, kg, n, g).splits for m, kg, n, g in LUT_TRAPS)
+    assert any(kg % PLANS[impl](m, kg, n, g).splits for m, kg, n, g in LUT_TRAPS)
     return cases
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "int"])
-def test_lut_split_k_repeat_and_back_to_back(cuda, fused):
-    """The vector-LUT kernels split K across blocks that meet in a shared
+def test_lut_split_k_repeat_and_back_to_back(cuda, fused, impl):
+    """Both mpGeMM templates split K across blocks that meet in the shared
     int32 workspace: two launches of each shape, back to back with the
     other shapes and no sync between, equal the plain version bit for bit."""
-    kern, plain = (KERNELS if fused else INT_KERNELS)["lookup"]
-    cases = _lut_cases(cuda, fused)
+    kern, plain = (KERNELS if fused else INT_KERNELS)[impl]
+    cases = _lut_cases(cuda, fused, impl)
     first = [kern(*a, **kw) for a, kw in cases]
     second = [kern(*a, **kw) for a, kw in cases]
     for (a, kw), x, y in zip(cases, first, second):
@@ -122,13 +127,14 @@ def test_lut_split_k_repeat_and_back_to_back(cuda, fused):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "int"])
-def test_lut_split_k_graph_replays(cuda, fused):
-    """A CUDA graph of the vector-LUT kernel at every trap shape, replayed 3
-    times: the workspace and counters return to 0 after each launch, so the
-    outputs still equal the plain version."""
-    kern, plain = (KERNELS if fused else INT_KERNELS)["lookup"]
-    cases = _lut_cases(cuda, fused)
+def test_lut_split_k_graph_replays(cuda, fused, impl):
+    """A CUDA graph of the kernel at every trap shape, replayed 3 times: the
+    workspace and counters return to 0 after each launch, so the outputs
+    still equal the plain version."""
+    kern, plain = (KERNELS if fused else INT_KERNELS)[impl]
+    cases = _lut_cases(cuda, fused, impl)
     for a, kw in cases:                           # eager first: sizes the workspace
         kern(*a, **kw)
     torch.cuda.synchronize()
@@ -143,34 +149,37 @@ def test_lut_split_k_graph_replays(cuda, fused):
 
 
 @pytest.mark.cuda
-def test_lut_saturated_sums_at_the_largest_split(cuda):
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+def test_lut_saturated_sums_at_the_largest_split(cuda, impl):
     """All +1 weights and activations 127 at the plan with the most
     K-splits on smollm-360m's shapes: every sum is 127*K."""
     m, kg, n = max(((m, kg, n) for m, kg in [(960, 192), (320, 192), (2560, 192), (960, 512)]
-                    for n in (1, 4, 16, 64, 256)), key=lambda s: vlg.lut_plan(*s, 5).splits)
-    assert vlg.lut_plan(m, kg, n, 5).splits > 1
+                    for n in (1, 4, 16, 64, 256)), key=lambda s: PLANS[impl](*s, 5).splits)
+    assert PLANS[impl](m, kg, n, 5).splits > 1
+    kern, plain = KERNELS[impl]
     packed = torch.full((m, kg), 3 ** 5 - 1, dtype=torch.uint8, device=cuda)
-    out = vlg.vlut_lookup_gemm(packed, torch.full((5, kg, n), 127, dtype=torch.int8, device=cuda), g=5)
+    out = INT_KERNELS[impl][0](packed, torch.full((5, kg, n), 127, dtype=torch.int8, device=cuda), g=5)
     assert int(out.min()) == int(out.max()) == 127 * kg * 5
     x = torch.ones((n, kg * 5), device=cuda)
     args = (packed, x, act_token_scale(x.T).contiguous(), torch.ones(m, device=cuda))
-    assert torch.equal(vlg.vlut_lookup_gemm_fused(*args, g=5), vlg.vlut_lookup_gemm_fused_plain(*args, g=5))
+    assert torch.equal(kern(*args, g=5), plain(*args, g=5))
 
 
 @pytest.mark.cuda
-def test_lut_refused_plan_raises(cuda):
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+def test_lut_refused_plan_raises(cuda, impl):
     """A plan the kernel refuses (shared memory it would size otherwise)
     raises in the wrapper; nothing falls back to the plain version."""
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, _splitk
 
     packed = torch.zeros((128, 8), dtype=torch.uint8, device=cuda)
     a_r = torch.zeros((5, 8, 4), dtype=torch.int8, device=cuda)
     out = torch.empty((128, 4), dtype=torch.int32, device=cuda)
-    plan = vlg.lut_plan(128, 8, 4, 5)
-    bad = vlg.LutPlan(*[getattr(plan, f) for f in ("m", "kg", "n", "g", "bm", "splits", "chunk")],
-                      smem=plan.smem + 16)
+    plan = PLANS[impl](128, 8, 4, 5)
+    bad = dataclasses.replace(plan, smem=plan.smem + 16)
+    launch = _build.launch_decode_int if impl == "decode" else _build.launch_lut_int
     with pytest.raises(RuntimeError, match="CUDA error"):
-        _build.launch_lut_int(packed, a_r, 5, out, bad, *vlg._launch_args(bad, a_r.device))
+        launch(packed, a_r, 5, out, bad, *_splitk.launch_args(bad, a_r.device))
 
 
 @pytest.mark.cuda
