@@ -94,12 +94,39 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    CPU plain path on the same weights, before and after training. Then
    one step under torch.profiler (device-busy share).
 
+8. multi-token serving, run after phase 5 on phase 4's model and prompts
+   (4 slots, max_len 256, 16 new tokens). (a) Both fused kernels against
+   their plain versions at the five shapes of phase 3 with N in {20, 60}
+   (4 slots x (k+1) for chain k 4, 4 x 15 nodes for tree (2, 2); ragged
+   across the plans' token tiles), as in phase 3: expected difference
+   exactly 0. (b) After a prefill of one prompt, `verify_step` over k+1 = 5
+   tokens against 5 `decode_step` calls (logits within VERIFY_RTOL of the
+   largest, idx equal), and a tree verify of (2, 2) against the sequential
+   decode of each root-to-leaf path; each once more with a fault planted
+   (causal mask, ancestor gate dropped) that must read above the bound.
+   (c) Nine serving runs, greedy unless named, impl="decode" unless named:
+   chunked prefill (chunk 64), chunked with token_budget 96, chain
+   speculation k 4 with the n-gram drafter, with the self-drafting oracle
+   ModelDrafter, adaptive K, tree (2, 2), chunked + chain, chain with impl="lookup", and the stochastic oracle at
+   temperature 0.8. Each run's counts are zeroed just before it; it must
+   launch its kernel exactly 224 times per forward (target and drafter
+   forwards, counted through `lm_hidden`) and no other kernel, complete
+   every request, and (greedy) emit phase 4's tokens, or leave them only
+   at a near-tie (TIE_RTOL of the largest whole-prompt logit at the first
+   divergent step, logged); the oracle must accept at least 0.9 of its
+   drafts. Logged per run: decode tok/s and TTFT p50 on host clocks
+   (ServeStats, whole run), tokens and nodes per step, acceptance, mean
+   draft k, chunk steps, and the token counts N the mpGeMM launches saw.
+   Then one chain and one tree step of 4 full slots under torch.profiler
+   (device time by kernel, busy share), as phase 4's decode step.
+
 Output: a `kernels` JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -166,6 +193,31 @@ FLASH_TRAIN_SHAPE = (8, 512, 15, 5, 64)                           # (B, S, H, KV
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
 FLASH_GRAD_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 512, 30, 3e-4
+# Phase 8 (multi-token serving): the token counts N the verify and chunk
+# steps give the mpGeMM kernels with 4 slots (4 x (k+1) = 20 for chain k 4,
+# 4 x 15 = 60 for tree (2, 2)); ragged across the plans' 16-token tiles.
+MT_TOKENS = (20, 60)
+SPEC_K = 4
+SPEC_TREE = (2, 2)
+PREFILL_CHUNK = 64
+TOKEN_BUDGET = 96
+STOCHASTIC_TEMPERATURE = 0.8
+# verify_step against sequential decode, both on the card: both attend the
+# bf16 cache; the attention einsums and the head matmul run at other shapes
+# (5 or 15 queries against 1), so float sums may go in another order. Bound
+# on max |verify - sequential| relative to the largest sequential logit:
+# sound runs read 1.83e-7 (chain) and 1.19e-6 (tree) on the H100, and the
+# planted faults that check_verify runs (the causal mask or the tree's
+# ancestor gate dropped) must read above it.
+VERIFY_RTOL = 1e-4
+# A greedy run may leave phase 4's tokens only at a near-tie: at the first
+# divergent step the whole-prompt reference logits of the two tokens must
+# lie within this fraction of the largest logit (a bf16 rounding of the
+# largest logit is 2^-8 of it; a bookkeeping fault moves logits by far more).
+TIE_RTOL = 1e-2
+# the self-drafting oracle drafts with the target's own weights; the card's
+# draft and verify forwards differ only at near-ties
+ORACLE_MIN_ACCEPT = 0.9
 CPU_SEQ = 256
 # bf16 model, 32 layers, QAT: the CPU and the card round bf16 intermediates
 # after sums in another order, and an int8 activation code at a rounding
@@ -317,29 +369,32 @@ def decode_plan_for(tdg, m, kg, n, g):
     return tdg.decode_plan(m, kg, n, g, codes_aligned=kg % 4 == 0, acts_aligned=kg % 4 == 0)
 
 
-def check_kernels(torch, model, cfg):
-    """Phase 3: kernels against their plain versions, then timing."""
-    from repro_torch.core import act_token_scale
-    from repro_torch.core.quantize import INV_Q_MAX
-    from repro_torch.kernels import ops
+def fused_kernels() -> dict:
+    """{name: (kernel wrapper, plain version)} of the two fused mpGeMM
+    kernels."""
     from repro_torch.kernels import ternary_decode_gemm as tdg
     from repro_torch.kernels import vlut_lookup_gemm as vlg
-    from repro_torch.models.common import PackedLinear
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    kernels = {
+    return {
         "ternary_decode_gemm_fused": (tdg.ternary_decode_gemm_fused, tdg.ternary_decode_gemm_fused_plain),
         "vlut_lookup_gemm_fused": (vlg.vlut_lookup_gemm_fused, vlg.vlut_lookup_gemm_fused_plain),
     }
-    weights = bitlinear_weights(torch, model, gen)
 
+
+def fused_vs_plain(torch, kernels, weights, tokens, gen):
+    """Each fused kernel against its plain version at every weight shape,
+    token count N and activation/output type pair (f32/f32, bf16/bf16,
+    bf16/f32). → ({name: max |diff|}, number of checks)."""
+    from repro_torch.core import act_token_scale
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
     combos = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
               (torch.bfloat16, torch.float32))
     max_err = {name: 0.0 for name in kernels}
     n_checks = 0
     for (m, k), pw in weights.items():
-        for n in TOKENS:
+        for n in tokens:
             x32 = torch.randn((n, k), generator=gen, device=dev) * 3.0
             for in_dt, out_dt in combos:
                 x = x32.to(in_dt)
@@ -353,6 +408,23 @@ def check_kernels(torch, model, cfg):
                         err = (got.float() - want.float()).abs().max().item()
                         max_err[name] = max(max_err[name], err)
                         n_checks += 1
+    return max_err, n_checks
+
+
+def check_kernels(torch, model, cfg):
+    """Phase 3: kernels against their plain versions, then timing."""
+    from repro_torch.core import act_token_scale
+    from repro_torch.core.quantize import INV_Q_MAX
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+    from repro_torch.models.common import PackedLinear
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    kernels = fused_kernels()
+    weights = bitlinear_weights(torch, model, gen)
+
+    max_err, n_checks = fused_vs_plain(torch, kernels, weights, TOKENS, gen)
     log(f"kernels: {n_checks} kernel-vs-plain checks, max |diff| {max_err}")
     for n in TOKENS:
         log(f"kernels: LUT plans at N={n}: " + "; ".join(
@@ -709,18 +781,20 @@ def device_time_by_kernel(prof, steps: int) -> list:
                    if str(ev.device_type).endswith("CUDA") and dev_us(ev) > 0), reverse=True)
 
 
-def profile_decode(torch, model, cfg, prompts, steps: int = 4) -> dict:
+def profile_decode(torch, model, cfg, prompts, steps: int = 4, spec=None) -> dict:
     """Where a decode step's time goes: `torch.profiler` over `steps`
-    batched decode steps of 4 full slots (impl="decode"). Device time by
-    kernel, the device's busy share of the wall time, and the wall time per
-    step."""
+    batched decode steps of 4 full slots (impl="decode"; with `spec`, each
+    step is draft, verify and accept). Device time by kernel, the device's
+    busy share of the wall time, and the wall time per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Engine, Request
 
-    eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl="decode", device="cuda")
+    eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl="decode", spec=spec,
+                 device="cuda")
+    per_step = 1 + (spec.k if spec is not None else 0)     # the most a step emits
     for i, p in enumerate(prompts[:4]):
-        assert eng.add(Request(rid=i, prompt=p, max_new_tokens=steps + 4))
+        assert eng.add(Request(rid=i, prompt=p, max_new_tokens=per_step * (steps + 2) + 2))
     eng.decode_once()
     eng.decode_once()
     torch.cuda.synchronize()
@@ -736,6 +810,258 @@ def profile_decode(torch, model, cfg, prompts, steps: int = 4) -> dict:
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
             "top_kernels_ms_per_step": [[name[:90], ms] for ms, name in by_name[:8]]}
+
+
+def clone_cache(cache: list) -> list:
+    return [{k: v.clone() for k, v in layer.items()} for layer in cache]
+
+
+@contextlib.contextmanager
+def planted(module, name: str, fn):
+    """A fault planted for the duration of one call: module.name = fn."""
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def check_verify(torch, model, cfg, prompt, continuation) -> dict:
+    """Phase 8 (b): after a prefill of one prompt, `verify_step` over k+1
+    tokens against k+1 `decode_step` calls (logits within VERIFY_RTOL, idx
+    equal), and a tree verify of SPEC_TREE against the sequential decode of
+    each root-to-leaf path. Each check also runs once with a fault planted
+    (chain: the causal mask dropped, so a token sees the ones after it;
+    tree: the ancestor gate dropped, so a node sees its siblings and their
+    subtrees) and must then read above VERIFY_RTOL."""
+    import numpy as np
+
+    from repro_torch.models import attention, decode_step, init_cache, prefill, verify_step
+    from repro_torch.spec import build_tree
+
+    dev = torch.device("cuda")
+    mask = attention._mask
+    with torch.no_grad():
+        logits, cache = prefill(model, torch.from_numpy(prompt[None]).to(dev),
+                                init_cache(cfg, 1, 256, device=dev), cfg)
+        t0 = int(logits[0].argmax())
+
+        def sequential(toks):
+            c, out = clone_cache(cache), []
+            for t in toks:
+                row, c = decode_step(model, torch.tensor([[t]], dtype=torch.int32, device=dev), c, cfg)
+                out.append(row[0].float())
+            return torch.stack(out), c
+
+        def rel_err(got, want):
+            return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+        chain = [t0] + [int(t) for t in continuation[:SPEC_K]]
+        seq, seq_cache = sequential(chain)
+        ver, ver_cache = verify_step(model, torch.tensor([chain], dtype=torch.int32, device=dev),
+                                     clone_cache(cache), cfg)
+        chain_err = rel_err(ver[0], seq)
+        if not all(torch.equal(a["idx"], b["idx"]) for a, b in zip(seq_cache, ver_cache)):
+            raise AssertionError("verify_step and sequential decode left different idx")
+        with planted(attention, "_mask", lambda q, kv, causal, window: mask(q, kv, False, window)):
+            bad, _ = verify_step(model, torch.tensor([chain], dtype=torch.int32, device=dev),
+                                 clone_cache(cache), cfg)
+        chain_fault = rel_err(bad[0], seq)
+        tree = build_tree(SPEC_K, SPEC_TREE)
+        toks = np.random.default_rng(3).integers(0, cfg.vocab, tree.n_nodes).astype(np.int32)
+        toks[0] = t0
+        paths = [(torch.from_numpy(path).long().to(dev),
+                  sequential([int(toks[j]) for j in path])[0]) for path in tree.leaf_paths]
+
+        def tree_verify():
+            out, _ = verify_step(model, torch.from_numpy(toks[None]).to(dev), clone_cache(cache),
+                                 cfg, tree=tree)
+            return max(rel_err(out[0, cols], want) for cols, want in paths)
+
+        tree_err = tree_verify()
+        with planted(attention, "tree_step_gate", lambda *a: None):
+            tree_fault = tree_verify()
+    log(f"multi: verify_step over {len(chain)} tokens vs sequential decode: max |diff| "
+        f"{chain_err:.2e} of the largest logit; tree {SPEC_TREE} ({tree.n_nodes} nodes, "
+        f"{len(tree.leaf_paths)} paths) {tree_err:.2e} (bound {VERIFY_RTOL}); planted faults "
+        f"read {chain_fault:.2e} (chain, causal mask dropped) and {tree_fault:.2e} (tree, "
+        f"ancestor gate dropped)")
+    for what, err in (("chain", chain_err), ("tree", tree_err)):
+        if not err <= VERIFY_RTOL:
+            raise AssertionError(f"{what} verify_step differs from sequential decode by {err} "
+                                 f"> {VERIFY_RTOL} of the largest logit")
+    for what, err in (("chain", chain_fault), ("tree", tree_fault)):
+        if not err > VERIFY_RTOL:
+            raise AssertionError(f"the {what} check does not see its planted fault: {err} <= "
+                                 f"{VERIFY_RTOL} of the largest logit")
+    return {"chain_rel_err": chain_err, "tree_rel_err": tree_err, "chain_tokens": len(chain),
+            "tree_nodes": tree.n_nodes, "tree_paths": len(tree.leaf_paths), "rtol": VERIFY_RTOL,
+            "planted_chain_no_causal_rel_err": chain_fault,
+            "planted_tree_no_gate_rel_err": tree_fault}
+
+
+def near_tie(torch, model, cfg, prompt, ref, got) -> dict:
+    """The first step where `got` leaves the reference tokens `ref`: the
+    whole-prompt reference logits there (prefill, then decode of ref's
+    earlier tokens, on the card); raises unless the two tokens are within
+    TIE_RTOL of the largest logit."""
+    from repro_torch.models import decode_step, init_cache, prefill_into_slot
+
+    dev = torch.device("cuda")
+    t = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+    with torch.no_grad():
+        row, cache, _ = prefill_into_slot(model, init_cache(cfg, 1, 256, device=dev), 0, prompt,
+                                          cfg, max_len=256)
+        for tok in ref[:t]:
+            row, cache = decode_step(model, torch.tensor([[tok]], dtype=torch.int32, device=dev),
+                                     cache, cfg)
+    row = row[0].float()
+    gap = abs((row[ref[t]] - row[got[t]]).item())
+    scale = row.abs().max().item()
+    tie = {"step": t, "ref_token": ref[t], "token": got[t], "gap": gap, "max_abs_logit": scale}
+    if gap > TIE_RTOL * scale:
+        raise AssertionError(f"greedy divergence at step {t} is no near-tie: {tie}")
+    return tie
+
+
+def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", spec=None,
+                temperature=0.0, **kw) -> dict:
+    """Phase 8 (c): one serving run with its counts zeroed just before it.
+    Every forward (target and drafter) is counted through `lm_hidden`, with
+    the token count N = B x S its mpGeMM launches (224 at full depth) see."""
+    from repro_torch.models import decoder
+    from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request
+
+    eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl=impl, spec=spec,
+                 temperature=temperature, seed=7, device="cuda", **kw)
+    n_hist: dict = {}
+    lm_hidden = decoder.lm_hidden
+
+    def counted(model_, tokens, *a, **k):
+        n_hist[tokens.numel()] = n_hist.get(tokens.numel(), 0) + 1
+        return lm_hidden(model_, tokens, *a, **k)
+
+    sched = ContinuousBatchingScheduler(eng)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
+    for fn in counters.values():
+        fn.launches = 0
+    decoder.lm_hidden = counted
+    try:
+        sched.submit(reqs)
+        stats = sched.run_to_completion()
+    finally:
+        decoder.lm_hidden = lm_hidden
+    launches = {nm: fn.launches for nm, fn in counters.items()}
+    forwards = sum(n_hist.values())
+    target = stats.decode_steps + stats.chunk_steps + (0 if eng.prefill_chunk else len(reqs))
+    kernel = "vlut_lookup_gemm_fused" if impl == "lookup" else "ternary_decode_gemm_fused"
+    per_forward = 7 * cfg.n_layers          # BitLinears: q, k, v, o, gate, up, down
+    want = {nm: (per_forward * forwards if nm == kernel else 0) for nm in counters}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    drafter_forwards = forwards - target
+    if drafter_forwards < 0 or (drafter_forwards and not (spec and spec.drafter == "model")):
+        raise AssertionError(f"{name}: {forwards} forwards counted, {target} target forwards")
+    if stats.completed != len(reqs) or any(len(r.generated) != 16 for r in reqs):
+        raise AssertionError(f"{name}: {stats.completed}/{len(reqs)} requests completed")
+    if not all(0 <= t < cfg.vocab for r in reqs for t in r.generated):
+        raise AssertionError(f"{name}: a token outside the vocabulary")
+    row = {
+        "impl": impl, "spec": None if spec is None else {
+            "k": spec.k, "drafter": spec.drafter, "adaptive_k": spec.adaptive_k,
+            "tree": spec.tree, "stochastic": spec.stochastic},
+        "temperature": temperature, **{k: v for k, v in kw.items()},
+        "tokens": [list(map(int, r.generated)) for r in reqs],
+        "launches": launches, "forwards": forwards, "target_forwards": target,
+        "drafter_forwards": drafter_forwards,
+        "mpgemm_tokens_per_launch": {str(n): c * per_forward for n, c in sorted(n_hist.items())},
+        "decode_tok_s": stats.decode_tok_s, "prefill_tok_s": stats.prefill_tok_s,
+        "ttft_p50_ms": sorted(stats.ttft_s)[len(stats.ttft_s) // 2] * 1e3, "wall_s": stats.wall_s,
+        "decode_tokens": stats.decode_tokens, "decode_steps": stats.decode_steps,
+        "chunk_steps": stats.chunk_steps, "spec_steps": stats.spec_steps,
+        "tokens_per_step": stats.decode_tokens_per_step, "nodes_per_step": stats.nodes_per_step,
+        "acceptance": stats.acceptance_rate, "mean_draft_k": stats.mean_draft_k,
+        "skip_rate": stats.skip_rate,
+    }
+    log(f"multi: {name}: forwards {forwards} (drafter {drafter_forwards}), launches "
+        f"{launches[kernel]} of {kernel}, N per launch {row['mpgemm_tokens_per_launch']}, "
+        f"decode_tok_s {row['decode_tok_s']:.1f}, ttft_p50_ms {row['ttft_p50_ms']:.1f}, "
+        f"tok/step {row['tokens_per_step']:.2f}, nodes/step {row['nodes_per_step']:.2f}, "
+        f"acceptance {row['acceptance']:.3f}, mean k {row['mean_draft_k']:.2f}, "
+        f"chunk steps {row['chunk_steps']}, wall {row['wall_s']:.1f} s")
+    return row
+
+
+def check_multi_token(torch, model, cfg, weights, prompts, counters, ref_tokens) -> dict:
+    """Phase 8: multi-token serving on phase 4's model and prompts. (a) Both
+    fused kernels against their plain versions at N in MT_TOKENS; (b)
+    verify_step against sequential decode; (c) chunked prefill, token
+    budget, chain / oracle / adaptive / tree speculation, chunked + chain,
+    chain with impl="lookup", and one stochastic run, each checked for
+    launches, completion and (greedy) phase 4's tokens under the near-tie
+    rule."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+    from repro_torch.spec import SpecConfig
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    max_err, n_checks = fused_vs_plain(torch, fused_kernels(), weights, MT_TOKENS, gen)
+    log(f"multi: {n_checks} kernel-vs-plain checks at N {MT_TOKENS}, max |diff| {max_err}")
+    for n in MT_TOKENS:
+        log(f"multi: plans at N={n}: " + "; ".join(
+            f"{m}x{k}: decode BM {d.bm} BN {d.bn} S {d.splits} blocks {d.blocks}, "
+            f"LUT BM {lp.bm} S {lp.splits} blocks {lp.blocks}" for m, k in SHAPES
+            for d, lp in [(decode_plan_for(tdg, m, k // 5, n, 5), vlg.lut_plan(m, k // 5, n, 5))]))
+    for name, err in max_err.items():
+        if err != 0.0:
+            raise AssertionError(f"{name} differs from its plain version by {err} at N {MT_TOKENS}")
+    verify = check_verify(torch, model, cfg, prompts[0], ref_tokens[0][1:])
+
+    oracle = dict(drafter="model", draft_params=model, draft_cfg=cfg)
+    runs = {
+        "chunk": dict(prefill_chunk=PREFILL_CHUNK),
+        "chunk_budget": dict(prefill_chunk=PREFILL_CHUNK, token_budget=TOKEN_BUDGET),
+        "chain_ngram": dict(spec=SpecConfig(k=SPEC_K)),
+        "chain_oracle": dict(spec=SpecConfig(k=SPEC_K, **oracle)),
+        "adaptive_ngram": dict(spec=SpecConfig(k=SPEC_K, adaptive_k=True)),
+        "tree_ngram": dict(spec=SpecConfig(k=SPEC_K, tree=SPEC_TREE)),
+        "chunk_chain_ngram": dict(prefill_chunk=PREFILL_CHUNK, spec=SpecConfig(k=SPEC_K)),
+        "chain_ngram_lookup": dict(impl="lookup", spec=SpecConfig(k=SPEC_K)),
+        "stochastic_oracle": dict(temperature=STOCHASTIC_TEMPERATURE,
+                                  spec=SpecConfig(k=SPEC_K, stochastic=True, **oracle)),
+    }
+    out = {}
+    for name, kw in runs.items():
+        row = serve_multi(torch, model, cfg, prompts, counters, name, **kw)
+        if not row["temperature"]:
+            ties = [near_tie(torch, model, cfg, p, ref, got)
+                    for p, ref, got in zip(prompts, ref_tokens, row["tokens"]) if got != ref]
+            row["near_ties"] = ties
+            log(f"multi: {name}: greedy tokens {'equal phase 4' if not ties else 'leave phase 4 at '}"
+                + ", ".join(f"step {t['step']} (gap {t['gap']:.2e} of {t['max_abs_logit']:.3f})"
+                            for t in ties))
+        out[name] = row
+    if out["chain_oracle"]["acceptance"] < ORACLE_MIN_ACCEPT:
+        raise AssertionError(f"the oracle drafter accepted {out['chain_oracle']['acceptance']} "
+                             f"< {ORACLE_MIN_ACCEPT}")
+    profiles = {}
+    for name in ("chain_ngram", "tree_ngram"):
+        prof = profile_decode(torch, model, cfg, prompts, spec=runs[name]["spec"])
+        profiles[name] = prof
+        log(f"multi: profile of a {name} step (4 slots): wall {prof['wall_ms_per_step']:.3f} ms, "
+            f"device busy {prof['device_ms_per_step']:.3f} ms"
+            + (f" ({100 * prof['device_busy_share']:.1f}%)" if prof["device_busy_share"] else
+               " (the profiler saw no device time: not measured)"))
+        for kname, ms in prof["top_kernels_ms_per_step"][:4]:
+            log(f"multi:   {ms:8.4f} ms  {kname}")
+    log(f"multi: phase 8 took {time.perf_counter() - t0:.1f} s")
+    return {"kernels_max_abs_err": max_err, "kernel_checks": n_checks, "tokens": MT_TOKENS,
+            "verify": verify, "tie_rtol": TIE_RTOL, "oracle_min_accept": ORACLE_MIN_ACCEPT,
+            "step_profiles": profiles,
+            "runs": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in out.items()},
+            "seconds": time.perf_counter() - t0}
 
 
 def flash_inputs(torch, b, s, h, kv, d, dtype, gen, contiguous=False):
@@ -1142,6 +1468,10 @@ def main() -> int:
     # 5. unfused
     unfused = check_unfused(torch, model, cfg, weights, prompts, counters, runs, per_n)
 
+    # 8. multi-token serving (on phase 4's model, before it is freed)
+    multi = check_multi_token(torch, model, cfg, weights, prompts, counters,
+                              runs["decode"]["tokens"])
+
     del model, cpu_model, weights
     torch.cuda.empty_cache()
 
@@ -1190,6 +1520,7 @@ def main() -> int:
                                          for k, v in unfused["serve"].items()}},
         "logits_card_vs_cpu": {"max_abs_diff": diff, "max_abs_logit": scale},
         "decode_profile": prof,
+        "multi_token": multi,
         "flash": flash, "train": trained,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

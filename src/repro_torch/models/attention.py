@@ -12,7 +12,12 @@ The no-cache (train/eval) forward runs `sdpa` or, with
 ``cfg.attn_impl == "flash"``, the flash-attention kernel on transposed views
 of the (B, S, H, D) tensors (the kernel reads strides: no copies).
 
-Not ported yet: speculative `verify`/`tree` steps and the paged cache.
+A multi-token `verify` step (speculative verification, chunked prefill)
+appends S tokens at per-slot positions and attends the whole cache; with a
+draft `tree` the S tokens are a flattened `DraftTree` whose nodes sit in one
+cache slot each and attend only their ancestors (`tree_step_gate`).
+
+Not ported yet: the paged cache.
 """
 from __future__ import annotations
 
@@ -47,9 +52,11 @@ def _scores(q, k, scale: float, softcap: float) -> torch.Tensor:
 
 
 def sdpa(q, k, v, q_pos, kv_pos, *, causal: bool = True, window: int = 0,
-         softcap: float = 0.0, chunk: int = 512, dense_max: int = 2048) -> torch.Tensor:
+         softcap: float = 0.0, chunk: int = 512, dense_max: int = 2048,
+         extra_mask: torch.Tensor | None = None) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Skv, KV, D); q_pos (B, Sq); kv_pos (B, Skv),
-    negative = invalid slot → (B, Sq, H, Dv)."""
+    negative = invalid slot; extra_mask (B, Sq, Skv) bool is ANDed into the
+    position mask → (B, Sq, H, Dv)."""
     b, sq, h, d = q.shape
     dv = v.shape[-1]
     kv = k.shape[2]
@@ -60,6 +67,8 @@ def sdpa(q, k, v, q_pos, kv_pos, *, causal: bool = True, window: int = 0,
     if k.shape[1] <= dense_max or k.shape[1] % chunk:
         s = _scores(qg, k, scale, softcap)                       # (B,KV,G,Sq,Skv)
         m = _mask(q_pos, kv_pos, causal, window)
+        if extra_mask is not None:
+            m = m & extra_mask
         s = torch.where(m[:, None, None], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         # p is rounded to v's dtype, the product accumulated in f32 and
@@ -76,6 +85,8 @@ def sdpa(q, k, v, q_pos, kv_pos, *, causal: bool = True, window: int = 0,
         kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
         s = _scores(qg, kc, scale, softcap)                      # (B,KV,G,Sq,c)
         msk = _mask(q_pos, kv_pos[:, c0:c0 + chunk], causal, window)
+        if extra_mask is not None:
+            msk = msk & extra_mask[:, :, c0:c0 + chunk]
         s = torch.where(msk[:, None, None], s, NEG_INF)
         m_new = torch.maximum(m_run, s.amax(-1))
         alpha = torch.exp(m_run - m_new)
@@ -85,6 +96,22 @@ def sdpa(q, k, v, q_pos, kv_pos, *, causal: bool = True, window: int = 0,
         m_run = m_new
     out = acc / torch.clamp_min(l_run, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+
+
+def tree_step_gate(tree, start: torch.Tensor, s: int, length: int) -> torch.Tensor:
+    """(B, S, L) bool gate ANDed into a tree-verify step's attention mask.
+
+    The step's S tokens are a flattened draft tree (`spec.tree.DraftTree`)
+    in cache slots start..start+S-1, node i at slot start+i, while their
+    positions are start+depth(i), shared between siblings. Inside that slot
+    window a node attends only its ancestors (itself included); outside it
+    the gate is True and the position mask stands alone."""
+    anc = torch.as_tensor(tree.ancestors, device=start.device)               # (S, S)
+    o = (torch.arange(length, device=start.device)[None, :]
+         - start[:, None].long())                                             # (B, L)
+    in_step = (o >= 0) & (o < s)
+    lookup = anc[:, o.clamp(0, s - 1)]                                        # (S, B, L)
+    return torch.where(in_step[:, None, :], lookup.permute(1, 0, 2), True)
 
 
 # --------------------------------------------------------------------------
@@ -144,16 +171,30 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
     attends within the incoming sequence) or decode (S==1: appends and
     attends the whole cache).
 
+    verify=True is the multi-token decode step: the S tokens are appended at
+    positions idx..idx+S-1 and attend the whole cache (prior context and
+    themselves, position-causal). A column whose position passes the buffer
+    end (a chunked prefill's padded tail, a decode row's pad columns) is
+    dropped, never wrapped onto the slot's early K/V. With `tree` (a
+    `DraftTree`, verify only) node i is written to slot idx+i (modulo the
+    buffer) with position idx+depth(i) and attends its ancestors only.
+
     The cache is updated IN PLACE (its k/v/slot_pos tensors are written);
     the returned dict shares them and carries the advanced idx."""
-    if verify or tree is not None:
-        raise NotImplementedError("speculative verify/tree steps are not ported yet")
+    if verify and spec.window:
+        raise ValueError(
+            "multi-token verification needs a rollbackable cache; windowed "
+            "(ring-buffer) layers would lose in-window history on rollback")
     if cache is not None and "tab" in cache:
         raise NotImplementedError("the paged KV cache is not ported yet")
     b, s, _ = x.shape
     start = (cache["idx"] if cache is not None
              else torch.zeros((b,), dtype=torch.int32, device=x.device))
-    positions = start[:, None] + torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    if tree is not None:
+        offsets = torch.as_tensor(tree.depths, dtype=torch.int32, device=x.device)
+    else:
+        offsets = torch.arange(s, dtype=torch.int32, device=x.device)
+    positions = start[:, None] + offsets[None, :]
     q, k, v = _project_qkv(p, x, cfg, spec, mode, positions)
     attn = dict(causal=True, window=spec.window, softcap=cfg.attn_logit_softcap,
                 chunk=cfg.attn_chunk, dense_max=cfg.attn_dense_max)
@@ -181,17 +222,33 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
         else:
             # torch.remainder follows the sign of the divisor, as jnp's %,
             # so negative pad positions wrap into [0, buf) (and stay masked
-            # by their negative slot_pos). Every slot is in range, so the
-            # JAX scatter's mode="drop" has nothing to drop on this path.
-            slots = torch.remainder(positions.long(), buf)
-            ck[bidx, slots] = k.to(ck.dtype)
-            cv[bidx, slots] = v.to(cv.dtype)
-            sp[bidx, slots] = positions
+            # by their negative slot_pos). A tree's nodes take one slot each
+            # (siblings share a position, not a slot).
+            if tree is not None:
+                slots = torch.remainder(
+                    start[:, None].long() + torch.arange(s, device=x.device), buf)
+            else:
+                slots = torch.remainder(positions.long(), buf)
+            kw, vw, pw = k.to(ck.dtype), v.to(cv.dtype), positions
+            if verify and tree is None:
+                # the JAX scatter's mode="drop": columns past the buffer end
+                # are dropped. Their wrapped slots are distinct from the
+                # row's in-range ones (S < buf), so writing those slots'
+                # current contents back is exactly a drop, with no host sync.
+                keep = positions < buf
+                kw = torch.where(keep[..., None, None], kw, ck[bidx, slots])
+                vw = torch.where(keep[..., None, None], vw, cv[bidx, slots])
+                pw = torch.where(keep, pw, sp[bidx, slots])
+            ck[bidx, slots] = kw
+            cv[bidx, slots] = vw
+            sp[bidx, slots] = pw
         new_cache = {"k": ck, "v": cv, "slot_pos": sp, "idx": start + s}
-        if s == 1:
-            # decode: attend the whole cache (it already holds this token),
-            # in the cache's dtype
-            out = sdpa(q, ck, cv, positions, sp, **attn)
+        if s == 1 or verify:
+            # decode / verify: attend the whole cache (it already holds the
+            # incoming tokens), in the cache's dtype; causality comes from
+            # the position mask, plus the ancestor gate over a tree's slots
+            gate = tree_step_gate(tree, start, s, buf) if tree is not None else None
+            out = sdpa(q, ck, cv, positions, sp, extra_mask=gate, **attn)
         else:
             # prefill: attend within the incoming (fresh) sequence itself
             out = sdpa(q, k, v, positions, positions, **attn)

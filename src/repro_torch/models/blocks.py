@@ -40,10 +40,14 @@ def block_cache_init(cfg, spec, batch: int, max_len: int, dtype, device) -> dict
 
 
 def block_apply(p: Block, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
-                cache: dict | None = None):
-    """→ (x, new_cache)."""
+                cache: dict | None = None, verify: bool = False, tree=None,
+                prefill_resume: bool = False):
+    """→ (x, new_cache). `prefill_resume` selects the MLA mixer's chunked
+    prefill read; the attention mixer reads the same way either way, so it
+    has no effect here (as in the JAX package)."""
     h = rmsnorm_apply(p.mixer_norm, x, cfg.norm_eps)
-    y, new_cache = attn_apply(p.mixer, h, cfg=cfg, spec=spec, mode=mode, cache=cache)
+    y, new_cache = attn_apply(p.mixer, h, cfg=cfg, spec=spec, mode=mode, cache=cache,
+                              verify=verify, tree=tree)
     x = x + y
     hf = rmsnorm_apply(p.ffn_norm, x, cfg.norm_eps)
     return x + dense_ffn_apply(p.ffn, hf, mode), new_cache

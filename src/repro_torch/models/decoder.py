@@ -8,8 +8,9 @@ under autograd is recomputed in backward (`torch.utils.checkpoint`, the
 JAX "full" policy). The cross-entropy is computed in sequence chunks of
 ``cfg.loss_chunk`` (never the full (B, S, V) logits at once). Entry points
 keep the JAX names: `lm_hidden`, `lm_logits`, `lm_loss`, `init_cache`,
-`prefill`, `decode_step`, `prefill_bucket`, `prefill_into_slot`,
-`scatter_slot_cache`, `rollback_cache`.
+`prefill`, `decode_step`, `verify_step`, `prefill_bucket`,
+`prefill_into_slot`, `scatter_slot_cache`, `reset_slot_idx`,
+`compact_tree_cache`, `rollback_cache`.
 """
 from __future__ import annotations
 
@@ -114,8 +115,17 @@ def _block_out(layer, x, *, cfg, spec, mode):
 
 
 def lm_hidden(model: LM, tokens: torch.Tensor, cfg, *, mode: str = "train",
-              cache: list | None = None):
-    """tokens: int (B, S) → (hidden (B, S, d), new_cache)."""
+              cache: list | None = None, verify: bool = False, tree=None,
+              prefill_resume: bool = False):
+    """tokens: int (B, S) → (hidden (B, S, d), new_cache). verify=True: the
+    S tokens are a multi-token decode step appended to the cache (see
+    `verify_step`); tree marks them as a flattened draft tree (verify only)."""
+    if tree is not None and not verify:
+        raise ValueError("tree attention is only defined for verify steps")
+    if prefill_resume and (tree is not None or not verify):
+        raise ValueError(
+            "prefill_resume is the chunked-prefill verify read path; it is "
+            "undefined for trees or non-verify forwards")
     x = embed_apply(model.embed, tokens, cfg)
     remat = _remat(cfg, cache)
     new_cache = []
@@ -125,7 +135,8 @@ def lm_hidden(model: LM, tokens: torch.Tensor, cfg, *, mode: str = "train",
             x, nc = checkpoint(fn, x, use_reentrant=False), None
         else:
             x, nc = block_apply(layer, x, cfg=cfg, spec=spec, mode=mode,
-                                cache=cache[i] if cache is not None else None)
+                                cache=cache[i] if cache is not None else None,
+                                verify=verify, tree=tree, prefill_resume=prefill_resume)
         new_cache.append(nc)
     x = rmsnorm_apply(model.final_norm, x, cfg.norm_eps)
     return x, (new_cache if cache is not None else None)
@@ -191,6 +202,35 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: list, cfg):
     return _head_matmul(model, h[:, -1:, :], cfg)[:, 0], new_cache
 
 
+def verify_step(model: LM, tokens: torch.Tensor, cache: list, cfg, *, tree=None,
+                prefill_resume: bool = False, logit_cols: torch.Tensor | None = None):
+    """Batched multi-token decode: the speculative-verification step and the
+    chunked-prefill step.
+
+    tokens: (B, S) int; column 0 is each slot's last sampled token, columns
+    1..S-1 the drafted continuation (or the next prompt chunk). Every token
+    is appended at its slot's position (cache idx onward) and attends the
+    whole cache, so logits[:, j] is what sequential decode would give after
+    tokens[:, :j+1]: one pass with N = B*S tokens per mpGeMM launch instead
+    of S passes with N = B.
+
+    With tree (a `DraftTree`, S == tree.n_nodes) the tokens are a flattened
+    draft tree: node j attends the cached prefix and its ancestors only, at
+    position idx + depth(j), written to slot idx + j; the engine compacts
+    the accepted path (`compact_tree_cache`) before rolling back.
+
+    → (logits (B, S, V) f32, new_cache with idx advanced by S). With
+    logit_cols ((B,) int) one hidden state per slot is gathered *before* the
+    head matmul, → (logits (B, V), new_cache): the chunk step never builds
+    (B, S, V) logits."""
+    h, new_cache = lm_hidden(model, tokens, cfg, mode="serve", cache=cache, verify=True,
+                             tree=tree, prefill_resume=prefill_resume)
+    if logit_cols is not None:
+        cols = logit_cols.to(torch.long)[:, None, None].expand(-1, 1, h.shape[-1])
+        return _head_matmul(model, torch.gather(h, 1, cols), cfg)[:, 0], new_cache
+    return _head_matmul(model, h, cfg), new_cache
+
+
 def prefill_bucket(n: int, max_len: int | None = None) -> int:
     """Pad prompt lengths to 16-multiples (left padding gives pad tokens
     negative positions, masked everywhere), clamped to `max_len` so
@@ -225,6 +265,64 @@ def scatter_slot_cache(full_cache: list, single_cache: list, slot: int) -> list:
         for key, leaf in full.items():
             leaf[slot:slot + 1] = one[key].to(leaf.dtype)
     return full_cache
+
+
+def reset_slot_idx(cache: list, slot: int, value: int = 0) -> list:
+    """Set ONE slot's write position to `value` in place, leaving every
+    other slot's untouched: chunked admission claims a slot without a fresh
+    cache (the prompt arrives chunk by chunk). Stale K/V needs no clearing:
+    chunk writes re-cover positions contiguously from 0, and entries above
+    the write frontier record positions past every live query."""
+    for layer in cache:
+        layer["idx"][slot] = value
+    return cache
+
+
+def compact_tree_cache(cache: list, pos: torch.Tensor, sel: torch.Tensor,
+                       take: torch.Tensor) -> list:
+    """Compact a tree verify step's cache window onto the accepted path, in
+    place.
+
+    A tree verify writes node j to slot pos+j with position pos+depth(j).
+    The accepted path's depth-d node must end up at slot pos+d (slot ==
+    position, as every later step assumes) before the idx rollback.
+
+    pos (B,) int: the step's base idx. sel (B, N) int: slot pos+d receives
+    node sel[b, d]'s entry (the accepted path's depth-d node for d < take,
+    identity elsewhere). take (B,) int: window slots d < take stay live; the
+    rest get slot_pos = -1, so a stale sibling's small position can never
+    pass a later query's mask. With sel = identity, take = N leaves a row's
+    window as it was and take = 0 invalidates all of it (the engine passes 0
+    for a slot outside the step: its row was verified too, so its window
+    holds nodes at positions below their slots).
+
+    Source indices past the buffer are clamped (their columns' writes are
+    dropped: only a window crossing the buffer end has them), and columns
+    whose destination passes the buffer end are dropped, never wrapped.
+    Only k, v and slot_pos are touched; idx is rollback's job."""
+    pos, sel, take = pos.to(torch.long), sel.to(torch.long), take.to(torch.long)
+    n = sel.shape[1]
+    cols = torch.arange(n, device=pos.device)[None, :]
+    src = pos[:, None] + sel                                          # (B, N)
+    dst = pos[:, None] + cols                                         # (B, N)
+    live = cols < take[:, None]
+    bidx = torch.arange(sel.shape[0], device=pos.device)[:, None]
+    for layer in cache:
+        length = layer["slot_pos"].shape[1]
+        keep = dst < length
+        # dst past the end wraps onto slots below pos, distinct from the
+        # row's in-range ones (N <= length): writing their current contents
+        # back is the drop
+        dst_w = torch.remainder(dst, length)
+        src_c = src.clamp(max=length - 1)
+        for key in ("k", "v", "slot_pos"):
+            leaf = layer[key]
+            gathered = leaf[bidx, src_c]
+            if key == "slot_pos":
+                gathered = torch.where(live, gathered, -1).to(leaf.dtype)
+            k_b = keep.reshape(keep.shape + (1,) * (leaf.dim() - 2))
+            leaf[bidx, dst_w] = torch.where(k_b, gathered, leaf[bidx, dst_w])
+    return cache
 
 
 def rollback_cache(cache: list, new_idx: torch.Tensor) -> list:

@@ -63,8 +63,7 @@ def test_greedy_serving_token_identical(served):
 def test_engine_refuses_unported_options(served):
     jcfg, tcfg, params, _ = served
     model = bridge.lm_from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
-    for kw in (dict(spec=object()), dict(prefill_chunk=8), dict(paged_kv=object()),
-               dict(obs=object())):
+    for kw in (dict(paged_kv=object()), dict(obs=object())):
         with pytest.raises(NotImplementedError):
             ts.Engine(model, tcfg, max_slots=2, max_len=32, device="cpu", **kw)
     if not torch.cuda.is_available():
@@ -145,3 +144,20 @@ def test_serve_stats_rates_match_jax(wall_s, prefill, decode):
     got, want = ts.ServeStats(**kw), js.ServeStats(**kw)
     for name in ("decode_tok_s", "prefill_tok_s", "throughput_tok_s"):
         assert getattr(got, name) == getattr(want, name), name
+
+
+def test_serve_cli_spec_and_chunked(capsys):
+    """The launcher's speculative and chunked flags on the CPU: every
+    request completes and the spec stats are printed."""
+    from repro_torch.launch import serve as launch
+
+    stats = launch.main(["--arch", "smollm-360m", "--smoke", "--device", "cpu", "--spec-k", "3",
+                         "--prefill-chunk", "16", "--requests", "3", "--slots", "2",
+                         "--max-new", "6", "--prompt-len", "20"])
+    out = capsys.readouterr().out
+    assert stats.completed == 3 and stats.chunk_steps > 0 and stats.spec_steps > 0
+    assert "completed=3/3" in out
+    assert f"spec: k=3 tree=None adaptive=False steps={stats.spec_steps} " in out
+    assert f"accepted={stats.accepted_tokens} " in out and "acceptance=" in out
+    with pytest.raises(SystemExit):
+        launch.main(["--arch", "smollm-360m", "--smoke", "--device", "cpu", "--token-budget", "8"])
