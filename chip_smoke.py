@@ -119,6 +119,31 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    draft k, chunk steps, and the token counts N the mpGeMM launches saw.
    Then one chain and one tree step of 4 full slots under torch.profiler
    (device time by kernel, busy share), as phase 4's decode step.
+9. paged: the paged KV cache (`Engine(paged_kv=PagedKVConfig(...))`, page
+   size 16) on phase 4's model, 4 slots and max_len 256, 16 new tokens,
+   after phase 8. Every run's counts are zeroed just before it; it must
+   launch its fused kernel exactly 224 times per forward and no other
+   mpGeMM kernel, complete every request, and emit its reference's greedy
+   tokens, or leave them only at a near-tie (TIE_RTOL, as phase 8: paged
+   admission attends the prompt's K/V from the bf16 cache, as chunked
+   prefill does). (a) Phase 4's prompts with impl="decode" and "lookup";
+   reference: phase 4's tokens. (b) Chunk 64 with chain k 4 (n-gram), and
+   tree (2, 2) (compaction through the block table); reference: phase 8's
+   matching dense runs. (c) Prefix sharing: 8 requests of a common
+   128-token system prompt (8 full pages) plus 8-32 unique tokens each,
+   served dense and then paged; reference: the dense run's tokens; at
+   least one request must hit the radix index, and the paged run's
+   prefill tokens must equal the dense run's minus its prefix-hit tokens.
+   Logged: TTFT p50 of both runs and the admission time of requests with
+   and without a hit. (d) The offload tier: 1 slot, 17 pages (16
+   allocatable) and a 64-page host tier, prompts p1, p2, p1 of 128 tokens:
+   each request reserves 9 pages, so p2's admission pages p1's prefix out
+   and the second p1 pages it back in; reference: the dense run's tokens;
+   the pages paged out and in must equal what the host `Pager` decides
+   for the same admissions and releases. (e) One paged decode step of 4
+   full slots under torch.profiler beside phase 4's dense step: device ms,
+   busy share, and the device time of the gathers (`aten::index`: the
+   `page_view` reads) and the scatters (`aten::index_put_`).
 
 Output: a `kernels` JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}. Details go to
@@ -128,6 +153,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import pathlib
@@ -218,6 +244,12 @@ TIE_RTOL = 1e-2
 # the self-drafting oracle drafts with the target's own weights; the card's
 # draft and verify forwards differ only at near-ties
 ORACLE_MIN_ACCEPT = 0.9
+# Phase 9 (paged KV cache): tokens per page, the shared system prompt of
+# the prefix-sharing run (8 full pages), and the offload run's pool: 17
+# pages (16 allocatable) against 9 per 128-token request, a 64-page host tier
+PAGE_SIZE = 16
+SYSTEM_PROMPT = 128
+OFFLOAD_PAGES, OFFLOAD_HOST_PAGES, OFFLOAD_PROMPT = 17, 64, 128
 CPU_SEQ = 256
 # bf16 model, 32 layers, QAT: the CPU and the card round bf16 intermediates
 # after sums in another order, and an int8 activation code at a rounding
@@ -781,17 +813,31 @@ def device_time_by_kernel(prof, steps: int) -> list:
                    if str(ev.device_type).endswith("CUDA") and dev_us(ev) > 0), reverse=True)
 
 
-def profile_decode(torch, model, cfg, prompts, steps: int = 4, spec=None) -> dict:
+def op_device_ms(prof, steps: int, names=("aten::index", "aten::index_put_")) -> dict:
+    """{op: [device ms per step, calls per step]} of the named CPU ops (the
+    device time of the kernels each launched); ops absent from the trace
+    are left out."""
+    out = {}
+    for ev in prof.key_averages():
+        if ev.key in names:
+            us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
+            out[ev.key] = [us / steps / 1e3, ev.count / steps]
+    return out
+
+
+def profile_decode(torch, model, cfg, prompts, steps: int = 4, spec=None, paged=None) -> dict:
     """Where a decode step's time goes: `torch.profiler` over `steps`
     batched decode steps of 4 full slots (impl="decode"; with `spec`, each
-    step is draft, verify and accept). Device time by kernel, the device's
-    busy share of the wall time, and the wall time per step."""
+    step is draft, verify and accept; with `paged`, a PagedKVConfig, the
+    cache is paged). Device time by kernel, the device's busy share of the
+    wall time, the wall time per step, and the device time of the indexed
+    gathers and scatters."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Engine, Request
 
     eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl="decode", spec=spec,
-                 device="cuda")
+                 paged_kv=paged, device="cuda")
     per_step = 1 + (spec.k if spec is not None else 0)     # the most a step emits
     for i, p in enumerate(prompts[:4]):
         assert eng.add(Request(rid=i, prompt=p, max_new_tokens=per_step * (steps + 2) + 2))
@@ -809,7 +855,8 @@ def profile_decode(torch, model, cfg, prompts, steps: int = 4, spec=None) -> dic
     device_ms = sum(ms for ms, _ in by_name)
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
-            "top_kernels_ms_per_step": [[name[:90], ms] for ms, name in by_name[:8]]}
+            "top_kernels_ms_per_step": [[name[:90], ms] for ms, name in by_name[:8]],
+            "op_device_ms_per_step": op_device_ms(prof, steps)}
 
 
 def clone_cache(cache: list) -> list:
@@ -925,22 +972,46 @@ def near_tie(torch, model, cfg, prompt, ref, got) -> dict:
     return tie
 
 
+def tie_check(torch, model, cfg, label, prompts, ref, got, ref_name="the reference") -> list:
+    """Each request's tokens `got` equal the reference tokens `ref`, or
+    leave them only at a near-tie (`near_tie` raises otherwise); logs and
+    returns the ties."""
+    ties = [near_tie(torch, model, cfg, p, r, g) for p, r, g in zip(prompts, ref, got) if g != r]
+    log(f"{label}: greedy tokens {f'equal {ref_name}' if not ties else f'leave {ref_name} at '}"
+        + ", ".join(f"step {t['step']} (gap {t['gap']:.2e} of {t['max_abs_logit']:.3f})"
+                    for t in ties))
+    return ties
+
+
 def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", spec=None,
-                temperature=0.0, **kw) -> dict:
-    """Phase 8 (c): one serving run with its counts zeroed just before it.
-    Every forward (target and drafter) is counted through `lm_hidden`, with
-    the token count N = B x S its mpGeMM launches (224 at full depth) see."""
+                temperature=0.0, slots=4, **kw) -> dict:
+    """Phases 8 (c) and 9: one serving run with its counts zeroed just
+    before it. Every forward (target and drafter) is counted through
+    `lm_hidden`, with the token count N = B x S its mpGeMM launches (224 at
+    full depth) see. Each admission's wall time and prefix-hit tokens are
+    recorded (whole-prompt admission ends in a host sync)."""
     from repro_torch.models import decoder
     from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request
 
-    eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl=impl, spec=spec,
+    eng = Engine(model, cfg, max_slots=slots, max_len=256, mpgemm_impl=impl, spec=spec,
                  temperature=temperature, seed=7, device="cuda", **kw)
     n_hist: dict = {}
     lm_hidden = decoder.lm_hidden
+    admissions = []
+    add = eng.add
 
     def counted(model_, tokens, *a, **k):
         n_hist[tokens.numel()] = n_hist.get(tokens.numel(), 0) + 1
         return lm_hidden(model_, tokens, *a, **k)
+
+    def timed_add(req):
+        hits, t0 = eng.prefix_hit_tokens, time.perf_counter()
+        ok = add(req)
+        if ok:
+            admissions.append([(time.perf_counter() - t0) * 1e3, eng.prefix_hit_tokens - hits])
+        return ok
+
+    eng.add = timed_add
 
     sched = ContinuousBatchingScheduler(eng)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
@@ -971,7 +1042,9 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", sp
         "impl": impl, "spec": None if spec is None else {
             "k": spec.k, "drafter": spec.drafter, "adaptive_k": spec.adaptive_k,
             "tree": spec.tree, "stochastic": spec.stochastic},
-        "temperature": temperature, **{k: v for k, v in kw.items()},
+        "temperature": temperature, "slots": slots,
+        **{k: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
+           for k, v in kw.items()},
         "tokens": [list(map(int, r.generated)) for r in reqs],
         "launches": launches, "forwards": forwards, "target_forwards": target,
         "drafter_forwards": drafter_forwards,
@@ -983,7 +1056,14 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", sp
         "tokens_per_step": stats.decode_tokens_per_step, "nodes_per_step": stats.nodes_per_step,
         "acceptance": stats.acceptance_rate, "mean_draft_k": stats.mean_draft_k,
         "skip_rate": stats.skip_rate,
+        "prefill_tokens": stats.prefill_tokens, "prefix_hit_tokens": stats.prefix_hit_tokens,
+        "prefix_hit_requests": stats.prefix_hit_requests,
+        "admission_ms_and_hit_tokens": admissions,
     }
+    if eng.pager is not None:
+        row["pager"] = {f: getattr(eng.pager, f) for f in (
+            "total_pages", "free_pages", "shared_pages", "offloaded_pages", "pages_paged_out",
+            "pages_paged_in", "pages_dropped")}
     log(f"multi: {name}: forwards {forwards} (drafter {drafter_forwards}), launches "
         f"{launches[kernel]} of {kernel}, N per launch {row['mpgemm_tokens_per_launch']}, "
         f"decode_tok_s {row['decode_tok_s']:.1f}, ttft_p50_ms {row['ttft_p50_ms']:.1f}, "
@@ -993,14 +1073,14 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", sp
     return row
 
 
-def check_multi_token(torch, model, cfg, weights, prompts, counters, ref_tokens) -> dict:
+def check_multi_token(torch, model, cfg, weights, prompts, counters, ref_tokens) -> tuple:
     """Phase 8: multi-token serving on phase 4's model and prompts. (a) Both
     fused kernels against their plain versions at N in MT_TOKENS; (b)
     verify_step against sequential decode; (c) chunked prefill, token
     budget, chain / oracle / adaptive / tree speculation, chunked + chain,
     chain with impl="lookup", and one stochastic run, each checked for
     launches, completion and (greedy) phase 4's tokens under the near-tie
-    rule."""
+    rule. → (results, {run: greedy tokens})."""
     from repro_torch.kernels import ternary_decode_gemm as tdg
     from repro_torch.kernels import vlut_lookup_gemm as vlg
     from repro_torch.spec import SpecConfig
@@ -1036,12 +1116,8 @@ def check_multi_token(torch, model, cfg, weights, prompts, counters, ref_tokens)
     for name, kw in runs.items():
         row = serve_multi(torch, model, cfg, prompts, counters, name, **kw)
         if not row["temperature"]:
-            ties = [near_tie(torch, model, cfg, p, ref, got)
-                    for p, ref, got in zip(prompts, ref_tokens, row["tokens"]) if got != ref]
-            row["near_ties"] = ties
-            log(f"multi: {name}: greedy tokens {'equal phase 4' if not ties else 'leave phase 4 at '}"
-                + ", ".join(f"step {t['step']} (gap {t['gap']:.2e} of {t['max_abs_logit']:.3f})"
-                            for t in ties))
+            row["near_ties"] = tie_check(torch, model, cfg, f"multi: {name}", prompts,
+                                         ref_tokens, row["tokens"], "phase 4")
         out[name] = row
     if out["chain_oracle"]["acceptance"] < ORACLE_MIN_ACCEPT:
         raise AssertionError(f"the oracle drafter accepted {out['chain_oracle']['acceptance']} "
@@ -1061,7 +1137,104 @@ def check_multi_token(torch, model, cfg, weights, prompts, counters, ref_tokens)
             "verify": verify, "tie_rtol": TIE_RTOL, "oracle_min_accept": ORACLE_MIN_ACCEPT,
             "step_profiles": profiles,
             "runs": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in out.items()},
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0}, {k: v["tokens"] for k, v in out.items()}
+
+
+def check_paged(torch, model, cfg, prompts, counters, ref_tokens, multi_tokens,
+                dense_prof) -> dict:
+    """Phase 9: the paged KV cache on phase 4's model. (a) phase 4's prompts
+    with both impls, (b) chunked chain and tree speculation, (c) prefix
+    sharing against the dense engine, (d) the offload tier against the
+    host pager's decisions, (e) one paged decode step under the profiler."""
+    import numpy as np
+
+    from repro_torch.serve import PagedKVConfig, Pager
+    from repro_torch.spec import SpecConfig
+
+    t0 = time.perf_counter()
+    paged = PagedKVConfig(page_size=PAGE_SIZE)
+    out = {"page_size": PAGE_SIZE, "runs": {}}
+
+    def run(name, run_prompts, ref, **kw):
+        row = serve_multi(torch, model, cfg, run_prompts, counters, name, **kw)
+        if ref is not None:
+            row["near_ties"] = tie_check(torch, model, cfg, f"paged: {name}", run_prompts, ref,
+                                         row["tokens"])
+        out["runs"][name] = {k: v for k, v in row.items() if k != "tokens"}
+        return row
+
+    # (a) phase 4's prompts, both impls; (b) phase 8's chunked chain and tree
+    for impl in IMPLS:
+        run(f"whole_{impl}", prompts, ref_tokens, impl=impl, paged_kv=paged)
+    run("chunk_chain_ngram", prompts, multi_tokens["chunk_chain_ngram"], paged_kv=paged,
+        prefill_chunk=PREFILL_CHUNK, spec=SpecConfig(k=SPEC_K))
+    run("tree_ngram", prompts, multi_tokens["tree_ngram"], paged_kv=paged,
+        spec=SpecConfig(k=SPEC_K, tree=SPEC_TREE))
+
+    # (c) prefix sharing: a common system prompt of 8 full pages
+    rng = np.random.default_rng(9)
+    system = rng.integers(0, cfg.vocab, size=SYSTEM_PROMPT).astype(np.int32)
+    shared = [np.concatenate([system, rng.integers(0, cfg.vocab, size=int(rng.integers(8, 33)))
+                              .astype(np.int32)]) for _ in range(8)]
+    dense = run("prefix_dense", shared, None)
+    hit = run("prefix_paged", shared, dense["tokens"], paged_kv=paged)
+    if hit["prefix_hit_requests"] < 1:
+        raise AssertionError("prefix sharing: no request hit the radix index")
+    if hit["prefill_tokens"] != dense["prefill_tokens"] - hit["prefix_hit_tokens"]:
+        raise AssertionError(f"prefix sharing: prefill tokens {hit['prefill_tokens']} != "
+                             f"{dense['prefill_tokens']} - {hit['prefix_hit_tokens']}")
+    adm = {kind: [ms for ms, h in hit["admission_ms_and_hit_tokens"] if (h > 0) == kind]
+           for kind in (True, False)}
+    out["prefix"] = {
+        "ttft_p50_ms": {"dense": dense["ttft_p50_ms"], "paged": hit["ttft_p50_ms"]},
+        "prefill_tokens": {"dense": dense["prefill_tokens"], "paged": hit["prefill_tokens"]},
+        "prefix_hit_tokens": hit["prefix_hit_tokens"],
+        "prefix_hit_requests": hit["prefix_hit_requests"],
+        "admission_ms_mean": {"hit": sum(adm[True]) / max(len(adm[True]), 1),
+                              "miss": sum(adm[False]) / max(len(adm[False]), 1)},
+        "dense_admission_ms_mean": sum(ms for ms, _ in dense["admission_ms_and_hit_tokens"])
+        / len(dense["admission_ms_and_hit_tokens"])}
+    log(f"paged: prefix sharing: {hit['prefix_hit_requests']} of {len(shared)} requests hit, "
+        f"{hit['prefix_hit_tokens']} prompt tokens not prefilled (prefill tokens "
+        f"{hit['prefill_tokens']} vs dense {dense['prefill_tokens']}); TTFT p50 paged "
+        f"{hit['ttft_p50_ms']:.1f} ms vs dense {dense['ttft_p50_ms']:.1f} ms; admission "
+        f"{out['prefix']['admission_ms_mean']['hit']:.1f} ms with a hit, "
+        f"{out['prefix']['admission_ms_mean']['miss']:.1f} ms without (dense "
+        f"{out['prefix']['dense_admission_ms_mean']:.1f} ms)")
+
+    # (d) the offload tier, against the host pager's decisions
+    p1, p2 = (rng.integers(0, cfg.vocab, size=OFFLOAD_PROMPT).astype(np.int32) for _ in range(2))
+    offload = PagedKVConfig(page_size=PAGE_SIZE, n_pages=OFFLOAD_PAGES,
+                            host_offload_pages=OFFLOAD_HOST_PAGES)
+    host = Pager(offload, max_slots=1, max_len=256, n_pages=OFFLOAD_PAGES,
+                 page_out=lambda page: page, page_in=lambda page, data: None)
+    for p in (p1, p2, p1):
+        host.admit(0, p, len(p) + 16 - 1)
+        host.release(0, p)
+    dense1 = run("offload_dense", [p1, p2, p1], None, slots=1)
+    tier = run("offload_paged", [p1, p2, p1], dense1["tokens"], slots=1, paged_kv=offload)
+    want = {"pages_paged_out": host.pages_paged_out, "pages_paged_in": host.pages_paged_in,
+            "prefix_hit_tokens": host.prefix_hit_tokens}
+    got = {k: tier["pager"].get(k, tier.get(k)) for k in want}
+    if got != want or not (want["pages_paged_out"] and want["pages_paged_in"]):
+        raise AssertionError(f"offload tier: engine {got}, host pager {want}")
+    out["offload"] = {"engine": got, "host_pager": want}
+    log(f"paged: offload tier: {got['pages_paged_out']} pages out, {got['pages_paged_in']} in, "
+        f"{got['prefix_hit_tokens']} prefix-hit tokens (the host pager: {want})")
+
+    # (e) one paged decode step of 4 full slots beside phase 4's dense step
+    prof = profile_decode(torch, model, cfg, prompts, paged=paged)
+    out["decode_profile"] = prof
+    for label, pr in (("dense", dense_prof), ("paged", prof)):
+        ops = pr["op_device_ms_per_step"]
+        log(f"paged: {label} decode step (4 slots): wall {pr['wall_ms_per_step']:.3f} ms, device "
+            f"{pr['device_ms_per_step']:.3f} ms"
+            + (f" ({100 * pr['device_busy_share']:.1f}%)" if pr["device_busy_share"] else
+               " (the profiler saw no device time: not measured)")
+            + ", " + ", ".join(f"{op} {ms:.4f} ms in {n:.0f} calls" for op, (ms, n) in ops.items()))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"paged: phase 9 took {out['seconds']:.1f} s")
+    return out
 
 
 def flash_inputs(torch, b, s, h, kv, d, dtype, gen, contiguous=False):
@@ -1469,8 +1642,12 @@ def main() -> int:
     unfused = check_unfused(torch, model, cfg, weights, prompts, counters, runs, per_n)
 
     # 8. multi-token serving (on phase 4's model, before it is freed)
-    multi = check_multi_token(torch, model, cfg, weights, prompts, counters,
-                              runs["decode"]["tokens"])
+    multi, multi_tokens = check_multi_token(torch, model, cfg, weights, prompts, counters,
+                                            runs["decode"]["tokens"])
+
+    # 9. paged KV cache (on phase 4's model, after phase 8)
+    paged = check_paged(torch, model, cfg, prompts, counters, runs["decode"]["tokens"],
+                        multi_tokens, prof)
 
     del model, cpu_model, weights
     torch.cuda.empty_cache()
@@ -1521,6 +1698,7 @@ def main() -> int:
         "logits_card_vs_cpu": {"max_abs_diff": diff, "max_abs_logit": scale},
         "decode_profile": prof,
         "multi_token": multi,
+        "paged": paged,
         "flash": flash, "train": trained,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

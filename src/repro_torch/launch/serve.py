@@ -3,7 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       [--smoke] [--device cuda|cpu] [--mpgemm-impl decode|lookup] \
       [--spec-k N [--spec-adaptive | --spec-tree B1,B2,...]] \
-      [--prefill-chunk N [--token-budget T]]
+      [--prefill-chunk N [--token-budget T]] \
+      [--page-size P [--kv-pages N] [--offload-pages H]]
 
 --spec-k N turns on speculative decoding with the n-gram drafter (N draft
 tokens per batched verify step); --spec-adaptive adapts each slot's draft
@@ -11,6 +12,9 @@ length to its acceptance, --spec-tree verifies a draft tree (top-B
 candidates at each of the first depths) in one flattened pass.
 --prefill-chunk N consumes prompts N tokens per tick in one batched mixed
 prefill/decode step; --token-budget caps the real tokens per tick.
+--page-size P serves from a paged KV cache of P-token pages with radix
+prompt-prefix sharing; --kv-pages sizes its pool and --offload-pages its
+host-RAM tier for cold prefix pages.
 
 Weights are random, drawn from a seeded `torch.Generator` on the device and
 packed by `models.pack_params`. Prints one summary line (with the
@@ -24,7 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import init_lm, pack_params
-from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request
+from repro_torch.serve import ContinuousBatchingScheduler, Engine, PagedKVConfig, Request
 from repro_torch.spec import SpecConfig
 
 
@@ -57,11 +61,23 @@ def main(argv=None):
     ap.add_argument("--token-budget", type=int, default=0,
                     help="cap on real tokens scheduled per chunked tick (0 = "
                          "unlimited; needs --prefill-chunk)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="paged KV: tokens per page (0 = dense slot cache); "
+                         "enables radix prompt-prefix sharing")
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="paged KV pool size incl. the null page "
+                         "(0 = auto: slots*max_len/page_size + 1; "
+                         "needs --page-size)")
+    ap.add_argument("--offload-pages", type=int, default=0,
+                    help="host-RAM offload tier capacity in pages for cold "
+                         "prefix pages (0 = drop instead; needs --page-size)")
     args = ap.parse_args(argv)
     if (args.spec_adaptive or args.spec_tree) and not args.spec_k:
         ap.error("--spec-adaptive/--spec-tree require --spec-k N (N >= 1)")
     if args.token_budget and not args.prefill_chunk:
         ap.error("--token-budget requires --prefill-chunk N (N >= 1)")
+    if (args.kv_pages or args.offload_pages) and not args.page_size:
+        ap.error("--kv-pages/--offload-pages require --page-size N (N >= 1)")
     if args.spec_adaptive and args.spec_tree:
         ap.error("--spec-tree and --spec-adaptive are mutually exclusive")
 
@@ -72,11 +88,15 @@ def main(argv=None):
     if args.spec_k:
         tree = tuple(int(x) for x in args.spec_tree.split(",")) if args.spec_tree else None
         spec = SpecConfig(k=args.spec_k, adaptive_k=args.spec_adaptive, tree=tree)
+    paged = None
+    if args.page_size:
+        paged = PagedKVConfig(page_size=args.page_size, n_pages=args.kv_pages,
+                              host_offload_pages=args.offload_pages)
     eng = Engine(model, cfg, max_slots=args.slots, max_len=args.max_len,
                  temperature=args.temperature, seed=args.seed,
                  mpgemm_impl=args.mpgemm_impl, spec=spec,
                  prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-                 device=device)
+                 paged_kv=paged, device=device)
     sched = ContinuousBatchingScheduler(eng)
     rng = np.random.default_rng(args.seed)
     sched.submit(
@@ -91,6 +111,13 @@ def main(argv=None):
           f"prefill_tok={stats.prefill_tokens} decode_tok={stats.decode_tokens} "
           f"wall_s={stats.wall_s:.3f} throughput_tok_s={stats.throughput_tok_s:.1f} "
           f"ttft_p50_ms={ttft:.2f} chunk_steps={stats.chunk_steps}")
+    if paged is not None:
+        pager = eng.pager
+        print(f"paged: page_size={paged.page_size} pages={pager.total_pages} "
+              f"free={pager.free_pages} shared={pager.shared_pages} "
+              f"prefix_hit_tokens={stats.prefix_hit_tokens} "
+              f"prefix_hit_requests={stats.prefix_hit_requests} "
+              f"paged_out={pager.pages_paged_out} paged_in={pager.pages_paged_in}")
     if spec is not None:
         print(f"spec: k={spec.k} tree={spec.tree} adaptive={spec.adaptive_k} "
               f"steps={stats.spec_steps} drafted={stats.drafted_tokens} "

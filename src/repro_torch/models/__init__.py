@@ -1,6 +1,7 @@
 """repro_torch.models — the GQA decoder of the serving and training paths,
-ported from `repro.models` (attention mixer, dense FFN, dense KV cache,
-chunked CE loss, the multi-token verify step and its cache bookkeeping)."""
+ported from `repro.models` (attention mixer, dense FFN, dense and paged KV
+caches, chunked CE loss, the multi-token verify step and its cache
+bookkeeping)."""
 from .common import linear_apply, rmsnorm_apply, rope
 from .convert import pack_params
 from .decoder import (
@@ -22,6 +23,17 @@ from .decoder import (
     stacked_shapes,
     verify_step,
 )
+from .paged import (
+    POOL_KEYS,
+    compact_paged_block,
+    gather_page,
+    page_phys,
+    page_scatter,
+    page_view,
+    restore_page,
+    scrub_pages,
+    set_block_tables,
+)
 
 __all__ = [
     "linear_apply", "rmsnorm_apply", "rope", "pack_params", "LM", "compress_layout",
@@ -29,4 +41,6 @@ __all__ = [
     "lm_hidden", "lm_logits", "lm_loss", "prefill", "prefill_bucket",
     "prefill_into_slot", "rollback_cache", "scatter_slot_cache",
     "verify_step", "reset_slot_idx", "compact_tree_cache",
+    "POOL_KEYS", "page_phys", "page_scatter", "page_view", "set_block_tables",
+    "scrub_pages", "compact_paged_block", "gather_page", "restore_page",
 ]

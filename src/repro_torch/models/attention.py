@@ -17,7 +17,10 @@ appends S tokens at per-slot positions and attends the whole cache; with a
 draft `tree` the S tokens are a flattened `DraftTree` whose nodes sit in one
 cache slot each and attend only their ancestors (`tree_step_gate`).
 
-Not ported yet: the paged cache.
+A paged cache (a dict carrying a block table ``tab``, see `models.paged`)
+writes through the table into a physical page pool shared by every slot
+and attends the gathered logical view with the same position-masked
+`sdpa`.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from torch import nn
 from repro_torch.kernels.flash_attention import flash_attention_trainable
 
 from .common import linear_apply, linear_init, rmsnorm_apply, rmsnorm_init, rope
+from .paged import page_phys, page_view, pool_pages
 
 NEG_INF = -1e30
 
@@ -135,10 +139,31 @@ def attn_init(cfg, spec, *, generator, device) -> Attention:
     )
 
 
-def attn_cache_init(cfg, spec, batch: int, max_len: int, dtype, device) -> dict:
+def attn_cache_init(cfg, spec, batch: int, max_len: int, dtype, device,
+                    page_size: int = 0, n_pages: int = 0) -> dict:
     """Ring buffer of `window` slots for windowed layers, full buffer
-    otherwise; `idx` is each slot's next write position."""
+    otherwise; `idx` is each slot's next write position.
+
+    page_size > 0 switches to the paged layout (see models.paged): one
+    physical (n_pages + 1, page_size, ...) pool shared across slots (page 0
+    the read-safe null page, page n_pages the write sink) plus a per-slot
+    block table. Windowed layers keep in-window history a page drop would
+    lose — they are genuinely non-pageable and refused here."""
     kv, hd = cfg.n_kv_heads, cfg.head_dim
+    if page_size:
+        if spec.window:
+            raise ValueError(
+                "windowed (ring-buffer) attention layers are not pageable: "
+                "the ring overwrites in place, so page-granular ownership "
+                "cannot represent their in-window history")
+        return {
+            "k": torch.zeros((n_pages + 1, page_size, kv, hd), dtype=dtype, device=device),
+            "v": torch.zeros((n_pages + 1, page_size, kv, hd), dtype=dtype, device=device),
+            "slot_pos": torch.full((n_pages + 1, page_size), -1, dtype=torch.int32,
+                                   device=device),
+            "tab": torch.zeros((batch, max_len // page_size), dtype=torch.int32, device=device),
+            "idx": torch.zeros((batch,), dtype=torch.int32, device=device),
+        }
     buf = min(spec.window, max_len) if spec.window else max_len
     return {
         "k": torch.zeros((batch, buf, kv, hd), dtype=dtype, device=device),
@@ -179,14 +204,17 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
     `DraftTree`, verify only) node i is written to slot idx+i (modulo the
     buffer) with position idx+depth(i) and attends its ancestors only.
 
+    A paged cache (with a block table ``tab``) writes logical slots through
+    the table — `positions`, or idx+i for a tree's nodes — where unmapped
+    and out-of-range targets land in the sink page, and a decode or verify
+    step attends the gathered logical view.
+
     The cache is updated IN PLACE (its k/v/slot_pos tensors are written);
     the returned dict shares them and carries the advanced idx."""
     if verify and spec.window:
         raise ValueError(
             "multi-token verification needs a rollbackable cache; windowed "
             "(ring-buffer) layers would lose in-window history on rollback")
-    if cache is not None and "tab" in cache:
-        raise NotImplementedError("the paged KV cache is not ported yet")
     b, s, _ = x.shape
     start = (cache["idx"] if cache is not None
              else torch.zeros((b,), dtype=torch.int32, device=x.device))
@@ -208,6 +236,29 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
         else:
             out = sdpa(q, k, v, positions, positions, **attn)
         new_cache = None
+    elif "tab" in cache:
+        # ---- paged cache: physical page pool + per-slot block table ------
+        # writes map logical indices through the table (one mapping serves
+        # all three pools), reads attend the gathered logical view with the
+        # same position-masked sdpa as the dense path
+        tab, ck, cv, sp = cache["tab"], cache["k"], cache["v"], cache["slot_pos"]
+        if tree is not None:
+            # one slot per tree node (siblings share positions, not slots)
+            slots = start[:, None] + torch.arange(s, dtype=torch.int32, device=x.device)
+        else:
+            slots = positions
+        pg, off = page_phys(tab, slots, ck.shape[1], pool_pages(ck), for_write=True)
+        ck[pg, off] = k.to(ck.dtype)
+        cv[pg, off] = v.to(cv.dtype)
+        sp[pg, off] = positions
+        new_cache = {"k": ck, "v": cv, "slot_pos": sp, "tab": tab, "idx": start + s}
+        if s == 1 or verify:
+            vk, vv, vp = page_view(ck, tab), page_view(cv, tab), page_view(sp, tab)
+            gate = tree_step_gate(tree, start, s, vk.shape[1]) if tree is not None else None
+            out = sdpa(q, vk, vv, positions, vp, extra_mask=gate, **attn)
+        else:
+            # prefill: attend within the incoming sequence itself
+            out = sdpa(q, k, v, positions, positions, **attn)
     else:
         ck, cv, sp = cache["k"], cache["v"], cache["slot_pos"]
         buf = ck.shape[1]

@@ -34,9 +34,16 @@ def block_init(cfg, spec, *, generator, device) -> Block:
                  dense_ffn_init(cfg, spec.d_ff or cfg.d_ff, **kw))
 
 
-def block_cache_init(cfg, spec, batch: int, max_len: int, dtype, device) -> dict:
+def block_cache_init(cfg, spec, batch: int, max_len: int, dtype, device,
+                     page_size: int = 0, n_pages: int = 0) -> dict:
+    """One layer's cache; page_size > 0 builds the paged layout."""
+    if page_size and spec.mixer == "ssm":
+        raise ValueError(
+            "ssm layers carry recurrent state, not per-position KV — there "
+            "is nothing page-granular to own, so paged caching refuses them")
     _check_spec(spec)
-    return attn_cache_init(cfg, spec, batch, max_len, dtype, device)
+    return attn_cache_init(cfg, spec, batch, max_len, dtype, device,
+                           page_size=page_size, n_pages=n_pages)
 
 
 def block_apply(p: Block, x: torch.Tensor, *, cfg, spec, mode: str = "serve",

@@ -25,6 +25,7 @@ from repro_torch import resolve_device
 
 from .blocks import block_apply, block_cache_init, block_init
 from .common import Linear, embed_apply, embed_init, linear_init, rmsnorm_apply, rmsnorm_init
+from .paged import compact_paged_block
 
 
 class LM(nn.Module):
@@ -92,13 +93,35 @@ def stacked_shapes(model: LM, cfg) -> dict[str, tuple]:
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
-               device="cuda") -> list[dict]:
-    """One dense cache dict per layer. The default dtype is bf16 whatever
-    the model's dtype, as in the JAX package (decode attention then runs in
-    bf16, and the `wo` BitLinear sees bf16 activations)."""
+               device="cuda", page_size: int = 0, n_pages: int = 0) -> list[dict]:
+    """One cache dict per layer. The default dtype is bf16 whatever the
+    model's dtype, as in the JAX package (decode attention then runs in
+    bf16, and the `wo` BitLinear sees bf16 activations).
+
+    page_size > 0 builds the paged layout (models.paged): per-layer
+    physical page pools of ``n_pages`` pages (page 0 reserved null, plus
+    the write sink) shared across slots, and one (batch, max_len //
+    page_size) block table tensor shared by every layer's dict. Every
+    serving entry point (decode_step / verify_step / compact_tree_cache /
+    rollback_cache / reset_slot_idx) dispatches on the cache structure."""
+    if page_size:
+        if max_len % page_size:
+            raise ValueError(
+                f"max_len ({max_len}) must be a multiple of page_size "
+                f"({page_size}) — partial trailing pages would break the "
+                "block-table logical<->physical mapping")
+        if n_pages < 2:
+            raise ValueError(
+                f"n_pages ({n_pages}) must be >= 2: page 0 is the reserved "
+                "null page, so at least one allocatable page is needed")
     device = resolve_device(device)
-    return [block_cache_init(cfg, spec, batch, max_len, dtype, device)
-            for spec in cfg.layer_specs()]
+    cache = [block_cache_init(cfg, spec, batch, max_len, dtype, device,
+                              page_size=page_size, n_pages=n_pages)
+             for spec in cfg.layer_specs()]
+    if page_size:
+        for layer in cache[1:]:
+            layer["tab"] = cache[0]["tab"]
+    return cache
 
 
 def _remat(cfg, cache) -> bool:
@@ -272,7 +295,8 @@ def reset_slot_idx(cache: list, slot: int, value: int = 0) -> list:
     other slot's untouched: chunked admission claims a slot without a fresh
     cache (the prompt arrives chunk by chunk). Stale K/V needs no clearing:
     chunk writes re-cover positions contiguously from 0, and entries above
-    the write frontier record positions past every live query."""
+    the write frontier record positions past every live query. A paged
+    cache's shared block table is left as it is."""
     for layer in cache:
         layer["idx"][slot] = value
     return cache
@@ -299,7 +323,13 @@ def compact_tree_cache(cache: list, pos: torch.Tensor, sel: torch.Tensor,
     Source indices past the buffer are clamped (their columns' writes are
     dropped: only a window crossing the buffer end has them), and columns
     whose destination passes the buffer end are dropped, never wrapped.
-    Only k, v and slot_pos are touched; idx is rollback's job."""
+    Only k, v and slot_pos are touched; idx is rollback's job.
+
+    Paged layers (dicts carrying a ``tab``) route through
+    `paged.compact_paged_block`: the same (B, N)-window gather and write,
+    with the logical src/dst indices mapped to physical (page, offset)
+    pairs through the block table (unmapped sources read the null page,
+    unmapped destinations land in the sink)."""
     pos, sel, take = pos.to(torch.long), sel.to(torch.long), take.to(torch.long)
     n = sel.shape[1]
     cols = torch.arange(n, device=pos.device)[None, :]
@@ -308,6 +338,9 @@ def compact_tree_cache(cache: list, pos: torch.Tensor, sel: torch.Tensor,
     live = cols < take[:, None]
     bidx = torch.arange(sel.shape[0], device=pos.device)[:, None]
     for layer in cache:
+        if "tab" in layer:
+            compact_paged_block(layer, src, dst, live)
+            continue
         length = layer["slot_pos"].shape[1]
         keep = dst < length
         # dst past the end wraps onto slots below pos, distinct from the
@@ -328,6 +361,7 @@ def compact_tree_cache(cache: list, pos: torch.Tensor, sel: torch.Tensor,
 def rollback_cache(cache: list, new_idx: torch.Tensor) -> list:
     """Set every per-slot cache write position to `new_idx` ((B,) int).
     Entries past the new idx keep stale K/V, but their recorded positions
-    exceed every later query position until overwritten."""
+    exceed every later query position until overwritten. The new dicts
+    share every other tensor, a paged cache's block table included."""
     return [dict(layer, idx=new_idx.to(torch.int32).expand_as(layer["idx"]).clone())
             for layer in cache]

@@ -31,12 +31,23 @@ accepted path and `compact_tree_cache` moves it onto contiguous slots.
 Under chunked prefill, PREFILLING slots join draft/verify rows only after
 their last chunk (the drafter's `on_admit` fires then).
 
+With `paged_kv=PagedKVConfig(...)` the dense (max_slots, max_len) slabs
+become a physical page pool with per-slot block tables (`models.paged`).
+The host-side `Pager` (`serve.paging`) owns allocation, radix prefix
+sharing with copy-on-write refcounts, and the host-RAM offload tier.
+Admission reserves a request's worst-case page budget (an exhausted pool
+queues the request, "waiting for free KV pages"), a prompt whose leading
+full pages are in the radix index starts its prefill at the matched
+frontier, and whole-prompt admission runs one wide in-place verify pass
+over the prompt's remainder. The pager's tables reach the device at
+admission and at tick start (`_flush_pager`): one host-to-device copy of
+the table and the fresh pages to scrub.
+
 The cache is updated in place: each step writes the slots' new K/V into the
 batched cache tensors, and `rollback_cache` resets the write positions.
 Greedy output of every mode is token for token that of plain decode.
 
-Not ported yet: the paged KV cache (`paged_kv`) and observability (`obs`);
-asking for either raises.
+Not ported yet: observability (`obs`); asking for it raises.
 """
 from __future__ import annotations
 
@@ -50,12 +61,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models import compact_tree_cache, init_cache, prefill_into_slot
+from repro_torch.models import compact_tree_cache, gather_page, init_cache
 from repro_torch.models import decode_step as model_decode
-from repro_torch.models import reset_slot_idx, rollback_cache
+from repro_torch.models import prefill_bucket, prefill_into_slot, reset_slot_idx
+from repro_torch.models import restore_page, rollback_cache, scrub_pages, set_block_tables
 from repro_torch.models import verify_step as model_verify
 from repro_torch.spec import SpecConfig
 
+from .paging import OutOfPages, PagedKVConfig, Pager
 from .sampling import accept_speculative, accept_tree, sample
 
 
@@ -118,12 +131,28 @@ class Engine:
                  max_len: int = 512, temperature: float = 0.0, seed: int = 0,
                  mpgemm_impl: str | None = None, mpgemm_fusion: str | None = None,
                  spec: SpecConfig | None = None, prefill_chunk: int = 0,
-                 token_budget: int = 0, paged_kv=None, obs=None, device="cuda"):
-        unported = {"paged_kv": paged_kv is not None, "obs": obs is not None}
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(f"Engine options {asked} are not ported yet")
+                 token_budget: int = 0, paged_kv: PagedKVConfig | None = None, obs=None,
+                 device="cuda"):
+        if obs is not None:
+            raise NotImplementedError("Engine option ['obs'] is not ported yet")
         specs = cfg.layer_specs()
+        if paged_kv is not None:
+            if any(s.mixer == "ssm" for s in specs):
+                raise ValueError(
+                    "paged KV needs per-position cache entries a block table "
+                    f"can own; {cfg.name} has ssm layer(s), whose recurrent "
+                    "state is neither rollbackable nor pageable")
+            if any(s.window for s in specs):
+                raise ValueError(
+                    "paged KV is exact only for full-buffer caches; "
+                    f"{cfg.name} has windowed (ring-cache) layers — a ring "
+                    "buffer overwrites itself in place, so its pages can "
+                    "never be remapped or shared")
+            if any(s.cross_attn for s in specs):
+                raise ValueError(
+                    "paged KV does not cover cross-attention caches "
+                    "(enc_len > 0): encoder K/V is per-request dense state, "
+                    "not positionally growing history")
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got {prefill_chunk}")
         if token_budget < 0:
@@ -137,24 +166,29 @@ class Engine:
                 raise ValueError(
                     "chunked prefill needs rollbackable KV caches (the "
                     f"mask-padded chunk tail is rolled back); {cfg.name} has "
-                    "ssm layer(s), whose recurrent state is not rollbackable")
+                    "ssm layer(s), whose recurrent state is neither "
+                    "rollbackable nor pageable")
             if any(s.window for s in specs):
                 raise ValueError(
-                    "chunked prefill is exact only for full-buffer KV caches; "
-                    f"{cfg.name} has windowed (ring-cache) layers, whose "
-                    "in-window history the padded-tail rollback would clobber")
+                    "chunked prefill is exact only for full-buffer or paged "
+                    f"KV caches; {cfg.name} has windowed (ring-cache) layers, "
+                    "whose in-window history the padded-tail rollback would "
+                    "clobber (the ring overwrites in place, so it is "
+                    "genuinely non-pageable too)")
         if spec is not None:
             bad = [s.mixer for s in specs if s.mixer == "ssm"]
             if bad:
                 raise ValueError(
                     "speculative decoding needs rollbackable KV caches; "
                     f"{cfg.name} has {len(bad)} ssm layer(s), whose recurrent "
-                    "state is not rollbackable")
+                    "state is neither rollbackable nor pageable")
             if any(s.window for s in specs):
                 raise ValueError(
-                    "speculative decoding is exact only for full-buffer KV "
-                    f"caches; {cfg.name} has windowed (ring-cache) layers, "
-                    "whose in-window history a rollback would clobber")
+                    "speculative decoding is exact only for full-buffer or "
+                    f"paged KV caches; {cfg.name} has windowed (ring-cache) "
+                    "layers, whose in-window history a rollback would "
+                    "clobber (the ring overwrites in place, so it is "
+                    "genuinely non-pageable too)")
         self.device = resolve_device(device)
         self.params = params.to(self.device) if params is not None else None
         self.cfg = cfg
@@ -165,7 +199,20 @@ class Engine:
         # mpGeMM routing for every BitLinear this engine (and its drafter)
         # runs (None: the process DispatchConfig's default)
         self._mpgemm = dict(impl=mpgemm_impl, fusion=mpgemm_fusion)
-        self.cache = init_cache(cfg, max_slots, max_len, device=self.device)
+        # paged KV: a physical page pool + per-slot block tables replace the
+        # dense slabs; the host-side Pager owns allocation, prefix sharing
+        # and offload, the device side is pure data movement (models.paged)
+        self.pager: Pager | None = None
+        if paged_kv is not None:
+            ps = paged_kv.page_size
+            n_pages = paged_kv.n_pages or max_slots * (max_len // ps) + 1
+            self.cache = init_cache(cfg, max_slots, max_len, device=self.device,
+                                    page_size=ps, n_pages=n_pages)
+            self.pager = Pager(paged_kv, max_slots=max_slots, max_len=max_len,
+                               n_pages=n_pages, page_out=self._page_out,
+                               page_in=self._page_in)
+        else:
+            self.cache = init_cache(cfg, max_slots, max_len, device=self.device)
         self.slot_free = [True] * max_slots
         self.slot_req: dict[int, Request] = {}
         # each slot's last sampled token, kept on the host (every step reads
@@ -238,8 +285,23 @@ class Engine:
                 f"request {req.rid}: prompt ({len(req.prompt)}) + "
                 f"max_new_tokens - 1 ({req.max_new_tokens - 1}){extra} = {need} "
                 f"exceeds the model context (max_len={self.max_len}); "
-                f"truncate the prompt, lower max_new_tokens, or grow max_len"
+                f"truncate the prompt, lower max_new_tokens, or grow the "
+                f"engine's max_len — this can never succeed, unlike a "
+                f"transient out-of-pages deferral"
             )
+        if self.pager is not None:
+            # a reservation larger than the whole pool is equally permanent:
+            # shared pages are pool pages too
+            ps = self.pager.cfg.page_size
+            need_pages = -(-need // ps)
+            if need_pages > self.pager.total_pages:
+                raise ValueError(
+                    f"request {req.rid}: needs {need_pages} KV pages "
+                    f"({need} positions at page_size={ps}) but the pool "
+                    f"only has {self.pager.total_pages} allocatable pages; "
+                    f"grow n_pages or shrink the request — this can never "
+                    f"succeed, unlike a transient out-of-pages deferral"
+                )
 
     @torch.no_grad()
     def add(self, req: Request) -> bool:
@@ -248,7 +310,10 @@ class Engine:
 
         Whole-prompt mode runs the prompt and samples the first token here;
         chunked mode only claims the slot (PREFILLING), and the first token
-        is sampled when the last chunk lands."""
+        is sampled when the last chunk lands. A paged engine first reserves
+        the request's page budget: an exhausted pool returns False with
+        `req.error` saying it waits for free KV pages (a transient state,
+        unlike the ValueError of a request that can never fit)."""
         self._validate(req)
         try:
             slot = self.slot_free.index(True)
@@ -256,13 +321,28 @@ class Engine:
             return False
         req.slot = slot
         req.t_submit = req.t_submit or time.perf_counter()
+        matched = 0
+        if self.pager is not None:
+            need = len(req.prompt) + req.max_new_tokens - 1 + self._draft_window
+            try:
+                matched = self.pager.admit(slot, np.asarray(req.prompt), need)
+            except OutOfPages as e:
+                req.error = f"queued: waiting for free KV pages ({e})"
+                return False
+            req.error = ""
+            self._flush_pager()
+        if self.prefill_chunk or self.pager is not None:
+            # the write position restarts at the matched prefix frontier (0
+            # without a hit: matched pages already hold their KV); stale K/V
+            # needs no clearing (see models.reset_slot_idx)
+            reset_slot_idx(self.cache, slot, value=matched)
         if self.prefill_chunk:
             self.slot_free[slot] = False
-            req.prefill_pos = 0
+            req.prefill_pos = matched
             self.prefilling[slot] = req
-            # the write position restarts at 0; stale K/V needs no clearing
-            # (see models.reset_slot_idx)
-            reset_slot_idx(self.cache, slot)
+            return True
+        if self.pager is not None:
+            self._paged_prefill(slot, req, matched)
             return True
         with kernel_ops.dispatch_override(**self._mpgemm):
             logits, self.cache, padded = prefill_into_slot(
@@ -275,6 +355,30 @@ class Engine:
         self._start_decoding(slot, req, nxt, time.perf_counter())
         return True
 
+    def _paged_prefill(self, slot: int, req: Request, matched: int) -> None:
+        """Whole-prompt admission for a paged engine: one wide in-place
+        verify pass over the unmatched prompt suffix, writing K/V through
+        the slot's freshly flushed block table (a fresh B=1 cache has no
+        pages to copy from). Other slots' rows are padding whose frontier
+        writes are rolled back as a chunk step's are; a prefix hit shrinks
+        the pass to the suffix alone."""
+        rem = req.prompt[matched:]
+        bucket = prefill_bucket(len(rem), self.max_len)
+        tokens = np.zeros((self.max_slots, bucket), np.int32)
+        tokens[slot, :len(rem)] = rem
+        col = np.zeros(self.max_slots, np.int64)
+        col[slot] = len(rem) - 1
+        new_idx = self._idx_vector()
+        new_idx[slot] = len(req.prompt)
+        with kernel_ops.dispatch_override(**self._mpgemm):
+            rows, cache = model_verify(self.params, self._dev(tokens), self.cache, self.cfg,
+                                       prefill_resume=True, logit_cols=self._dev(col))
+        self.cache = rollback_cache(cache, self._dev(new_idx))
+        self.prefill_tokens += len(rem)
+        self.prefill_pad_tokens += bucket - len(rem)
+        nxt = int(self._sample(rows[slot][None])[0])
+        self._start_decoding(slot, req, nxt, time.perf_counter())
+
     def _start_decoding(self, slot: int, req: Request, first_tok: int, now: float) -> None:
         """Prefill complete (whole prompt or last chunk): record the first
         generated token and start decoding the slot — or finish it when
@@ -286,6 +390,8 @@ class Engine:
             req.done = True
             req.t_done = req.t_first_token
             self.slot_free[slot] = True
+            if self.pager is not None:
+                self.pager.release(slot, np.asarray(req.prompt))
             return
         self.slot_free[slot] = False
         self.slot_req[slot] = req
@@ -303,6 +409,32 @@ class Engine:
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample(logits, self.generator, temperature=self.temperature)
 
+    # -- paged-KV device sync ------------------------------------------
+    def _page_out(self, page: int) -> dict:
+        """Pager offload callback: copy one physical page to the host."""
+        return gather_page(self.cache, page)
+
+    def _page_in(self, page: int, data: dict) -> None:
+        """Pager page-in callback: restore a host copy into `page`. The
+        restored slot_pos rides along with the K/V, so a paged-in page is
+        not scrubbed (that would erase the positions that make the restored
+        prefix attendable)."""
+        restore_page(self.cache, page, data)
+
+    def _flush_pager(self) -> None:
+        """Push the pager's host state to the device before the next step:
+        the block tables and the fresh pages whose slot_pos must be
+        scrubbed to -1 travel in one host-to-device copy. Called at
+        admission (before the prefill pass) and at tick start (after
+        releases)."""
+        if self.pager is None or not self.pager.dirty:
+            return
+        tab, fresh = self.pager.take_flush()
+        buf = self._dev(np.concatenate([tab.reshape(-1), np.asarray(fresh, np.int32)]))
+        if fresh:
+            scrub_pages(self.cache, buf[tab.size:])
+        set_block_tables(self.cache, buf[:tab.size].view(tab.shape))
+
     def _slot_exhausted(self, req: Request) -> bool:
         """True when the slot's next step would write past max_len (the
         next write position plus the draft window). Admission bounds this;
@@ -316,6 +448,10 @@ class Engine:
         self.active[slot] = False
         self.slot_free[slot] = True
         del self.slot_req[slot]
+        if self.pager is not None:
+            # prefix pages return to the radix index, the rest to the free
+            # pool; the table flush waits for the next admission or tick
+            self.pager.release(slot, np.asarray(req.prompt))
         if self.drafter is not None:
             self.drafter.on_release(slot)
 
@@ -342,6 +478,7 @@ class Engine:
     def step(self) -> None:
         """One engine tick: the chunked-prefill step (when a slot is
         PREFILLING), then, or else, the batched decode step."""
+        self._flush_pager()    # released slots' table rows → null before any step
         if self.prefilling:
             self._chunk_step()
             if not self._decode_rides:
@@ -419,6 +556,7 @@ class Engine:
     def decode_once(self) -> None:
         """One batched decode step over every active slot. With spec enabled
         this is draft → verify → accept (1..k+1 tokens per slot)."""
+        self._flush_pager()    # callers may run decode_once without step()
         if not self.active.any():
             return
         if self._tree is not None:
@@ -617,6 +755,19 @@ class Engine:
         self.decode_steps = self.chunk_steps = 0
         self.spec_steps = self.spec_slot_steps = self.spec_skipped_steps = 0
         self.drafted_tokens = self.accepted_tokens = self.verified_nodes = 0
+        if self.pager is not None:
+            self.pager.prefix_hit_tokens = self.pager.prefix_hit_requests = 0
+
+    @property
+    def prefix_hit_tokens(self) -> int:
+        """Prompt tokens admitted straight off shared radix-prefix pages
+        (their prefill was skipped). 0 on unpaged engines."""
+        return self.pager.prefix_hit_tokens if self.pager is not None else 0
+
+    @property
+    def prefix_hit_requests(self) -> int:
+        """Admissions that matched at least one shared prefix page."""
+        return self.pager.prefix_hit_requests if self.pager is not None else 0
 
     @property
     def n_active(self) -> int:

@@ -33,6 +33,7 @@ _ENGINE_COUNTERS = (
     "prefill_tokens", "prefill_pad_tokens", "decode_tokens", "decode_steps",
     "chunk_steps", "spec_steps", "spec_slot_steps", "spec_skipped_steps",
     "drafted_tokens", "accepted_tokens", "verified_nodes",
+    "prefix_hit_tokens", "prefix_hit_requests",
 )
 
 
@@ -54,6 +55,9 @@ class ServeStats:
     drafted_tokens: int = 0
     accepted_tokens: int = 0
     verified_nodes: int = 0         # candidate tokens verified (Σ per slot)
+    # paged KV + radix prefix sharing (zero when the engine runs unpaged)
+    prefix_hit_tokens: int = 0      # prompt tokens served off shared pages
+    prefix_hit_requests: int = 0    # admissions that hit the prefix index
 
     @property
     def total_tokens(self) -> int:

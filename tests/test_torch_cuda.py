@@ -20,7 +20,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ternary_decode_gemm as tdg  # noqa: E402
 from repro_torch.kernels import vlut_lookup_gemm as vlg  # noqa: E402
 from repro_torch.models import init_lm, pack_params  # noqa: E402
-from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request  # noqa: E402
+from repro_torch.serve import ContinuousBatchingScheduler, Engine, PagedKVConfig, Request  # noqa: E402
 
 KERNELS = {
     "decode": (tdg.ternary_decode_gemm_fused, tdg.ternary_decode_gemm_fused_plain),
@@ -224,6 +224,36 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
         assert sched.run_to_completion().completed == 3
         outs.append([r.generated for r in reqs])
     assert outs[0] == outs[1] == outs[2]
+
+
+@pytest.mark.cuda
+def test_paged_serving_on_the_card_matches_dense(cuda):
+    """Smoke-size f32 chunked serving on the card: the paged engine (page
+    size 8, prompts sharing a 16-token prefix, so later admissions hit the
+    radix index) emits the dense engine's greedy tokens, its pools and
+    block table live on the card, and paged whole-prompt serving on the
+    card emits the CPU's tokens."""
+    cfg = get_config("smollm-360m", smoke=True).with_(dtype="float32")
+    model = pack_params(init_lm(cfg, torch.Generator().manual_seed(0)), cfg)
+    rng = np.random.default_rng(1)
+    stem = rng.integers(0, cfg.vocab, size=16).astype(np.int32)
+    prompts = [np.concatenate([stem, rng.integers(0, cfg.vocab, size=n).astype(np.int32)])
+               for n in (3, 9, 14, 5)]
+    outs, engines = [], []
+    for device, chunk, paged in (("cuda", 8, False), ("cuda", 8, True), ("cuda", 0, True),
+                                 ("cpu", 0, True)):
+        eng = Engine(model, cfg, max_slots=2, max_len=48, prefill_chunk=chunk, device=device,
+                     paged_kv=PagedKVConfig(page_size=8) if paged else None)
+        sched = ContinuousBatchingScheduler(eng)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        sched.submit(reqs)
+        stats = sched.run_to_completion()
+        assert stats.completed == 4 and (stats.prefix_hit_requests > 0) == paged
+        outs.append([r.generated for r in reqs])
+        engines.append(eng)
+    assert outs[0] == outs[1] and outs[2] == outs[3]
+    for layer in engines[1].cache:
+        assert all(layer[k].is_cuda for k in ("k", "v", "slot_pos", "tab", "idx"))
 
 
 # Only the summation order differs between the kernel (online softmax over

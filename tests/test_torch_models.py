@@ -178,10 +178,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="remat_policy"):
         tm.lm_loss(model.requires_grad_(True), torch.zeros((1, 4), dtype=torch.int32),
                    torch.zeros((1, 4), dtype=torch.int32), tcfg.with_(remat_policy="dots"))
-    paged = dict(tm.init_cache(tcfg, 1, 8, device="cpu")[0], tab=torch.zeros((1, 1)))
-    with pytest.raises(NotImplementedError, match="paged"):
-        tattn.attn_apply(model.layers[0].mixer, torch.zeros((1, 2, tcfg.d_model)), cfg=tcfg,
-                      spec=tcfg.layer_specs()[0], cache=paged, verify=True)
 
 
 def test_unpacked_prefill_matches_jax():

@@ -63,9 +63,12 @@ def test_greedy_serving_token_identical(served):
 def test_engine_refuses_unported_options(served):
     jcfg, tcfg, params, _ = served
     model = bridge.lm_from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
-    for kw in (dict(paged_kv=object()), dict(obs=object())):
-        with pytest.raises(NotImplementedError):
-            ts.Engine(model, tcfg, max_slots=2, max_len=32, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        ts.Engine(model, tcfg, max_slots=2, max_len=32, device="cpu", obs=object())
+    # the paged KV cache is ported: it builds a pager instead of raising
+    eng = ts.Engine(model, tcfg, max_slots=2, max_len=32, device="cpu",
+                    paged_kv=ts.PagedKVConfig(page_size=8))
+    assert eng.pager is not None and eng.pager.total_pages == 2 * 32 // 8
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ts.Engine(model, tcfg, max_slots=2, max_len=32)
