@@ -144,6 +144,32 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    full slots under torch.profiler beside phase 4's dense step: device ms,
    busy share, and the device time of the gathers (`aten::index`: the
    `page_view` reads) and the scatters (`aten::index_put_`).
+10. moe: the MoE FFN on `llama4-scout-17b-a16e` at its published widths
+   and depth (48 layers, d 5120, 40/8 heads, 16 experts top-1 + 1 shared,
+   d_ff 8192, vocab 202048, bf16), random weights from a seeded generator
+   on the card, built and packed layer by layer (`init_lm(packed=True)`:
+   the dense bf16 weights, ~211 GB, do not fit), after phase 9 (phase
+   4's model freed first). (a) Both grouped kernels
+   (`ternary_decode_gemm_fused_grouped`, `vlut_lookup_gemm_fused_grouped`:
+   16 experts of one shape in one launch) at layer 0's expert weights (w1:
+   M 8192, K 5120, all g=5; w2: M 5120, K 8192 = 1636 g=5 + 3 g=4 groups,
+   so both segments run), C in {4, 16, 64} rows per expert with a zero
+   padding row (its output must be 0), bf16 (and f32 at C 16), against
+   their plain versions and 16 single launches: expected difference 0;
+   grouped split-K traps (odd E, M off the tiles, C 5 and 17) launched
+   twice and replayed 3 times in a CUDA graph. (b) Device ms per grouped
+   launch at C 4 and 16 beside the bound (bytes / 3.35 TB/s), 16 single
+   launches, the plain version and a bf16 `torch.bmm` against the
+   dequantized experts (a yardstick only). (c) Serving 8 greedy requests
+   (prompts 16-64, 16 new tokens, 4 slots) with impl="decode" and
+   "lookup" (identical tokens), then chunk 64 + chain k 4 (n-gram; the
+   verify steps' grouped launches see C = 16): each run's counts zeroed
+   just before it, 8 single and 4 grouped launches per layer per forward
+   and no other mpGeMM kernel, every request completed; one prefill's
+   logits through the kernels against the same prefill through their plain
+   versions (MOE_LOGIT_RTOL). (d) One decode step of 4 full slots under
+   torch.profiler, and layer 0's MoE FFN at 4 tokens timed whole and as
+   its expert compute alone: the dispatch's device share of a step.
 
 Output: a `kernels` JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}. Details go to
@@ -185,6 +211,16 @@ KERNEL_META = {
     "vlut_lookup_gemm": dict(
         impl="lookup", fusion="unfused", source="src/repro_torch/csrc/vlut_lookup_gemm.cu",
         replaces="src/repro/kernels/vlut_lookup_gemm.py:171"),
+}
+#: the grouped launches of the same two TPU kernels, reached there under
+#: jax.vmap over stacked expert weights (src/repro/models/common.py:58)
+GROUPED_META = {
+    "ternary_decode_gemm_fused_grouped": dict(
+        impl="decode", source="src/repro_torch/csrc/ternary_decode_gemm.cu",
+        replaces="src/repro/kernels/ternary_decode_gemm.py:176"),
+    "vlut_lookup_gemm_fused_grouped": dict(
+        impl="lookup", source="src/repro_torch/csrc/vlut_lookup_gemm.cu",
+        replaces="src/repro/kernels/vlut_lookup_gemm.py:222"),
 }
 # (g, (M, KG)) of the saturated integer checks: all +1 weights, activations
 # 127, every sum 127*K (K = 2560 and 960)
@@ -251,6 +287,26 @@ PAGE_SIZE = 16
 SYSTEM_PROMPT = 128
 OFFLOAD_PAGES, OFFLOAD_HOST_PAGES, OFFLOAD_PROMPT = 17, 64, 128
 CPU_SEQ = 256
+# Phase 10 (MoE): llama4-scout-17b-a16e at its published widths and depth.
+# Rows per expert C of the grouped launches: a decode step of 4 slots (4
+# tokens, top-1 of 16 experts: the capacity floor min(T, 16) = 4), a
+# chain-4 verify step or a 64-token prefill (16), a larger batch (64).
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_TOKENS = (4, 16, 64)
+MOE_TIME_TOKENS = (4, 16)
+# grouped split-K traps (E, M, KG, g, C): odd E, M off the tiles, C 5 and
+# 17, KG not divisible by the splits, a one-K-group g=4 segment
+MOE_RAGGED = ((3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (3, 1000, 191, 5, 5), (7, 70, 1, 4, 3))
+# one prefill through the kernels against the same prefill through their
+# plain versions on the card: the kernels are bit-equal to the plain
+# versions and every other op is the same call on the same device, so the
+# logits should agree exactly; the bound on max |diff| relative to the
+# largest logit leaves room only for a library's run-to-run sum order.
+MOE_LOGIT_RTOL = 1e-4
+# ops of the MoE dispatch whose device time phase 10's profile logs (the
+# indexing ops also serve the attention cache)
+MOE_DISPATCH_OPS = ("aten::sort", "aten::cumsum", "aten::one_hot", "aten::index_put_",
+                    "aten::index", "aten::gather", "aten::repeat_interleave")
 # bf16 model, 32 layers, QAT: the CPU and the card round bf16 intermediates
 # after sums in another order, and an int8 activation code at a rounding
 # boundary can move by one; the mean CE over 256 tokens moves far less than
@@ -335,7 +391,7 @@ def plan_row(p) -> dict:
     """A launch plan (`LutPlan` or `DecodePlan`) as a JSON row."""
     row = {"shape": [p.m, p.kg, p.n, p.g], "splits": p.splits, "blocks": p.blocks,
            "smem": p.smem, "kg_divisible_by_splits": p.kg % p.splits == 0}
-    for key in ("bm", "bn", "chunk", "kstep", "codes_aligned", "acts_aligned"):
+    for key in ("e", "bm", "bn", "chunk", "kstep", "codes_aligned", "acts_aligned"):
         if hasattr(p, key):
             row[key] = getattr(p, key)
     return row
@@ -395,10 +451,10 @@ def largest_split(plan) -> tuple:
                key=lambda s: plan(*s, 5).splits)
 
 
-def decode_plan_for(tdg, m, kg, n, g):
-    """The decode plan the main path launches: contiguous operands, word
-    loads where KG % 4 == 0."""
-    return tdg.decode_plan(m, kg, n, g, codes_aligned=kg % 4 == 0, acts_aligned=kg % 4 == 0)
+def decode_plan_for(tdg, m, kg, n, g, e=1):
+    """The decode plan the main path launches (of `e` experts): contiguous
+    operands, word loads where KG % 4 == 0."""
+    return tdg.decode_plan(m, kg, n, g, codes_aligned=kg % 4 == 0, acts_aligned=kg % 4 == 0, e=e)
 
 
 def fused_kernels() -> dict:
@@ -825,7 +881,8 @@ def op_device_ms(prof, steps: int, names=("aten::index", "aten::index_put_")) ->
     return out
 
 
-def profile_decode(torch, model, cfg, prompts, steps: int = 4, spec=None, paged=None) -> dict:
+def profile_decode(torch, model, cfg, prompts, steps: int = 4, spec=None, paged=None,
+                   op_names=("aten::index", "aten::index_put_")) -> dict:
     """Where a decode step's time goes: `torch.profiler` over `steps`
     batched decode steps of 4 full slots (impl="decode"; with `spec`, each
     step is draft, verify and accept; with `paged`, a PagedKVConfig, the
@@ -856,7 +913,7 @@ def profile_decode(torch, model, cfg, prompts, steps: int = 4, spec=None, paged=
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
             "top_kernels_ms_per_step": [[name[:90], ms] for ms, name in by_name[:8]],
-            "op_device_ms_per_step": op_device_ms(prof, steps)}
+            "op_device_ms_per_step": op_device_ms(prof, steps, op_names)}
 
 
 def clone_cache(cache: list) -> list:
@@ -865,7 +922,8 @@ def clone_cache(cache: list) -> list:
 
 @contextlib.contextmanager
 def planted(module, name: str, fn):
-    """A fault planted for the duration of one call: module.name = fn."""
+    """module.name = fn for the duration of one call: a planted fault, a
+    stub, or the kernels' plain versions in their place."""
     orig = getattr(module, name)
     setattr(module, name, fn)
     try:
@@ -983,13 +1041,30 @@ def tie_check(torch, model, cfg, label, prompts, ref, got, ref_name="the referen
     return ties
 
 
+def launches_per_forward(model, impl: str) -> dict:
+    """{kernel: launches per forward} of `model` with the fused pipeline:
+    one launch per packed segment of every BitLinear, the single kernel for
+    a dense weight and the grouped one for stacked experts (smollm-360m:
+    224 single; llama4-scout: 8 single and 4 grouped per layer)."""
+    from repro_torch.models.common import PackedLinear
+
+    single = "vlut_lookup_gemm_fused" if impl == "lookup" else "ternary_decode_gemm_fused"
+    out = {single: 0, f"{single}_grouped": 0}
+    for lin in model.modules():
+        if isinstance(lin, PackedLinear):
+            segs = int(lin.packed5.shape[-1] > 0) + int(lin.packed4.shape[-1] > 0)
+            out[f"{single}_grouped" if lin.packed5.ndim == 3 else single] += segs
+    return {k: v for k, v in out.items() if v}
+
+
 def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", spec=None,
                 temperature=0.0, slots=4, **kw) -> dict:
-    """Phases 8 (c) and 9: one serving run with its counts zeroed just
+    """Phases 8 (c), 9 and 10: one serving run with its counts zeroed just
     before it. Every forward (target and drafter) is counted through
-    `lm_hidden`, with the token count N = B x S its mpGeMM launches (224 at
-    full depth) see. Each admission's wall time and prefix-hit tokens are
-    recorded (whole-prompt admission ends in a host sync)."""
+    `lm_hidden`, with the token count N = B x S its mpGeMM launches
+    (`launches_per_forward`: 224 at smollm-360m's full depth) see. Each
+    admission's wall time and prefix-hit tokens are recorded (whole-prompt
+    admission ends in a host sync)."""
     from repro_torch.models import decoder
     from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request
 
@@ -1027,8 +1102,9 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", sp
     forwards = sum(n_hist.values())
     target = stats.decode_steps + stats.chunk_steps + (0 if eng.prefill_chunk else len(reqs))
     kernel = "vlut_lookup_gemm_fused" if impl == "lookup" else "ternary_decode_gemm_fused"
-    per_forward = 7 * cfg.n_layers          # BitLinears: q, k, v, o, gate, up, down
-    want = {nm: (per_forward * forwards if nm == kernel else 0) for nm in counters}
+    per_fwd = launches_per_forward(model, impl)
+    per_forward = sum(per_fwd.values())
+    want = {nm: per_fwd.get(nm, 0) * forwards for nm in counters}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     drafter_forwards = forwards - target
@@ -1234,6 +1310,359 @@ def check_paged(torch, model, cfg, prompts, counters, ref_tokens, multi_tokens,
             + ", " + ", ".join(f"{op} {ms:.4f} ms in {n:.0f} calls" for op, (ms, n) in ops.items()))
     out["seconds"] = time.perf_counter() - t0
     log(f"paged: phase 9 took {out['seconds']:.1f} s")
+    return out
+
+
+def grouped_kernels() -> dict:
+    """{name: (grouped kernel wrapper, plain version, single kernel)}."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+
+    return {
+        "ternary_decode_gemm_fused_grouped": (tdg.ternary_decode_gemm_fused_grouped,
+                                              tdg.ternary_decode_gemm_fused_plain,
+                                              tdg.ternary_decode_gemm_fused),
+        "vlut_lookup_gemm_fused_grouped": (vlg.vlut_lookup_gemm_fused_grouped,
+                                           vlg.vlut_lookup_gemm_fused_plain,
+                                           vlg.vlut_lookup_gemm_fused),
+    }
+
+
+def grouped_launches(torch, pw, x):
+    """The grouped launches of one stacked expert linear, as
+    `ternary_matmul_batched` makes them: [(packed, x slice, a_scale,
+    w_scale, g, out dtype)], one per segment."""
+    from repro_torch.kernels import ops
+
+    a_scale = act_scales(torch, x)
+    segs = ops._segments(pw)
+    seg_dt = x.dtype if len(segs) == 1 else torch.float32
+    return [(packed, x[..., lo:hi], a_scale, pw.scale, g, seg_dt) for packed, lo, hi, g in segs]
+
+
+def launch_bytes(torch, launches) -> int:
+    """Bytes the grouped launches must move, each input read once and each
+    output written once: codes, activations, both scales, the output."""
+    return sum(pk.numel() + xs.numel() * xs.element_size() + sc.numel() * 4 + ws.numel() * 4
+               + xs.shape[0] * xs.shape[1] * pk.shape[1] * torch.empty((), dtype=odt).element_size()
+               for pk, xs, sc, ws, g, odt in launches)
+
+
+def moe_kernel_checks(torch, model, gen) -> dict:
+    """Phase 10 (a) and (b): both grouped kernels at llama4-scout's expert
+    shapes (layer 0's packed w1 and w2: E 16, M 8192, K 5120 all g=5; M
+    5120, K 8192 = 1636 g=5 + 3 g=4 groups) against their plain versions
+    and against E launches of the single kernel, expected difference 0; the
+    split-K traps; then device times per grouped launch beside the bound,
+    E single launches, the plain version and a bf16 `torch.bmm` against the
+    dequantized expert weights (a yardstick only: the port never calls it)."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+
+    dev = torch.device("cuda")
+    kernels = grouped_kernels()
+    plans = {"ternary_decode_gemm_fused_grouped":
+             lambda e, m, kg, g, c: decode_plan_for(tdg, m, kg, c, g, e=e),
+             "vlut_lookup_gemm_fused_grouped": lambda e, m, kg, g, c: vlg.lut_plan(m, kg, c, g, e=e)}
+    ffn = model.layers[0].ffn
+    lins = {"w1": ffn.experts.w1.pw, "w3": ffn.experts.w3.pw, "w2": ffn.experts.w2.pw}
+    e = lins["w1"].packed5.shape[0]
+    max_err = {name: 0.0 for name in kernels}
+    n_checks = 0
+    for lname in ("w1", "w2"):
+        pw = lins[lname]
+        for c in MOE_TOKENS:
+            x32 = torch.randn((e, c, pw.K), generator=gen, device=dev) * 3.0
+            x32[:, -1] = 0                         # a padding row of every expert
+            for dt in ((torch.bfloat16, torch.float32) if c == 16 else (torch.bfloat16,)):
+                for packed, xs, a_scale, w_scale, g, out_dt in grouped_launches(torch, pw, x32.to(dt)):
+                    for name, (kern, plain, single) in kernels.items():
+                        got = kern(packed, xs, a_scale, w_scale, g=g, out_dtype=out_dt)
+                        want = plain(packed, xs, a_scale, w_scale, g=g, out_dtype=out_dt)
+                        each = torch.stack([single(packed[i], xs[i], a_scale[i], w_scale[i], g=g,
+                                                   out_dtype=out_dt) for i in range(e)])
+                        torch.cuda.synchronize()
+                        assert got.shape == (e, c, pw.M) and got.dtype == out_dt
+                        if got[:, -1].any():
+                            raise AssertionError(f"{name}: a padding row's output is not 0")
+                        err = max((got.float() - want.float()).abs().max().item(),
+                                  (got.float() - each.float()).abs().max().item())
+                        max_err[name] = max(max_err[name], err)
+                        n_checks += 1
+    log(f"moe: {n_checks} grouped-kernel checks (against the plain version and {e} single "
+        f"launches) at {MOE_ARCH}'s expert shapes, C {MOE_TOKENS}: max |diff| {max_err}")
+    for name, err in max_err.items():
+        if err != 0.0:
+            raise AssertionError(f"{name} differs from its plain version or single launches by {err}")
+
+    traps = {}
+    for name, (kern, plain, _) in kernels.items():
+        cases = []
+        for ne, m, kg, g, c in MOE_RAGGED:
+            packed = torch.randint(0, 3 ** g, (ne, m, kg), generator=gen, device=dev,
+                                   dtype=torch.int32).to(torch.uint8)
+            x = torch.randn((ne, c, kg * g), generator=gen, device=dev) * 3.0
+            w_scale = torch.rand((ne, m), generator=gen, device=dev)
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x.to(dt)
+                a_scale = act_scales(torch, xd)
+                cases.append(((packed, xd, a_scale, w_scale), dict(g=g, out_dtype=dt)))
+        traps[name] = splitk_traps(torch, name, kern, plain, cases)
+        traps[name]["plans"] = [plan_row(plans[name](*shape)) for shape in MOE_RAGGED]
+        if all(row["splits"] == 1 for row in traps[name]["plans"]):
+            raise AssertionError(f"{name}: no grouped trap splits K")
+        log(f"moe: {name} traps: {traps[name]['cases']} cases, each launched twice back to "
+            f"back and in a CUDA graph replayed {LUT_REPLAYS} times: max |diff| 0; plans "
+            + "; ".join(f"{tuple(r['shape'])} E {r['e']} S {r['splits']} blocks {r['blocks']}"
+                        for r in traps[name]["plans"]))
+
+    # (b) device times
+    per_c = {}
+    deq = {ln: (pw.unpack().to(torch.bfloat16) * pw.scale[..., None].to(torch.bfloat16))
+           .transpose(1, 2).contiguous() for ln, pw in lins.items()}     # (E, K, M) bf16
+    for c in MOE_TIME_TOKENS:
+        xs = {k: (torch.randn((e, c, k), generator=gen, device=dev)).to(torch.bfloat16)
+              for k in {pw.K for pw in lins.values()}}
+        row = {}
+        layer_launches = []
+        for ln, pw in lins.items():
+            launches = grouped_launches(torch, pw, xs[pw.K])
+            layer_launches += launches
+            if ln == "w3":
+                continue
+            # the decode step's pattern: one row of 4 experts, the rest 0
+            zero_rows = torch.zeros_like(xs[pw.K])
+            zero_rows[:4, 0] = xs[pw.K][:4, 0]
+            zero_launches = grouped_launches(torch, pw, zero_rows)
+            nbytes = launch_bytes(torch, launches)
+            entry = {"launches": len(launches), "bytes": nbytes,
+                     "bound_ms": nbytes / HBM_BYTES_S * 1e3,
+                     "bmm_ms": device_ms(torch, lambda: torch.bmm(xs[pw.K], deq[ln]))}
+            for name, (kern, plain, single) in kernels.items():
+                def grouped(fn=kern, launches=launches):
+                    for pk, xsl, sc, ws, g, odt in launches:
+                        fn(pk, xsl, sc, ws, g=g, out_dtype=odt)
+
+                def singles(fn=single, launches=launches):
+                    for pk, xsl, sc, ws, g, odt in launches:
+                        for i in range(e):
+                            fn(pk[i], xsl[i], sc[i], ws[i], g=g, out_dtype=odt)
+
+                entry[name] = {"ms": device_ms(torch, grouped),
+                               "singles_ms": device_ms(torch, singles),
+                               "plain_ms": device_ms(torch, lambda p=plain, l=launches: grouped(p, l),
+                                                     reps=1),
+                               "zero_rows_ms": device_ms(torch, lambda: grouped(kern, zero_launches))}
+            row[ln] = entry
+            log(f"moe: {ln} (E {e}, M {pw.M}, K {pw.K}, {len(launches)} launch(es)) at C={c}: "
+                f"bound {entry['bound_ms']:.4f} ms (bytes), "
+                + ", ".join(f"{nm} {entry[nm]['ms']:.4f} ms ({e} single launches "
+                            f"{entry[nm]['singles_ms']:.4f}, plain {entry[nm]['plain_ms']:.4f}, "
+                            f"on zero rows but 4 {entry[nm]['zero_rows_ms']:.4f})"
+                            for nm in kernels)
+                + f", bf16 bmm yardstick {entry['bmm_ms']:.4f} ms")
+        # one MoE layer's four grouped launches (the kernels line's unit)
+        nbytes = launch_bytes(torch, layer_launches)
+        nops = sum(2 * e * c * pk.shape[1] * xsl.shape[-1] for pk, xsl, *_ in layer_launches)
+        layer = {"launches": len(layer_launches), "bytes": nbytes, "int8_ops": nops,
+                 "bound_ms": max(nbytes / HBM_BYTES_S, nops / INT8_OPS_S) * 1e3,
+                 "bound_by": "bytes" if nbytes / HBM_BYTES_S >= nops / INT8_OPS_S else "operations",
+                 "library_ms": device_ms(torch, lambda: [torch.bmm(xs[lins[ln].K], deq[ln])
+                                                         for ln in lins])}
+        for name, (kern, plain, _) in kernels.items():
+            def run(fn, launches=layer_launches):
+                for pk, xsl, sc, ws, g, odt in launches:
+                    fn(pk, xsl, sc, ws, g=g, out_dtype=odt)
+
+            layer[name] = {"ms": device_ms(torch, lambda: run(kern)),
+                           "plain_ms": device_ms(torch, lambda: run(plain), reps=1)}
+        row["layer"] = layer
+        log(f"moe: one layer's {len(layer_launches)} grouped launches at C={c}: bound "
+            f"{layer['bound_ms']:.4f} ms ({layer['bound_by']}), "
+            + ", ".join(f"{nm} {layer[nm]['ms']:.4f} ms (plain {layer[nm]['plain_ms']:.4f})"
+                        for nm in kernels)
+            + f", bf16 bmm yardstick {layer['library_ms']:.4f} ms")
+        per_c[c] = row
+    del deq
+    return {"max_abs_err": max_err, "checks": n_checks, "splitk_traps": traps, "per_tokens": per_c}
+
+
+def act_scales(torch, x):
+    """Per-(expert, row) activation scales of a stacked (E, C, K) x."""
+    from repro_torch.core import act_token_scale
+
+    e, c, k = x.shape
+    return act_token_scale(x.reshape(e * c, k).T).reshape(e, c).contiguous()
+
+
+@contextlib.contextmanager
+def plain_mpgemm():
+    """Route the fused pipeline through the kernels' plain versions (on
+    CUDA tensors too) for the duration of one call."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+
+    plain = {"decode": tdg.ternary_decode_gemm_fused_plain, "lookup": vlg.vlut_lookup_gemm_fused_plain}
+    with planted(ops, "_KERNELS", plain), planted(ops, "_GROUPED_KERNELS", plain):
+        yield
+
+
+def moe_dispatch_ms(torch, model, cfg, tokens: int) -> dict:
+    """Device ms (CUDA-graph replay) of layer 0's MoE FFN on `tokens`
+    tokens: whole; its dispatch alone (router, top-k, positions, scatter,
+    gather back, combine), with the expert linears and the shared expert
+    stubbed out by zeros of their output shapes; and its expert compute
+    alone (the grouped expert linears with their SwiGLU, and the shared
+    expert) on random rows, and on rows zero but for one row of 4 experts:
+    the layer's own pattern at a decode step (4 tokens, top-1, the other
+    rows padding)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+    from repro_torch.models.common import linear_batched_apply
+
+    ffn, dev = model.layers[0].ffn, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dt = model.embed.table.dtype
+    e, cap, d = cfg.moe.n_experts, moe.capacity(tokens, cfg), cfg.d_model
+    x = torch.randn((tokens, 1, d), generator=gen, device=dev).to(dt)
+    buf = torch.randn((e, cap, d), generator=gen, device=dev).to(dt)
+    sparse = torch.zeros_like(buf)
+    sparse[:tokens, 0] = buf[:tokens, 0]
+
+    def experts(b):
+        h = F.silu(linear_batched_apply(ffn.experts.w1, b)) * linear_batched_apply(ffn.experts.w3, b)
+        linear_batched_apply(ffn.experts.w2, h)
+        moe.dense_ffn_apply(ffn.shared, x.reshape(tokens, -1))
+
+    def zeros_linear(p, xb, mode="serve"):
+        return xb.new_zeros((*xb.shape[:-1], p.pw.M))
+
+    def zeros_ffn(p, xt, mode="serve"):
+        return torch.zeros_like(xt)
+
+    whole = device_ms(torch, lambda: moe.moe_apply(ffn, x, cfg))
+    with planted(moe, "linear_batched_apply", zeros_linear), planted(moe, "dense_ffn_apply", zeros_ffn):
+        dispatch = device_ms(torch, lambda: moe.moe_apply(ffn, x, cfg))
+    return {"tokens": tokens, "rows_per_expert": cap, "layer_ms": whole, "dispatch_ms": dispatch,
+            "expert_compute_ms": device_ms(torch, lambda: experts(buf)),
+            "expert_compute_zero_rows_ms": device_ms(torch, lambda: experts(sparse))}
+
+
+def check_moe(torch, counters) -> dict:
+    """Phase 10: the MoE FFN on llama4-scout-17b-a16e at its published
+    widths and depth (bf16, random weights from a seeded generator, packed
+    layer by layer): (a)-(b) `moe_kernel_checks`; (c) serving 8 greedy
+    requests (prompts 16-64, 16 new tokens, 4 slots) with impl="decode"
+    and "lookup" (same tokens), then chunk 64 + chain k 4, each with 8
+    single and 4 grouped launches per layer per forward and no other
+    mpGeMM kernel, every request completed; one prefill's logits through
+    the kernels against the same prefill through their plain versions;
+    (d) one decode step of 4 full slots under torch.profiler, and the MoE
+    dispatch's device time (`moe_dispatch_ms`)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache, init_lm, prefill
+    from repro_torch.models.moe import capacity
+    from repro_torch.spec import SpecConfig
+
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), packed=True)
+    torch.cuda.synchronize()
+    model_bytes = {
+        "packed_bitlinears": sum(b.numel() * b.element_size() for b in model.layers.buffers()),
+        "embed": model.embed.table.numel() * model.embed.table.element_size(),
+        "head": model.head.w.numel() * model.head.w.element_size(),
+        "other": sum(q.numel() * q.element_size() for q in model.layers.parameters())
+                 + model.final_norm.scale.numel() * 4,
+    }
+    model_bytes["total"] = sum(model_bytes.values())
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "experts": cfg.moe.n_experts, "model_bytes": model_bytes,
+           "build_s": time.perf_counter() - t0,
+           "build_peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"moe: {cfg.name} {cfg.dtype}, {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.moe.n_experts} experts d_ff {cfg.moe.d_ff_expert}, vocab {cfg.vocab}: built and "
+        f"packed layer by layer in {out['build_s']:.1f} s (peak {out['build_peak_bytes'] / 2**30:.2f} "
+        f"GiB); bytes {model_bytes}")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out["kernels"] = moe_kernel_checks(torch, model, gen)
+
+    # (c) serving
+    for impl in IMPLS:
+        per_fwd = launches_per_forward(model, impl)
+        single = "vlut_lookup_gemm_fused" if impl == "lookup" else "ternary_decode_gemm_fused"
+        if per_fwd != {single: 8 * cfg.n_layers, f"{single}_grouped": 4 * cfg.n_layers}:
+            raise AssertionError(f"launches per forward {per_fwd}: expected 8 single and 4 "
+                                 "grouped per layer")
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(16, 65))).astype(np.int32)
+               for _ in range(8)]
+    runs = {}
+    for impl in IMPLS:
+        runs[impl] = serve_multi(torch, model, cfg, prompts, counters, f"moe {impl}", impl=impl)
+    if runs["decode"]["tokens"] != runs["lookup"]["tokens"]:
+        raise AssertionError("moe: impl=decode and impl=lookup emitted different greedy tokens")
+    runs["chunked_chain"] = serve_multi(torch, model, cfg, prompts, counters, "moe chunked chain",
+                                        spec=SpecConfig(k=SPEC_K), prefill_chunk=PREFILL_CHUNK)
+    caps = {int(n): capacity(int(n), cfg) for n in runs["chunked_chain"]["mpgemm_tokens_per_launch"]}
+    runs["chunked_chain"]["rows_per_expert"] = caps
+    if 16 not in caps.values():
+        raise AssertionError(f"moe: the chunked chain run's grouped launches never saw C = 16: {caps}")
+    same = sum(a == b for a, b in zip(runs["chunked_chain"]["tokens"], runs["decode"]["tokens"]))
+    log(f"moe: chunked chain rows per expert by step tokens {caps}; {same}/8 requests emit the "
+        "whole-prompt run's tokens (padding rows take capacity in a chunk step, as in JAX)")
+    out["serve"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in runs.items()}
+    out["serve"]["chunked_chain"]["same_tokens_as_whole_prompt"] = same
+
+    tok = torch.from_numpy(prompts[0][None, :]).cuda()
+    with ops.dispatch_override(impl="decode"):
+        got, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
+        with plain_mpgemm():
+            want, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
+    got, want = got.float(), want.float()
+    if got.shape != (1, cfg.vocab) or not torch.isfinite(got).all():
+        raise AssertionError(f"moe: bad logits, shape {tuple(got.shape)}")
+    diff, scale = (got - want).abs().max().item(), want.abs().max().item()
+    out["logits_kernels_vs_plain"] = {"max_abs_diff": diff, "max_abs_logit": scale,
+                                      "argmax": [int(got.argmax()), int(want.argmax())]}
+    log(f"moe: prefill logits through the kernels vs their plain versions: max |diff| {diff}, "
+        f"max |logit| {scale:.4f}, argmax {int(got.argmax())} vs {int(want.argmax())}")
+    if diff > MOE_LOGIT_RTOL * scale:
+        raise AssertionError(f"moe: logits differ by {diff} > {MOE_LOGIT_RTOL} * {scale}")
+
+    # (d) one decode step of 4 full slots, and the MoE dispatch's share of it
+    prof = profile_decode(torch, model, cfg, prompts, op_names=MOE_DISPATCH_OPS)
+    prof["moe_layer"] = moe_dispatch_ms(torch, model, cfg, tokens=4)
+    prof["moe_dispatch_ms_per_step"] = prof["moe_layer"]["dispatch_ms"] * cfg.n_layers
+    prof["moe_dispatch_share"] = (prof["moe_dispatch_ms_per_step"] / prof["device_ms_per_step"]
+                                  if prof["device_ms_per_step"] else None)
+    out["decode_profile"] = prof
+    log(f"moe: decode step (4 slots) wall {prof['wall_ms_per_step']:.3f} ms, device busy "
+        f"{prof['device_ms_per_step']:.3f} ms"
+        + (f" ({100 * prof['device_busy_share']:.1f}%)" if prof["device_busy_share"] else
+           " (the profiler saw no device time: not measured)")
+        + f"; one MoE layer at 4 tokens {prof['moe_layer']['layer_ms']:.4f} ms: its dispatch "
+        f"alone {prof['moe_layer']['dispatch_ms']:.4f} ms, its expert compute alone "
+        f"{prof['moe_layer']['expert_compute_ms']:.4f} ms on random rows, "
+        f"{prof['moe_layer']['expert_compute_zero_rows_ms']:.4f} ms on the layer's zero rows; "
+        f"dispatch x {cfg.n_layers} "
+        f"layers {prof['moe_dispatch_ms_per_step']:.3f} ms a step"
+        + (f" ({100 * prof['moe_dispatch_share']:.1f}% of device time)"
+           if prof["moe_dispatch_share"] is not None else ""))
+    for name, ms in prof["top_kernels_ms_per_step"]:
+        log(f"moe:   {ms:8.4f} ms  {name}")
+    for name, (ms, calls) in prof["op_device_ms_per_step"].items():
+        log(f"moe:   op {name}: {ms:.4f} ms device, {calls:.1f} calls per step")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"moe: phase 10 took {out['seconds']:.1f} s")
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1547,7 +1976,11 @@ def main() -> int:
             ternary_decode_gemm,
             ternary_decode_gemm_fused,
         )
-        from repro_torch.kernels.vlut_lookup_gemm import vlut_lookup_gemm, vlut_lookup_gemm_fused
+        from repro_torch.kernels.vlut_lookup_gemm import (
+            vlut_lookup_gemm,
+            vlut_lookup_gemm_fused,
+            vlut_lookup_gemm_fused_grouped,
+        )
         from repro_torch.models import init_cache, init_lm, pack_params, prefill
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})", file=sys.stderr)
@@ -1593,6 +2026,8 @@ def main() -> int:
                for _ in range(8)]
     counters = {"ternary_decode_gemm_fused": ternary_decode_gemm_fused,
                 "vlut_lookup_gemm_fused": vlut_lookup_gemm_fused,
+                "ternary_decode_gemm_fused_grouped": tdg.ternary_decode_gemm_fused_grouped,
+                "vlut_lookup_gemm_fused_grouped": vlut_lookup_gemm_fused_grouped,
                 "ternary_decode_gemm": ternary_decode_gemm,
                 "vlut_lookup_gemm": vlut_lookup_gemm,
                 "flash_attention": flash_attention}
@@ -1652,6 +2087,10 @@ def main() -> int:
     del model, cpu_model, weights
     torch.cuda.empty_cache()
 
+    # 10. MoE FFN: llama4-scout at full width (after phase 9; its model is
+    # freed before phases 6 and 7)
+    moe = check_moe(torch, counters)
+
     # 6. flash
     flash = check_flash(torch)
 
@@ -1672,9 +2111,21 @@ def main() -> int:
                 "plain_ms": row[name]["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": library_ms}
 
+    def grouped_row(name, meta):
+        layer = moe["kernels"]["per_tokens"][MOE_TIME_TOKENS[0]]["layer"]
+        return {"name": name, "route": "cuda", "source": meta["source"],
+                "replaces": meta["replaces"],
+                "launches": moe["serve"][meta["impl"]]["launches"][name],
+                "max_abs_err": float(moe["kernels"]["max_abs_err"][name]),
+                "ms": layer[name]["ms"], "plain_ms": layer[name]["plain_ms"],
+                "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"],
+                "library_ms": layer["library_ms"]}
+
     frow = flash["time"]
     kern_line = {"kernels": [
         kernel_row(name, meta) for name, meta in KERNEL_META.items()
+    ] + [
+        grouped_row(name, meta) for name, meta in GROUPED_META.items()
     ] + [
         {"name": "flash_attention", "route": "cuda", **FLASH_META,
          "launches": trained["launches"]["flash_attention"], "max_abs_err": flash["max_abs_err"],
@@ -1684,7 +2135,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
-        "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches (unfused pipelines: 224 BitLinears); compare: one call at (M, K) = (2560, 960); flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
+        "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches (unfused pipelines: 224 BitLinears); grouped mpGeMM: one llama4-scout MoE layer's 4 grouped launches at C = 4 rows per expert; compare: one call at (M, K) = (2560, 960); flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
         "per_tokens": per_n, "splitk_fused_traps": fused_traps,
         "decode_plans": {n: [plan_row(decode_plan_for(tdg, m, k // 5, n, 5)) for m, k in SHAPES]
                          for n in TOKENS},
@@ -1699,6 +2150,7 @@ def main() -> int:
         "decode_profile": prof,
         "multi_token": multi,
         "paged": paged,
+        "moe": moe,
         "flash": flash, "train": trained,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

@@ -23,7 +23,7 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.blocks import Block
 from repro_torch.models.common import Embedding, Linear, PackedLinear, QLinear, RMSNorm
 from repro_torch.models.decoder import LM, compress_layout
-from repro_torch.models.moe import DenseFFN
+from repro_torch.models.moe import DenseFFN, MoEFFN
 
 
 def to_torch(arr, device) -> torch.Tensor:
@@ -54,15 +54,33 @@ def _norm(node, r, device) -> RMSNorm:
     return RMSNorm(to_torch(np.asarray(node["scale"])[r], device))
 
 
+def _swiglu(node, r, device) -> DenseFFN:
+    return DenseFFN(*(_linear(node[k], r, device) for k in ("w1", "w3", "w2")))
+
+
+def _ffn(node, r, device):
+    """A dense FFN, or a MoE FFN (keys "router", "experts", optionally
+    "router_bias" and "shared"; the experts' leaves are (reps, E, ...),
+    taken at layer r)."""
+    if "router" not in node:
+        return _swiglu(node, r, device)
+    bias = node.get("router_bias")
+    return MoEFFN(
+        _linear(node["router"], r, device), _swiglu(node["experts"], r, device),
+        None if bias is None else to_torch(np.asarray(bias)[r], device),
+        _swiglu(node["shared"], r, device) if "shared" in node else None)
+
+
 def _block(node, r, device) -> Block:
-    mx, ffn = node["mixer"], node["ffn"]
+    mx = node["mixer"]
     qk = ((_norm(mx["q_norm"], r, device), _norm(mx["k_norm"], r, device))
           if "q_norm" in mx else (None, None))
+    ffn = (() if "ffn" not in node
+           else (_norm(node["ffn_norm"], r, device), _ffn(node["ffn"], r, device)))
     return Block(
         _norm(node["mixer_norm"], r, device),
         Attention(*(_linear(mx[k], r, device) for k in ("wq", "wk", "wv", "wo")), *qk),
-        _norm(node["ffn_norm"], r, device),
-        DenseFFN(*(_linear(ffn[k], r, device) for k in ("w1", "w3", "w2"))),
+        *ffn,
     )
 
 

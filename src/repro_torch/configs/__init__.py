@@ -8,10 +8,11 @@ from __future__ import annotations
 
 import importlib
 
-from .base import LayerSpec, ModelConfig, uniform_layers
+from .base import LayerSpec, MoEConfig, ModelConfig, uniform_layers
 
 _MODULES = {
     "smollm-360m": "smollm_360m",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
 
 
@@ -25,4 +26,4 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["LayerSpec", "ModelConfig", "uniform_layers", "get_config"]
+__all__ = ["LayerSpec", "MoEConfig", "ModelConfig", "uniform_layers", "get_config"]

@@ -69,6 +69,16 @@
 //   ((N, M) fused, (M, N) integer); a per-tile arrival counter picks the
 //   last block, which writes the output and returns its workspace entries
 //   and its counter to 0. One launch per BitLinear, no memset.
+// - Grouped launch (`ternary_decode_gemm_fused_grouped`): E independent
+//   products of one shape, one launch. The TPU package reaches this kernel
+//   under `jax.vmap` over a Mixture-of-Experts layer's stacked expert
+//   weights (src/repro/models/common.py `linear_batched_apply`), which adds
+//   an expert axis to the grid; here the expert folds into blockIdx.z =
+//   expert * S + split. Each block moves its operand pointers to its
+//   expert (per-expert strides of packed, x, a_scale, w_scale, out) and
+//   to that expert's slice of the split-K workspace and counters, so two
+//   experts never share an arrival counter. A single launch is the grouped
+//   one with E = 1 and zero strides.
 // - Sums are exact in int32 (|sum| <= 127*K). wgmma, TMA and cp.async
 //   staging are left for later work.
 #include "mpgemm_common.cuh"
@@ -114,12 +124,34 @@ struct Params {
   const float* a_scale;   // fused only
   const float* w_scale;   // fused only
   void* out;              // (N, M) float (fused) or (M, N) int32
-  int32_t* ws;            // zeros laid out as out, S > 1 only
-  int* counters;          // (M-tiles * token tiles,) zeros, S > 1 only
+  int32_t* ws;            // zeros laid out as out (one per expert), S > 1 only
+  int* counters;          // (E * M-tiles * token tiles,) zeros, S > 1 only
   int M, KG, N, ws_stride;
   long long lda, ldo;
   int splits, kstep, codes_aligned, acts_aligned;
+  // grouped launch: E experts, each operand's stride between experts in
+  // its elements (E = 1 and zero strides for a single product)
+  int E;
+  long long es_packed, es_a, es_a_scale, es_w_scale, es_out;
 };
+
+// The operands of expert e: each pointer moved by its expert stride (in
+// elements of TA for the activations, TO for the output), the workspace
+// by N*M entries and the counters by one expert's tiles.
+template <typename TA, typename TO>
+__device__ __forceinline__ Params expert_params(const Params& g, int e, int tiles) {
+  Params p = g;
+  p.packed += e * g.es_packed;
+  p.a = static_cast<const TA*>(g.a) + e * g.es_a;
+  p.a_scale += e * g.es_a_scale;
+  p.w_scale += e * g.es_w_scale;
+  p.out = static_cast<TO*>(g.out) + e * g.es_out;
+  if (g.ws != nullptr) {
+    p.ws += (long long)e * g.N * g.M;
+    p.counters += (long long)e * tiles;
+  }
+  return p;
+}
 
 __device__ __forceinline__ uint32_t prmt(uint32_t x, uint32_t y, uint32_t s) {
   return __byte_perm(x, y, s);
@@ -354,7 +386,7 @@ struct Stager {
 // float or bf16: the fused kernel (out is TO (N, M)). NW warps of one m16
 // tile each, NT n8 tiles per block.
 template <int G, int NW, int NT, typename TA, typename TO>
-__global__ void __launch_bounds__(32 * NW) decode_kernel(const Params p) {
+__global__ void __launch_bounds__(32 * NW) decode_kernel(const Params pg) {
   constexpr bool kInt = std::is_same<TA, int8_t>::value;
   constexpr int kThreads = 32 * NW, BM = 16 * NW, BN = 8 * NT;
   extern __shared__ __align__(16) int8_t aq[];
@@ -362,13 +394,16 @@ __global__ void __launch_bounds__(32 * NW) decode_kernel(const Params p) {
   __shared__ float s_scale[BN];
   __shared__ int s_last;
 
+  // blockIdx.z = expert * S + split
+  const int expert = blockIdx.z / pg.splits, split = blockIdx.z - expert * pg.splits;
+  const Params p = expert_params<TA, TO>(pg, expert, gridDim.x * gridDim.y);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, tq = lane % 4;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int bmv = min(BM, p.M - m0), nv = min(BN, p.N - n0);
   const int nact = (nv + 7) / 8;                // n8 tiles with a valid token
-  const int kg_lo = split_bound(blockIdx.z, p.KG, p.splits);
-  const int kg_hi = split_bound(blockIdx.z + 1, p.KG, p.splits);
+  const int kg_lo = split_bound(split, p.KG, p.splits);
+  const int kg_hi = split_bound(split + 1, p.KG, p.splits);
   const int rs = decode_row_bytes(p.kstep);
 
   build_table(table);
@@ -517,12 +552,15 @@ inline bool plan_ok(const Params& p, int g, int a_bytes, int bm, int bn, long lo
   for (int t = 0; t < kNumTiles; ++t) tile = tile || (bm == kTiles[t][0] && bn == kTiles[t][1]);
   if (!tile) return false;
   if (p.kstep != kSub && p.kstep != kMaxStep) return false;
-  if (p.splits < 1 || p.splits > p.KG || p.splits > 65535 || (p.N + bn - 1) / bn > 65535) return false;
+  if (p.splits < 1 || p.splits > p.KG || (p.N + bn - 1) / bn > 65535) return false;
+  if (p.E < 1 || (long long)p.E * p.splits > 65535) return false;      // grid z
+  if (p.es_packed < 0 || p.es_a < 0 || p.es_a_scale < 0 || p.es_w_scale < 0 || p.es_out < 0)
+    return false;
   if (p.KG % 4 == 0 && 4 * p.splits > p.KG) return false;   // split bounds on words
   if (p.splits > 1 && (p.ws == nullptr || p.counters == nullptr)) return false;
-  if (p.codes_aligned && (p.KG % 4 || (uintptr_t)p.packed % 4)) return false;
+  if (p.codes_aligned && (p.KG % 4 || (uintptr_t)p.packed % 4 || p.es_packed % 4)) return false;
   if (p.acts_aligned) {
-    if (p.KG % 4) return false;
+    if (p.KG % 4 || p.es_a % 4) return false;
     if (a_bytes == 1 ? (p.N % 4 || (uintptr_t)p.a % 4)
                      : (p.lda % 4 || (uintptr_t)p.a % (4 * a_bytes))) return false;
   }
@@ -533,7 +571,7 @@ inline bool plan_ok(const Params& p, int g, int a_bytes, int bm, int bn, long lo
 template <int G, int NW, int NT, typename TA, typename TO>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   constexpr int kThreads = 32 * NW, BM = 16 * NW, BN = 8 * NT;
-  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN, p.splits);
+  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN, p.E * p.splits);
   decode_kernel<G, NW, NT, TA, TO><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -559,13 +597,22 @@ cudaError_t launch_types(const Params& p, int bm, int bn, size_t smem, int a_bf1
 }  // namespace decode
 }  // namespace vlut
 
+// The fused entries' common body: check the plan, launch on `stream`.
+static int decode_fused(const vlut::decode::Params& p, int g, int a_bf16, int out_bf16, int bm,
+                        int bn, long long smem, void* stream) {
+  if (!vlut::decode::plan_ok(p, g, a_bf16 ? 2 : 4, bm, bn, smem)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(g == 5 ? vlut::decode::launch_types<5>(p, bm, bn, (size_t)smem, a_bf16, out_bf16, s)
+                      : vlut::decode::launch_types<4>(p, bm, bn, (size_t)smem, a_bf16, out_bf16, s));
+}
+
 // The C entries of the decode kernels. Beside the mpGeMM contracts of
 // mpgemm_common.cuh they take the launch plan (rows bm and tokens bn of a
 // block, K-splits, K-groups per step, the two alignment claims, dynamic
 // shared bytes) and, for splits > 1, a zeroed int32 workspace of at least
-// N*M entries and zeroed counters, one per (M-tile, token tile), both left
-// zeroed again. Each launches on `stream` and returns a cudaError_t
-// (cudaErrorInvalidValue for a plan it refuses).
+// N*M entries (E*N*M grouped) and zeroed counters, one per (M-tile, token
+// tile) (and expert), both left zeroed again. Each launches on `stream`
+// and returns a cudaError_t (cudaErrorInvalidValue for a plan it refuses).
 extern "C" int ternary_decode_gemm_fused(
     const void* packed, const void* a, const void* a_scale, const void* w_scale, void* out,
     void* ws, void* counters, int M, int KG, int N, int g, long long lda, long long ldo,
@@ -574,11 +621,26 @@ extern "C" int ternary_decode_gemm_fused(
   const vlut::decode::Params p{(const uint8_t*)packed, a, (const float*)a_scale,
                                (const float*)w_scale, out, (int32_t*)ws, (int*)counters,
                                M, KG, N, ws_stride, lda, ldo, splits, kstep,
-                               codes_aligned, acts_aligned};
-  if (!vlut::decode::plan_ok(p, g, a_bf16 ? 2 : 4, bm, bn, smem)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(g == 5 ? vlut::decode::launch_types<5>(p, bm, bn, (size_t)smem, a_bf16, out_bf16, s)
-                      : vlut::decode::launch_types<4>(p, bm, bn, (size_t)smem, a_bf16, out_bf16, s));
+                               codes_aligned, acts_aligned, 1, 0, 0, 0, 0, 0};
+  return decode_fused(p, g, a_bf16, out_bf16, bm, bn, smem, stream);
+}
+
+// The grouped fused entry: E products of one shape in one launch, expert e
+// reading packed + e*es_packed (M, KG), a + e*es_a (N rows of stride lda),
+// a_scale + e*es_a_scale (N,), w_scale + e*es_w_scale and writing out +
+// e*es_out (N rows of stride ldo); strides in elements.
+extern "C" int ternary_decode_gemm_fused_grouped(
+    const void* packed, const void* a, const void* a_scale, const void* w_scale, void* out,
+    void* ws, void* counters, int M, int KG, int N, int g, long long lda, long long ldo,
+    int ws_stride, int a_bf16, int out_bf16, int E, long long es_packed, long long es_a,
+    long long es_a_scale, long long es_w_scale, long long es_out, int bm, int bn, int splits,
+    int kstep, int codes_aligned, int acts_aligned, long long smem, void* stream) {
+  const vlut::decode::Params p{(const uint8_t*)packed, a, (const float*)a_scale,
+                               (const float*)w_scale, out, (int32_t*)ws, (int*)counters,
+                               M, KG, N, ws_stride, lda, ldo, splits, kstep,
+                               codes_aligned, acts_aligned, E, es_packed, es_a, es_a_scale,
+                               es_w_scale, es_out};
+  return decode_fused(p, g, a_bf16, out_bf16, bm, bn, smem, stream);
 }
 
 extern "C" int ternary_decode_gemm(
@@ -587,7 +649,7 @@ extern "C" int ternary_decode_gemm(
     long long smem, void* stream) {
   const vlut::decode::Params p{(const uint8_t*)packed, a_r, nullptr, nullptr, out,
                                (int32_t*)ws, (int*)counters, M, KG, N, 0, 0, N, splits,
-                               kstep, codes_aligned, acts_aligned};
+                               kstep, codes_aligned, acts_aligned, 1, 0, 0, 0, 0, 0};
   if (!vlut::decode::plan_ok(p, g, 1, bm, bn, smem)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(g == 5 ? vlut::decode::launch_tiles<5, int8_t, int32_t>(p, bm, bn, (size_t)smem, s)

@@ -67,6 +67,14 @@
 //   kernel quantizes each token's K run (f32 cast first, IEEE division,
 //   round half to even, clip +-127: this file must not be built with
 //   --use_fast_math).
+// - Grouped launch (`vlut_lookup_gemm_fused_grouped`): E independent
+//   products of one shape, one launch. The TPU package reaches this kernel
+//   under `jax.vmap` over a Mixture-of-Experts layer's stacked expert
+//   weights (src/repro/models/common.py `linear_batched_apply`); here the
+//   expert folds into blockIdx.z = expert * S + split, and each block moves
+//   its operand pointers (per-expert strides) and its slice of the split-K
+//   workspace and counters to its expert. A single launch is the grouped
+//   one with E = 1 and zero strides.
 // No cp.async: staging the next chunk during the gather is left for later.
 #include "mpgemm_common.cuh"
 
@@ -114,12 +122,34 @@ struct LutParams {
   const float* a_scale;   // fused only
   const float* w_scale;   // fused only
   void* out;              // (N, M) float (fused) or (M, N) int32
-  int32_t* ws;            // (N, M) int32 zeros, S > 1 only
-  int* counters;          // (M-tiles * token tiles,) zeros, S > 1 only
+  int32_t* ws;            // (N, M) int32 zeros (one per expert), S > 1 only
+  int* counters;          // (E * M-tiles * token tiles,) zeros, S > 1 only
   int M, KG, N, ws_stride;
   long long lda, ldo;
   int bm, splits, chunk;
+  // grouped launch: E experts, each operand's stride between experts in
+  // its elements (E = 1 and zero strides for a single product)
+  int E;
+  long long es_packed, es_a, es_a_scale, es_w_scale, es_out;
 };
+
+// The operands of expert e: each pointer moved by its expert stride (in
+// elements of TA for the activations, TO for the output), the workspace
+// by N*M entries and the counters by one expert's tiles.
+template <typename TA, typename TO>
+__device__ __forceinline__ LutParams expert_params(const LutParams& g, int e, int tiles) {
+  LutParams p = g;
+  p.packed += e * g.es_packed;
+  p.a = static_cast<const TA*>(g.a) + e * g.es_a;
+  p.a_scale += e * g.es_a_scale;
+  p.w_scale += e * g.es_w_scale;
+  p.out = static_cast<TO*>(g.out) + e * g.es_out;
+  if (g.ws != nullptr) {
+    p.ws += (long long)e * g.N * g.M;
+    p.counters += (long long)e * tiles;
+  }
+  return p;
+}
 
 // Fused prologue: quantize a[n0:n0+nv, k0:k0+kk] to int8, token-minor
 // (aq[k * bnt + n]); tokens from nv to bnt read as 0.
@@ -198,12 +228,16 @@ __device__ __forceinline__ void load_int8_slice(const int8_t* __restrict__ a_r, 
 // TA = int8_t: the integer kernel (a is a_r, out is int32 (M, N)); TA =
 // float or bf16: the fused kernel (out is TO (N, M)).
 template <int G, typename TA, typename TO>
-__global__ void __launch_bounds__(kThreads) vlut_kernel(const LutParams p) {
+__global__ void __launch_bounds__(kThreads) vlut_kernel(const LutParams pg) {
   constexpr bool kInt = std::is_same<TA, int8_t>::value;
   constexpr int E = pow3(G);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_scale[kBN];
   __shared__ int s_last;
+
+  // blockIdx.z = expert * S + split
+  const int expert = blockIdx.z / pg.splits, split = blockIdx.z - expert * pg.splits;
+  const LutParams p = expert_params<TA, TO>(pg, expert, gridDim.x * gridDim.y);
 
   const int m0 = blockIdx.x * p.bm, n0 = blockIdx.y * kBN;
   const int bmv = min(p.bm, p.M - m0);          // valid rows
@@ -214,8 +248,8 @@ __global__ void __launch_bounds__(kThreads) vlut_kernel(const LutParams p) {
   const int row_lanes = kThreads / tok_lanes;
   const int rpt = (bmv + row_lanes - 1) / row_lanes;   // rows per thread
   const int tl = threadIdx.x / row_lanes, rl = threadIdx.x % row_lanes;
-  const int kg_lo = split_bound(blockIdx.z, p.KG, p.splits);
-  const int kg_hi = split_bound(blockIdx.z + 1, p.KG, p.splits);
+  const int kg_lo = split_bound(split, p.KG, p.splits);
+  const int kg_hi = split_bound(split + 1, p.KG, p.splits);
   const LutLayout lay = lut_layout(G, p.bm, p.chunk, bnt);
   int16_t* lut = reinterpret_cast<int16_t*>(smem);
   int8_t* aq = reinterpret_cast<int8_t*>(smem + lay.aq);
@@ -389,9 +423,10 @@ __global__ void __launch_bounds__(kThreads) vlut_kernel(const LutParams p) {
 // The plan's checks: the C entry refuses a plan whose shared memory it
 // would size differently, so the host plan and the kernel cannot drift.
 inline bool plan_ok(int M, int KG, int N, int g, int bm, int splits, int chunk,
-                    long long smem, const void* ws, const void* counters) {
+                    long long smem, const void* ws, const void* counters, int E = 1) {
   if (M <= 0 || N <= 0 || KG <= 0 || (g != 4 && g != 5)) return false;
-  if (bm <= 0 || bm % kLutBMUnit || splits < 1 || splits > KG || splits > 65535 || chunk < 1) return false;
+  if (bm <= 0 || bm % kLutBMUnit || splits < 1 || splits > KG || chunk < 1) return false;
+  if (E < 1 || (long long)E * splits > 65535) return false;             // grid z
   if ((N + kBN - 1) / kBN > 65535) return false;
   if (splits > 1 && (ws == nullptr || counters == nullptr)) return false;
   const int bnt = 4 * lut_tok_lanes(N < kBN ? N : kBN);
@@ -405,7 +440,7 @@ cudaError_t launch_lut(const LutParams& p, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(vlut_kernel<G, TA, TO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.M + p.bm - 1) / p.bm, (p.N + kBN - 1) / kBN, p.splits);
+  const dim3 grid((p.M + p.bm - 1) / p.bm, (p.N + kBN - 1) / kBN, p.E * p.splits);
   vlut_kernel<G, TA, TO><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -426,35 +461,63 @@ cudaError_t launch_lut_types(const LutParams& p, size_t smem, int a_bf16, int ou
 // The C entries of the vector-LUT kernels. Beside the mpGeMM contracts of
 // mpgemm_common.cuh they take the launch plan (rows per block bm, K-splits,
 // K-groups per chunk, dynamic shared bytes) and, for splits > 1, a zeroed
-// int32 workspace of at least N*M entries and zeroed counters, one per
-// (M-tile, token tile), both left zeroed again. Each launches on `stream`
-// and returns a cudaError_t (cudaErrorInvalidValue for a plan it refuses).
+// int32 workspace of at least N*M entries (E*N*M grouped) and zeroed
+// counters, one per (M-tile, token tile) (and expert), both left zeroed
+// again. Each launches on `stream` and returns a cudaError_t
+// (cudaErrorInvalidValue for a plan it refuses).
 #define VLUT_LUT_ENTRY_ARGS                                                        \
   const void *packed, const void *a, const void *a_scale, const void *w_scale,     \
       void *out, void *ws, void *counters, int M, int KG, int N, int g,            \
       long long lda, long long ldo, int ws_stride, int a_bf16, int out_bf16,       \
       int bm, int splits, int chunk, long long smem, void *stream
+#define VLUT_LUT_GROUPED_ENTRY_ARGS                                                \
+  const void *packed, const void *a, const void *a_scale, const void *w_scale,     \
+      void *out, void *ws, void *counters, int M, int KG, int N, int g,            \
+      long long lda, long long ldo, int ws_stride, int a_bf16, int out_bf16,       \
+      int E, long long es_packed, long long es_a, long long es_a_scale,            \
+      long long es_w_scale, long long es_out, int bm, int splits, int chunk,       \
+      long long smem, void *stream
 #define VLUT_LUT_INT_ENTRY_ARGS                                                    \
   const void *packed, const void *a_r, void *out, void *ws, void *counters,       \
       int M, int KG, int N, int g, int bm, int splits, int chunk, long long smem,  \
       void *stream
 
-extern "C" int vlut_lookup_gemm_fused(VLUT_LUT_ENTRY_ARGS) {
-  if (!vlut::plan_ok(M, KG, N, g, bm, splits, chunk, smem, ws, counters))
+// The fused entries' common body: check the plan, launch on `stream`.
+static int lut_fused(const vlut::LutParams& p, int g, int a_bf16, int out_bf16, long long smem,
+                     void* stream) {
+  if (!vlut::plan_ok(p.M, p.KG, p.N, g, p.bm, p.splits, p.chunk, smem, p.ws, p.counters, p.E))
     return (int)cudaErrorInvalidValue;
-  const vlut::LutParams p{(const uint8_t*)packed, a, (const float*)a_scale,
-                          (const float*)w_scale, out, (int32_t*)ws, (int*)counters,
-                          M, KG, N, ws_stride, lda, ldo, bm, splits, chunk};
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(g == 5 ? vlut::launch_lut_types<5>(p, (size_t)smem, a_bf16, out_bf16, s)
                       : vlut::launch_lut_types<4>(p, (size_t)smem, a_bf16, out_bf16, s));
+}
+
+extern "C" int vlut_lookup_gemm_fused(VLUT_LUT_ENTRY_ARGS) {
+  const vlut::LutParams p{(const uint8_t*)packed, a, (const float*)a_scale,
+                          (const float*)w_scale, out, (int32_t*)ws, (int*)counters,
+                          M, KG, N, ws_stride, lda, ldo, bm, splits, chunk, 1, 0, 0, 0, 0, 0};
+  return lut_fused(p, g, a_bf16, out_bf16, smem, stream);
+}
+
+// The grouped fused entry: E products of one shape in one launch, expert e
+// reading packed + e*es_packed (M, KG), a + e*es_a (N rows of stride lda),
+// a_scale + e*es_a_scale (N,), w_scale + e*es_w_scale and writing out +
+// e*es_out (N rows of stride ldo); strides in elements.
+extern "C" int vlut_lookup_gemm_fused_grouped(VLUT_LUT_GROUPED_ENTRY_ARGS) {
+  if (es_packed < 0 || es_a < 0 || es_a_scale < 0 || es_w_scale < 0 || es_out < 0)
+    return (int)cudaErrorInvalidValue;
+  const vlut::LutParams p{(const uint8_t*)packed, a, (const float*)a_scale,
+                          (const float*)w_scale, out, (int32_t*)ws, (int*)counters,
+                          M, KG, N, ws_stride, lda, ldo, bm, splits, chunk,
+                          E, es_packed, es_a, es_a_scale, es_w_scale, es_out};
+  return lut_fused(p, g, a_bf16, out_bf16, smem, stream);
 }
 
 extern "C" int vlut_lookup_gemm(VLUT_LUT_INT_ENTRY_ARGS) {
   if (!vlut::plan_ok(M, KG, N, g, bm, splits, chunk, smem, ws, counters))
     return (int)cudaErrorInvalidValue;
   const vlut::LutParams p{(const uint8_t*)packed, a_r, nullptr, nullptr, out, (int32_t*)ws,
-                          (int*)counters, M, KG, N, 0, 0, N, bm, splits, chunk};
+                          (int*)counters, M, KG, N, 0, 0, N, bm, splits, chunk, 1, 0, 0, 0, 0, 0};
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(g == 5 ? vlut::launch_lut<5, int8_t, int32_t>(p, (size_t)smem, s)
                       : vlut::launch_lut<4, int8_t, int32_t>(p, (size_t)smem, s));

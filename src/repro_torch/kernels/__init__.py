@@ -14,16 +14,19 @@ from .ops import (
     dispatch_override,
     segment_mpgemm,
     ternary_matmul,
+    ternary_matmul_batched,
     vlut_mpgemm,
 )
 from .ref import ref_mpgemm, ref_mpgemm_int, ref_segment_gemm_int
 from .ternary_decode_gemm import (
     ternary_decode_gemm_fused,
+    ternary_decode_gemm_fused_grouped,
     ternary_decode_gemm_fused_plain,
     ternary_decode_gemm_plain,
 )
 from .vlut_lookup_gemm import (
     vlut_lookup_gemm_fused,
+    vlut_lookup_gemm_fused_grouped,
     vlut_lookup_gemm_fused_plain,
     vlut_lookup_gemm_plain,
 )
@@ -31,10 +34,13 @@ from .vlut_lookup_gemm import (
 __all__ = [
     "flash_attention_plain", "flash_attention_trainable",
     "DispatchConfig", "configure_dispatch", "dispatch_config",
-    "dispatch_override", "segment_mpgemm", "ternary_matmul", "vlut_mpgemm",
+    "dispatch_override", "segment_mpgemm", "ternary_matmul", "ternary_matmul_batched",
+    "vlut_mpgemm",
     "ref_mpgemm", "ref_mpgemm_int", "ref_segment_gemm_int",
     "ternary_decode_gemm_plain",
     "ternary_decode_gemm_fused", "ternary_decode_gemm_fused_plain",
+    "ternary_decode_gemm_fused_grouped",
     "vlut_lookup_gemm_plain",
     "vlut_lookup_gemm_fused", "vlut_lookup_gemm_fused_plain",
+    "vlut_lookup_gemm_fused_grouped",
 ]

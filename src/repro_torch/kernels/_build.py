@@ -41,6 +41,14 @@ _DECODE_ARGTYPES = (                 # ternary_decode_gemm_fused (ternary_decode
     + [ctypes.c_int] * 3             # ws_stride, a_bf16, out_bf16
     + _DECODE_PLAN_ARGTYPES
 )
+_DECODE_GROUPED_ARGTYPES = (         # ternary_decode_gemm_fused_grouped (ternary_decode_gemm.cu)
+    [ctypes.c_void_p] * 7            # packed, a, a_scale, w_scale, out, ws, counters
+    + [ctypes.c_int] * 4             # M, KG, N, g
+    + [ctypes.c_longlong] * 2        # lda, ldo
+    + [ctypes.c_int] * 4             # ws_stride, a_bf16, out_bf16, E
+    + [ctypes.c_longlong] * 5        # expert strides of packed, a, a_scale, w_scale, out
+    + _DECODE_PLAN_ARGTYPES
+)
 _DECODE_INT_ARGTYPES = (             # ternary_decode_gemm (ternary_decode_gemm.cu)
     [ctypes.c_void_p] * 5            # packed, a_r, out, ws, counters
     + [ctypes.c_int] * 4             # M, KG, N, g
@@ -56,6 +64,14 @@ _LUT_ARGTYPES = (                    # VLUT_LUT_ENTRY_ARGS (vlut_lookup_gemm.cu)
     + [ctypes.c_int] * 4             # M, KG, N, g
     + [ctypes.c_longlong] * 2        # lda, ldo
     + [ctypes.c_int] * 3             # ws_stride, a_bf16, out_bf16
+    + _PLAN_ARGTYPES
+)
+_LUT_GROUPED_ARGTYPES = (            # VLUT_LUT_GROUPED_ENTRY_ARGS (vlut_lookup_gemm.cu)
+    [ctypes.c_void_p] * 7            # packed, a, a_scale, w_scale, out, ws, counters
+    + [ctypes.c_int] * 4             # M, KG, N, g
+    + [ctypes.c_longlong] * 2        # lda, ldo
+    + [ctypes.c_int] * 4             # ws_stride, a_bf16, out_bf16, E
+    + [ctypes.c_longlong] * 5        # expert strides of packed, a, a_scale, w_scale, out
     + _PLAN_ARGTYPES
 )
 _LUT_INT_ARGTYPES = (                # VLUT_LUT_INT_ENTRY_ARGS (vlut_lookup_gemm.cu)
@@ -76,11 +92,14 @@ _FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
 )
 #: the library's C entries; each returns a cudaError_t
 ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused",
+           "ternary_decode_gemm_fused_grouped", "vlut_lookup_gemm_fused_grouped",
            "ternary_decode_gemm", "vlut_lookup_gemm", "flash_attention_fwd")
 #: the ctypes signature of every entry
 _ARGTYPES = {
     "ternary_decode_gemm_fused": _DECODE_ARGTYPES,
     "vlut_lookup_gemm_fused": _LUT_ARGTYPES,
+    "ternary_decode_gemm_fused_grouped": _DECODE_GROUPED_ARGTYPES,
+    "vlut_lookup_gemm_fused_grouped": _LUT_GROUPED_ARGTYPES,
     "ternary_decode_gemm": _DECODE_INT_ARGTYPES,
     "vlut_lookup_gemm": _LUT_INT_ARGTYPES,
     "flash_attention_fwd": _FLASH_ARGTYPES,
@@ -200,6 +219,36 @@ def launch_decode(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,
         raise RuntimeError(f"ternary_decode_gemm_fused: CUDA error {rc} at launch ({plan})")
 
 
+def _grouped_args(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,
+                  w_scale: torch.Tensor, g: int, out: torch.Tensor, ws, counters) -> tuple:
+    """The grouped entries' arguments up to the plan, from packed (E, M, KG),
+    x (E, C, K) with unit stride along K, a_scale (E, C), w_scale (E, M) or
+    (E, 1) and out (E, C, M), each expert stride in elements."""
+    e, m, kg = packed.shape
+    return (
+        packed.data_ptr(), x.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), _ptr(ws), _ptr(counters), m, kg, x.shape[1], g, x.stride(1),
+        out.stride(1), 1 if w_scale.shape[1] > 1 else 0, int(x.dtype == torch.bfloat16),
+        int(out.dtype == torch.bfloat16), e, packed.stride(0), x.stride(0),
+        a_scale.stride(0), w_scale.stride(0), out.stride(0),
+    )
+
+
+def launch_decode_grouped(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,
+                          w_scale: torch.Tensor, g: int, out: torch.Tensor, plan, ws,
+                          counters) -> None:
+    """Call `ternary_decode_gemm_fused_grouped` (E experts in one launch:
+    packed (E, M, KG) u8, x (E, C, K) → out (E, C, M)) as `launch_decode`
+    calls the single entry; `plan` counts the E experts."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = load().ternary_decode_gemm_fused_grouped(
+        *_grouped_args(packed, x, a_scale, w_scale, g, out, ws, counters),
+        *_decode_plan_args(plan), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ternary_decode_gemm_fused_grouped: CUDA error {rc} at launch ({plan})")
+
+
 def launch_decode_int(packed: torch.Tensor, a_r: torch.Tensor, g: int, out: torch.Tensor,
                       plan, ws, counters) -> None:
     """Call `ternary_decode_gemm` (packed (M, KG) u8, a_r (g, KG, N) i8 →
@@ -230,6 +279,21 @@ def launch_lut(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,
     )
     if rc != 0:
         raise RuntimeError(f"vlut_lookup_gemm_fused: CUDA error {rc} at launch ({plan})")
+
+
+def launch_lut_grouped(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,
+                       w_scale: torch.Tensor, g: int, out: torch.Tensor, plan, ws,
+                       counters) -> None:
+    """Call `vlut_lookup_gemm_fused_grouped` (E experts in one launch:
+    packed (E, M, KG) u8, x (E, C, K) → out (E, C, M)) as `launch_lut`
+    calls the single entry; `plan` counts the E experts."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = load().vlut_lookup_gemm_fused_grouped(
+        *_grouped_args(packed, x, a_scale, w_scale, g, out, ws, counters),
+        plan.bm, plan.splits, plan.chunk, plan.smem, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"vlut_lookup_gemm_fused_grouped: CUDA error {rc} at launch ({plan})")
 
 
 def launch_lut_int(packed: torch.Tensor, a_r: torch.Tensor, g: int, out: torch.Tensor,

@@ -1,10 +1,10 @@
 """The split-K workspace that both mpGeMM templates share.
 
 A launch whose plan splits K across blocks meets in a zeroed int32
-workspace (at least N*M entries) and zeroed arrival counters (at least one
-per output tile); the kernel's last block of each tile writes the output
-and returns its entries and its counter to 0, so the next launch finds them
-clean. One pair per device serves every launch of the decode and the
+workspace (at least N*M entries, E*N*M for a grouped launch of E experts)
+and zeroed arrival counters (at least one per output tile and expert);
+the kernel's last block of each tile writes the output and returns its
+entries and its counter to 0, so the next launch finds them clean. One pair per device serves every launch of the decode and the
 vector-LUT kernels, so two such launches must not run at once on two
 streams; nothing enforces that.
 """
@@ -21,13 +21,14 @@ _RETIRED: list = []
 
 def launch_args(plan, device: torch.device):
     """(workspace, counters) of a launch whose plan splits K, else (None,
-    None): zeroed int32, at least N*M entries and one counter per output
-    tile (`plan` has m, n, splits, m_tiles and n_tiles). Grown only by an
-    eager call: a first allocation inside a CUDA-graph capture would come
-    from the graph's private pool, so it raises there instead."""
+    None): zeroed int32, at least E*N*M entries and one counter per output
+    tile of each of the E experts (`plan` has e, m, n, splits, m_tiles and
+    n_tiles; e = 1 for a single product). Grown only by an eager call: a
+    first allocation inside a CUDA-graph capture would come from the
+    graph's private pool, so it raises there instead."""
     if plan.splits == 1:
         return None, None
-    entries, counters = plan.m * plan.n, plan.m_tiles * plan.n_tiles
+    entries, counters = plan.e * plan.m * plan.n, plan.e * plan.m_tiles * plan.n_tiles
     cur = _WORKSPACE.get(device)
     if cur is None or cur[0].numel() < entries or cur[1].numel() < counters:
         if torch.cuda.is_current_stream_capturing():

@@ -33,12 +33,18 @@ import torch
 from repro_torch.core.packing import PackedWeight
 from repro_torch.core.quantize import act_quant_tokens, act_token_scale
 
-from .ternary_decode_gemm import ternary_decode_gemm, ternary_decode_gemm_fused
-from .vlut_lookup_gemm import vlut_lookup_gemm, vlut_lookup_gemm_fused
+from .ternary_decode_gemm import (
+    ternary_decode_gemm,
+    ternary_decode_gemm_fused,
+    ternary_decode_gemm_fused_grouped,
+)
+from .vlut_lookup_gemm import vlut_lookup_gemm, vlut_lookup_gemm_fused, vlut_lookup_gemm_fused_grouped
 
 IMPLS = ("decode", "lookup")
 FUSIONS = ("fused", "unfused")
 _KERNELS = {"decode": ternary_decode_gemm_fused, "lookup": vlut_lookup_gemm_fused}
+_GROUPED_KERNELS = {"decode": ternary_decode_gemm_fused_grouped,
+                    "lookup": vlut_lookup_gemm_fused_grouped}
 _INT_KERNELS = {"decode": ternary_decode_gemm, "lookup": vlut_lookup_gemm}
 
 
@@ -207,3 +213,41 @@ def ternary_matmul(pw: PackedWeight, x: torch.Tensor, impl: str | None = None,
     else:
         out = _mpgemm_tokens(pw, x2, impl, x.dtype)
     return out.reshape(*lead, pw.M)
+
+
+def ternary_matmul_batched(pw: PackedWeight, x: torch.Tensor, impl: str | None = None,
+                           fusion: str | None = None) -> torch.Tensor:
+    """Stacked expert linears: y (E, C, M) = x (E, C, K) · W[e]ᵀ, from a
+    stacked `PackedWeight` (packed5/packed4 (E, M, KG), scale (E, M)). The
+    counterpart of ``jax.vmap(ternary_matmul)`` over a MoE layer's experts.
+
+    The fused pipeline keeps `ternary_matmul`'s rules per expert: the
+    activation scales are taken per (expert, row) over the full K, a
+    single-segment weight is written straight in x's dtype, and a
+    two-segment weight gives one f32 partial per segment, summed and then
+    cast. Each segment is ONE grouped launch over all E experts. The
+    unfused pipeline loops over the experts through the integer kernels,
+    E launches per segment (the grouped integer kernels are not ported)."""
+    impl = impl if impl is not None else _dispatch.impl
+    fusion = fusion if fusion is not None else _dispatch.fusion
+    _check_fusion(fusion)
+    _check_impl(impl)
+    e, c, k = x.shape
+    if fusion == "unfused":
+        parts = [_mpgemm_unfused(PackedWeight(pw.packed5[i], pw.packed4[i], pw.scale[i], pw.K),
+                                 x[i].T, impl, x.dtype).T for i in range(e)]
+        return torch.stack(parts)
+    if k > 1 and x.stride(2) != 1:
+        x = x.contiguous()
+    x_f = x if x.is_floating_point() else x.to(torch.float32)
+    a_scale = act_token_scale(x_f.reshape(e * c, k).T).reshape(e, c)     # (E, C)
+    segs = _segments(pw)
+    if not segs:
+        return torch.zeros((e, c, pw.M), dtype=x.dtype, device=x.device)
+    seg_dtype = x.dtype if len(segs) == 1 else torch.float32
+    kernel = _GROUPED_KERNELS[impl]
+    parts = [
+        kernel(packed, x_f[..., lo:hi], a_scale, pw.scale, g=g, out_dtype=seg_dtype)
+        for packed, lo, hi, g in segs
+    ]
+    return parts[0] if len(parts) == 1 else (parts[0] + parts[1]).to(x.dtype)

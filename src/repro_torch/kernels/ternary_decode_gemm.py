@@ -1,5 +1,6 @@
-"""Ternary-decode mpGeMM: the fused kernel and its integer twin, each with
-its CUDA kernel's wrapper, its plain PyTorch version and its launch count.
+"""Ternary-decode mpGeMM: the fused kernel, its grouped form (E experts of
+one shape in one launch) and its integer twin, each with its CUDA kernel's
+wrapper, its plain PyTorch version and its launch count.
 
 Ports of the TPU kernels `ternary_decode_gemm_fused` and
 `ternary_decode_gemm` (src/repro/kernels/ternary_decode_gemm.py). The CUDA
@@ -68,10 +69,11 @@ def _split_bound(z: int, kg: int, splits: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
     """The launch of one decode-kernel call: block (x, y, z) owns rows
-    `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z)`, which it walks
-    `kstep` K-groups at a time. `codes_aligned`: the codes are read as
-    32-bit words; `acts_aligned`: the activations as 16-byte (f32), 8-byte
-    (bf16) or 4-byte (a_r) vectors."""
+    `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z % splits)` of
+    expert z // splits (a grouped launch runs `e` experts of one shape),
+    which it walks `kstep` K-groups at a time. `codes_aligned`: the codes
+    are read as 32-bit words; `acts_aligned`: the activations as 16-byte
+    (f32), 8-byte (bf16) or 4-byte (a_r) vectors."""
     m: int
     kg: int
     n: int
@@ -83,6 +85,7 @@ class DecodePlan:
     codes_aligned: bool
     acts_aligned: bool
     smem: int
+    e: int = 1              # experts of a grouped launch
 
     @property
     def m_tiles(self) -> int:
@@ -94,7 +97,7 @@ class DecodePlan:
 
     @property
     def blocks(self) -> int:
-        return self.m_tiles * self.n_tiles * self.splits
+        return self.e * self.m_tiles * self.n_tiles * self.splits
 
     def rows(self, x: int) -> tuple[int, int]:
         return x * self.bm, min(self.m, (x + 1) * self.bm)
@@ -113,27 +116,29 @@ class DecodePlan:
 
 @functools.lru_cache(maxsize=4096)
 def decode_plan(m: int, kg: int, n: int, g: int, *, codes_aligned: bool = False,
-                acts_aligned: bool = False) -> DecodePlan:
-    """The launch of one call, from its shape and alignment claims (cached:
-    the serving path asks for the same few shapes at every step):
+                acts_aligned: bool = False, e: int = 1) -> DecodePlan:
+    """The launch of one call of `e` experts (1: a single product), from
+    its shape and alignment claims (cached: the serving path asks for the
+    same few shapes at every step):
 
     - BM x BN: `TILES` for this many tokens;
-    - S = 1 where M-tiles × token tiles fill a wave (132 blocks); else the
-      most splits that keep the grid within two waves, at most KG (KG/4
-      where KG % 4 == 0, so that every K-slice starts on a code word);
+    - S = 1 where experts × M-tiles × token tiles fill a wave (132
+      blocks); else the most splits that keep the grid within two waves, at
+      most KG (KG/4 where KG % 4 == 0, so that every K-slice starts on a
+      code word);
     - K-groups per step: 32, or 64 where a K-slice is longer than 32.
 
     The alignment claims come from `fused_aligned` / `int_aligned`; the
     default claims none (byte and element loads)."""
     bm, bn = next((bm, bn) for most, bm, bn in TILES if most is None or n <= most)
-    tiles = -(-m // bm) * -(-n // bn)
+    tiles = e * -(-m // bm) * -(-n // bn)
     cap = kg // 4 if kg % 4 == 0 else kg
     splits = 1 if tiles >= WAVE else max(1, min(cap, 2 * WAVE // tiles))
     longest = max(_split_bound(z + 1, kg, splits) - _split_bound(z, kg, splits)
                   for z in range(splits))
     kstep = SUB if longest <= SUB else MAX_STEP
     return DecodePlan(m, kg, n, g, bm, bn, splits, kstep, codes_aligned, acts_aligned,
-                      decode_smem_bytes(g, bn, kstep))
+                      decode_smem_bytes(g, bn, kstep), e)
 
 
 def fused_aligned(packed: torch.Tensor, x: torch.Tensor) -> tuple[bool, bool]:
@@ -142,10 +147,13 @@ def fused_aligned(packed: torch.Tensor, x: torch.Tensor) -> tuple[bool, bool]:
     where, besides KG % 4 == 0 (every K-slice then starts on a multiple of
     4 features), x's row stride is a multiple of 4 elements and its base is
     aligned to 4 elements. The K = 964 weight's one-K-group g=4 segment and
-    its `x[:, 960:964]` slice claim neither."""
-    kg = packed.shape[1]
+    its `x[:, 960:964]` slice claim neither. For the grouped kernel's
+    stacked operands (a leading expert axis) the expert strides must keep
+    every expert's view so: contiguous codes do where KG % 4 == 0, and x's
+    expert stride must be a multiple of 4 elements too."""
+    kg = packed.shape[-1]
     codes = kg % 4 == 0 and packed.data_ptr() % 4 == 0
-    acts = (kg % 4 == 0 and x.stride(0) % 4 == 0
+    acts = (kg % 4 == 0 and all(st % 4 == 0 for st in x.stride()[:-1])
             and x.data_ptr() % (4 * x.element_size()) == 0)
     return codes, acts
 
@@ -190,6 +198,24 @@ def check_fused_args(packed, x, a_scale, w_scale, g: int, out_dtype) -> None:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
 
 
+def check_grouped_args(packed, x, a_scale, w_scale, g: int, out_dtype) -> None:
+    """Validate the grouped fused-mpGeMM contract shared by both kernels.
+
+    packed (E, M, KG) uint8 contiguous; x (E, C, KG*g) float with unit
+    stride along K; a_scale (E, C) f32 contiguous; w_scale (E, M) or (E, 1)
+    f32 contiguous; E >= 1; each expert's slices meet `check_fused_args`."""
+    if packed.ndim != 3 or x.ndim != 3 or a_scale.ndim != 2 or w_scale.ndim != 2:
+        raise ValueError(f"grouped operands must be stacked: packed (E, M, KG), x (E, C, K), "
+                         f"a_scale (E, C), w_scale (E, M); got {tuple(packed.shape)}, "
+                         f"{tuple(x.shape)}, {tuple(a_scale.shape)}, {tuple(w_scale.shape)}")
+    experts = {packed.shape[0], x.shape[0], a_scale.shape[0], w_scale.shape[0]}
+    if len(experts) != 1 or packed.shape[0] < 1:
+        raise ValueError(f"every operand needs the same expert count >= 1, got {experts}")
+    if not (packed.is_contiguous() and a_scale.is_contiguous() and w_scale.is_contiguous()):
+        raise ValueError("packed, a_scale and w_scale must be contiguous")
+    check_fused_args(packed[0], x[0], a_scale[0], w_scale[0], g, out_dtype)
+
+
 def check_int_args(packed, a_r, g: int) -> None:
     """Validate the integer-mpGeMM contract shared by both kernels.
 
@@ -218,27 +244,30 @@ def check_f32_exact(k: int) -> None:
 
 
 def quantize_tokens(x: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
-    """Per-token int8 quantization of a token-major (N, K) activation, as
-    exact integers in f32: f32 cast first, then divide, round half to even,
-    clip to +-127 — the kernels' prologue."""
-    return torch.round(x.to(torch.float32) / a_scale[:, None]).clamp(-Q_MAX, Q_MAX)
+    """Per-token int8 quantization of a token-major (..., N, K) activation,
+    as exact integers in f32: f32 cast first, then divide, round half to
+    even, clip to +-127 — the kernels' prologue."""
+    return torch.round(x.to(torch.float32) / a_scale[..., None]).clamp(-Q_MAX, Q_MAX)
 
 
 def epilogue(acc: torch.Tensor, w_scale: torch.Tensor, a_scale: torch.Tensor,
              out_dtype) -> torch.Tensor:
-    """(acc * w_scale[m]) * a_scale[n] in f32, then one cast — (N, M)."""
-    m = acc.shape[1]
-    return ((acc.to(torch.float32) * w_scale.expand(m)[None, :])
-            * a_scale[:, None]).to(out_dtype)
+    """(acc * w_scale[m]) * a_scale[n] in f32, then one cast — (..., N, M)
+    from w_scale (..., M) or (..., 1) and a_scale (..., N)."""
+    m = acc.shape[-1]
+    w = w_scale.expand(*w_scale.shape[:-1], m).unsqueeze(-2)
+    return ((acc.to(torch.float32) * w) * a_scale[..., None]).to(out_dtype)
 
 
 def ternary_decode_gemm_fused_plain(packed, x, a_scale, w_scale, *, g: int,
                                     out_dtype=torch.float32) -> torch.Tensor:
-    """Plain version: decode the trits, one f32 matmul of exact integers."""
-    check_f32_exact(x.shape[1])
-    q = quantize_tokens(x, a_scale)                                  # (N, K)
-    w = unpack_ternary(packed, g).to(torch.float32)                  # (M, K)
-    return epilogue(q @ w.T, w_scale, a_scale, out_dtype)
+    """Plain version: decode the trits, one f32 matmul of exact integers.
+    Stacked operands (a leading expert axis, as the grouped kernel takes
+    them) give one batched matmul: the plain version of both kernels."""
+    check_f32_exact(x.shape[-1])
+    q = quantize_tokens(x, a_scale)                                  # (..., N, K)
+    w = unpack_ternary(packed, g).to(torch.float32)                  # (..., M, K)
+    return epilogue(q @ w.transpose(-1, -2), w_scale, a_scale, out_dtype)
 
 
 def ternary_decode_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
@@ -266,6 +295,38 @@ def ternary_decode_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
 
 
 ternary_decode_gemm_fused.launches = 0
+
+
+def ternary_decode_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
+                                      out_dtype=torch.float32) -> torch.Tensor:
+    """E products of one shape in one launch: packed (E, M, KG) uint8 × x
+    (E, C, KG*g) float → (E, C, M) out_dtype, expert e bit for bit
+    `ternary_decode_gemm_fused(packed[e], x[e], a_scale[e], w_scale[e])`.
+    The counterpart of the TPU kernel under `jax.vmap` over stacked expert
+    weights (the MoE layers' `linear_batched_apply`).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    add one to ``ternary_decode_gemm_fused_grouped.launches``) or raise."""
+    check_grouped_args(packed, x, a_scale, w_scale, g, out_dtype)
+    if x.device.type == "cpu":
+        return ternary_decode_gemm_fused_plain(
+            packed, x, a_scale, w_scale, g=g, out_dtype=out_dtype)
+    if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
+                         f"{x.dtype} on {x.device}")
+    e, m, kg = packed.shape
+    out = torch.empty((e, x.shape[1], m), dtype=out_dtype, device=x.device)
+    if out.numel() == 0 or kg == 0:
+        return out.zero_()
+    codes, acts = fused_aligned(packed, x)
+    plan = decode_plan(m, kg, x.shape[1], g, codes_aligned=codes, acts_aligned=acts, e=e)
+    _build.launch_decode_grouped(packed, x, a_scale, w_scale, g, out, plan,
+                                 *_splitk.launch_args(plan, x.device))
+    ternary_decode_gemm_fused_grouped.launches += 1
+    return out
+
+
+ternary_decode_gemm_fused_grouped.launches = 0
 
 
 def ternary_decode_gemm_plain(packed, a_r, *, g: int) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Vector-LUT mpGeMM (the paper's kernel): the fused kernel and its integer
-twin, each with its CUDA kernel's wrapper, its plain PyTorch version and its
-launch count.
+"""Vector-LUT mpGeMM (the paper's kernel): the fused kernel, its grouped
+form (E experts of one shape in one launch) and its integer twin, each
+with its CUDA kernel's wrapper, its plain PyTorch version and its launch
+count.
 
 Ports of the TPU kernels `vlut_lookup_gemm_fused` and `vlut_lookup_gemm`
 (src/repro/kernels/vlut_lookup_gemm.py). The CUDA source of both is
@@ -29,6 +30,7 @@ from . import _build, _splitk
 from .ternary_decode_gemm import (
     _KERNEL_DTYPES,
     check_fused_args,
+    check_grouped_args,
     check_int_args,
     epilogue,
     quantize_tokens,
@@ -70,8 +72,9 @@ def lut_smem_bytes(g: int, bm: int, chunk: int, bnt: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class LutPlan:
     """The launch of one vector-LUT kernel call: block (x, y, z) owns rows
-    `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z)`, and builds its
-    table `chunk` K-groups at a time."""
+    `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z % splits)` of
+    expert z // splits (a grouped launch runs `e` experts of one shape),
+    and builds its table `chunk` K-groups at a time."""
     m: int
     kg: int
     n: int
@@ -80,6 +83,7 @@ class LutPlan:
     splits: int
     chunk: int
     smem: int
+    e: int = 1              # experts of a grouped launch
 
     @property
     def m_tiles(self) -> int:
@@ -91,7 +95,7 @@ class LutPlan:
 
     @property
     def blocks(self) -> int:
-        return self.m_tiles * self.n_tiles * self.splits
+        return self.e * self.m_tiles * self.n_tiles * self.splits
 
     def rows(self, x: int) -> tuple[int, int]:
         return x * self.bm, min(self.m, (x + 1) * self.bm)
@@ -112,13 +116,15 @@ def _split_bound(z: int, kg: int, splits: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def lut_plan(m: int, kg: int, n: int, g: int) -> LutPlan:
-    """The launch of one call, from its shape (cached: the serving path asks
-    for the same few shapes at every step):
+def lut_plan(m: int, kg: int, n: int, g: int, *, e: int = 1) -> LutPlan:
+    """The launch of one call of `e` experts (1: a single product), from
+    its shape (cached: the serving path asks for the same few shapes at
+    every step):
 
     - BM: `BM_MAX` for this many tokens, or M rounded up to 128 rows;
-    - S = 1 where M-tiles × token tiles fill a wave (132 blocks); else the
-      most splits that keep the grid within two waves (S ≤ KG);
+    - S = 1 where experts × M-tiles × token tiles fill a wave (132
+      blocks); else the most splits that keep the grid within two waves
+      (S ≤ KG);
     - chunk: the K-groups one block's shared memory holds within
       `SMEM_BUDGET` (a multiple of 4 where the splits are aligned), at
       most the longest K-slice.
@@ -127,7 +133,7 @@ def lut_plan(m: int, kg: int, n: int, g: int) -> LutPlan:
     bnt = 4 * tok_lanes(min(n, BN))
     cap = next(bm for most, bm in BM_MAX if most is None or n <= most)
     bm = min(cap, -(-m // BM_UNIT) * BM_UNIT)
-    tiles = -(-m // bm) * -(-n // BN)
+    tiles = e * -(-m // bm) * -(-n // BN)
     fit = max(1, (SMEM_BUDGET - 48) // (3 ** g * bnt * 2 + g * bnt + bm))
     splits = 1 if tiles >= WAVE else min(kg, 2 * WAVE // tiles)
     longest = max(_split_bound(z + 1, kg, splits) - _split_bound(z, kg, splits)
@@ -137,7 +143,7 @@ def lut_plan(m: int, kg: int, n: int, g: int) -> LutPlan:
         chunk -= chunk % 4
     while chunk > 1 and lut_smem_bytes(g, bm, chunk, bnt) > SMEM_BUDGET:
         chunk -= 1
-    return LutPlan(m, kg, n, g, bm, splits, chunk, lut_smem_bytes(g, bm, chunk, bnt))
+    return LutPlan(m, kg, n, g, bm, splits, chunk, lut_smem_bytes(g, bm, chunk, bnt), e)
 
 
 def _launch_args(plan: LutPlan, device: torch.device):
@@ -171,7 +177,13 @@ def _lut_gather_int(q: torch.Tensor, packed: torch.Tensor, g: int) -> torch.Tens
 def vlut_lookup_gemm_fused_plain(packed, x, a_scale, w_scale, *, g: int,
                                  out_dtype=torch.float32) -> torch.Tensor:
     """Plain version: quantize, the table gather of `_lut_gather_int`, then
-    the f32 epilogue."""
+    the f32 epilogue. Stacked operands (a leading expert axis, as the
+    grouped kernel takes them) run expert by expert: the plain version of
+    both kernels."""
+    if packed.ndim == 3:
+        return torch.stack([
+            vlut_lookup_gemm_fused_plain(pe, xe, se, we, g=g, out_dtype=out_dtype)
+            for pe, xe, se, we in zip(packed, x, a_scale, w_scale)])
     n = x.shape[0]
     q = quantize_tokens(x, a_scale).reshape(n, packed.shape[1], g)
     return epilogue(_lut_gather_int(q, packed, g), w_scale, a_scale, out_dtype)
@@ -200,6 +212,37 @@ def vlut_lookup_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
 
 
 vlut_lookup_gemm_fused.launches = 0
+
+
+def vlut_lookup_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
+                                   out_dtype=torch.float32) -> torch.Tensor:
+    """E products of one shape in one launch: packed (E, M, KG) uint8 × x
+    (E, C, KG*g) float → (E, C, M) out_dtype, expert e bit for bit
+    `vlut_lookup_gemm_fused(packed[e], x[e], a_scale[e], w_scale[e])`.
+    The counterpart of the TPU kernel under `jax.vmap` over stacked expert
+    weights (the MoE layers' `linear_batched_apply`).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    add one to ``vlut_lookup_gemm_fused_grouped.launches``) or raise."""
+    check_grouped_args(packed, x, a_scale, w_scale, g, out_dtype)
+    if x.device.type == "cpu":
+        return vlut_lookup_gemm_fused_plain(
+            packed, x, a_scale, w_scale, g=g, out_dtype=out_dtype)
+    if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
+                         f"{x.dtype} on {x.device}")
+    e, m, kg = packed.shape
+    out = torch.empty((e, x.shape[1], m), dtype=out_dtype, device=x.device)
+    if out.numel() == 0 or kg == 0:
+        return out.zero_()
+    plan = lut_plan(m, kg, x.shape[1], g, e=e)
+    _build.launch_lut_grouped(packed, x, a_scale, w_scale, g, out, plan,
+                              *_launch_args(plan, x.device))
+    vlut_lookup_gemm_fused_grouped.launches += 1
+    return out
+
+
+vlut_lookup_gemm_fused_grouped.launches = 0
 
 
 def vlut_lookup_gemm_plain(packed, a_r, *, g: int) -> torch.Tensor:

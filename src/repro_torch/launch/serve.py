@@ -1,6 +1,6 @@
 """Serving launcher: continuous batching over synthetic requests.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m|llama4-scout-17b-a16e \
       [--smoke] [--device cuda|cpu] [--mpgemm-impl decode|lookup] \
       [--spec-k N [--spec-adaptive | --spec-tree B1,B2,...]] \
       [--prefill-chunk N [--token-budget T]] \
@@ -17,7 +17,8 @@ prompt-prefix sharing; --kv-pages sizes its pool and --offload-pages its
 host-RAM tier for cold prefix pages.
 
 Weights are random, drawn from a seeded `torch.Generator` on the device and
-packed by `models.pack_params`. Prints one summary line (with the
+packed a layer at a time (`init_lm(..., packed=True)`: llama4-scout's dense
+weights would not fit the card). Prints one summary line (with the
 speculative stats when --spec-k is given).
 """
 import argparse
@@ -27,7 +28,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.models import init_lm, pack_params
+from repro_torch.models import init_lm
 from repro_torch.serve import ContinuousBatchingScheduler, Engine, PagedKVConfig, Request
 from repro_torch.spec import SpecConfig
 
@@ -83,7 +84,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    model = pack_params(init_lm(cfg, torch.Generator(device=device).manual_seed(args.seed)), cfg)
+    model = init_lm(cfg, torch.Generator(device=device).manual_seed(args.seed), packed=True)
     spec = None
     if args.spec_k:
         tree = tuple(int(x) for x in args.spec_tree.split(",")) if args.spec_tree else None

@@ -17,7 +17,7 @@ from torch import nn
 
 from repro_torch.core.packing import PackedWeight
 from repro_torch.core.quantize import fake_act_quant, fake_ternary_cols
-from repro_torch.kernels.ops import ternary_matmul
+from repro_torch.kernels.ops import ternary_matmul, ternary_matmul_batched
 
 
 def torch_dtype(cfg) -> torch.dtype:
@@ -32,7 +32,8 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 # Linear
 # --------------------------------------------------------------------------
 class QLinear(nn.Module):
-    """A quantizable linear before packing ("qw"): dense (K_in, M_out)."""
+    """A quantizable linear before packing ("qw"): dense (K_in, M_out), or
+    (E, K_in, M_out) stacked experts."""
 
     def __init__(self, qw: torch.Tensor):
         super().__init__()
@@ -40,7 +41,8 @@ class QLinear(nn.Module):
 
 
 class PackedLinear(nn.Module):
-    """A packed ternary linear ("pw"): the mpGeMM kernels' operand."""
+    """A packed ternary linear ("pw"): the mpGeMM kernels' operand (stacked
+    experts: a leading E axis on the codes and the scales)."""
 
     def __init__(self, pw: PackedWeight):
         super().__init__()
@@ -63,8 +65,11 @@ class Linear(nn.Module):
 
 
 def linear_init(k_in: int, m_out: int, cfg, *, generator: torch.Generator,
-                device, quant: bool = True) -> nn.Module:
-    w = torch.randn((k_in, m_out), generator=generator, device=device,
+                device, quant: bool = True, experts: int = 0) -> nn.Module:
+    """A (k_in, m_out) linear; experts > 0 stacks that many on a leading
+    axis (a MoE layer's expert weights, (E, k_in, m_out))."""
+    lead = (experts,) if experts else ()
+    w = torch.randn((*lead, k_in, m_out), generator=generator, device=device,
                     dtype=torch.float32) * (1.0 / (k_in ** 0.5))
     cls = QLinear if (quant and cfg.quant == "ternary") else Linear
     return cls(w.to(torch_dtype(cfg)))
@@ -82,6 +87,20 @@ def linear_apply(p: nn.Module, x: torch.Tensor, mode: str = "serve") -> torch.Te
         # mode == 'serve' on unconverted params: dense ternarized compute
         return x @ wq
     return x @ p.w.to(x.dtype)
+
+
+def linear_batched_apply(p: nn.Module, x: torch.Tensor, mode: str = "serve") -> torch.Tensor:
+    """Stacked expert linears: the module's weight has a leading E axis
+    (QLinear / Linear (E, K, M), PackedLinear (E, M, KG)); x (E, C, K) →
+    (E, C, M). As in the JAX package, the QAT fake-quant runs in 'train'
+    and 'eval' only: unconverted 'serve' weights take the dense product."""
+    if isinstance(p, PackedLinear):
+        return ternary_matmul_batched(p.pw, x)
+    w = p.qw if isinstance(p, QLinear) else p.w
+    if isinstance(p, QLinear) and mode in ("train", "eval"):
+        wq = fake_ternary_cols(w)                       # (E, K, M), no transpose
+        return torch.einsum("eck,ekm->ecm", fake_act_quant(x), wq.to(x.dtype))
+    return torch.einsum("eck,ekm->ecm", x, w.to(x.dtype))
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Offline weight transformation (ported from `repro.models.convert`):
-every quantizable linear (`QLinear`, dense (K, M) weight) becomes a
-`PackedLinear` — absmean ternary quantization per output channel, then
-trit-code packing at 1.6/2.0 bits per weight."""
+every quantizable linear (`QLinear`, dense (K, M) weight, or (E, K, M)
+stacked experts) becomes a `PackedLinear` — absmean ternary quantization
+per output channel, then trit-code packing at 1.6/2.0 bits per weight
+along the last axis."""
 from __future__ import annotations
 
 import torch
@@ -20,7 +21,7 @@ def pack_params(model: nn.Module, cfg) -> nn.Module:
     for parent in list(model.modules()):
         for name, child in list(parent.named_children()):
             if isinstance(child, QLinear):
-                w = child.qw.to(torch.float32).T                    # (M, K)
+                w = child.qw.to(torch.float32).swapaxes(-1, -2)     # (..., M, K)
                 tw = ternary_quantize(w, per_channel=True)
                 setattr(parent, name, PackedLinear(
                     pack_weight(tw.values, tw.scale, mode=cfg.pack_mode)))

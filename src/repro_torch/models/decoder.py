@@ -25,6 +25,7 @@ from repro_torch import resolve_device
 
 from .blocks import block_apply, block_cache_init, block_init
 from .common import Linear, embed_apply, embed_init, linear_init, rmsnorm_apply, rmsnorm_init
+from .convert import pack_params
 from .paged import compact_paged_block
 
 
@@ -37,19 +38,23 @@ class LM(nn.Module):
         self.head = head
 
 
-def init_lm(cfg, generator: torch.Generator) -> LM:
-    """Random weights drawn from `generator`, on its device (dense "qw"
-    linears: pack them with `pack_params` before serving)."""
+def init_lm(cfg, generator: torch.Generator, *, packed: bool = False) -> LM:
+    """Random weights drawn from `generator`, on its device: dense "qw"
+    linears, to pack with `pack_params` before serving. packed=True packs
+    each layer as soon as it is drawn — the same model as
+    ``pack_params(init_lm(cfg, generator), cfg)`` with one layer's dense
+    weights alive at a time (a full-width MoE model's dense weights do not
+    fit on one card)."""
     device = resolve_device(generator.device)
     kw = dict(generator=generator, device=device)
     head = (None if cfg.tie_embeddings
             else linear_init(cfg.d_model, cfg.vocab, cfg, quant=False, **kw))
-    return LM(
-        embed_init(cfg.vocab, cfg.d_model, cfg, **kw),
-        [block_init(cfg, spec, **kw) for spec in cfg.layer_specs()],
-        rmsnorm_init(cfg.d_model, device),
-        head,
-    )
+    embed = embed_init(cfg.vocab, cfg.d_model, cfg, **kw)
+    layers = []
+    for spec in cfg.layer_specs():
+        layer = block_init(cfg, spec, **kw)
+        layers.append(pack_params(layer, cfg) if packed else layer)
+    return LM(embed, layers, rmsnorm_init(cfg.d_model, device), head)
 
 
 def compress_layout(specs, max_period: int = 8) -> list[tuple[tuple, int]]:
@@ -134,15 +139,18 @@ def _remat(cfg, cache) -> bool:
 
 
 def _block_out(layer, x, *, cfg, spec, mode):
-    return block_apply(layer, x, cfg=cfg, spec=spec, mode=mode)[0]
+    x, _, aux = block_apply(layer, x, cfg=cfg, spec=spec, mode=mode)
+    return x, aux
 
 
 def lm_hidden(model: LM, tokens: torch.Tensor, cfg, *, mode: str = "train",
               cache: list | None = None, verify: bool = False, tree=None,
               prefill_resume: bool = False):
-    """tokens: int (B, S) → (hidden (B, S, d), new_cache). verify=True: the
-    S tokens are a multi-token decode step appended to the cache (see
-    `verify_step`); tree marks them as a flattened draft tree (verify only)."""
+    """tokens: int (B, S) → (hidden (B, S, d), new_cache, aux_loss): aux is
+    the layers' summed MoE router loss (f32, 0 without MoE layers or
+    outside training). verify=True: the S tokens are a multi-token decode
+    step appended to the cache (see `verify_step`); tree marks them as a
+    flattened draft tree (verify only)."""
     if tree is not None and not verify:
         raise ValueError("tree attention is only defined for verify steps")
     if prefill_resume and (tree is not None or not verify):
@@ -152,17 +160,19 @@ def lm_hidden(model: LM, tokens: torch.Tensor, cfg, *, mode: str = "train",
     x = embed_apply(model.embed, tokens, cfg)
     remat = _remat(cfg, cache)
     new_cache = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (layer, spec) in enumerate(zip(model.layers, cfg.layer_specs())):
         if remat:
             fn = functools.partial(_block_out, layer, cfg=cfg, spec=spec, mode=mode)
-            x, nc = checkpoint(fn, x, use_reentrant=False), None
+            (x, a), nc = checkpoint(fn, x, use_reentrant=False), None
         else:
-            x, nc = block_apply(layer, x, cfg=cfg, spec=spec, mode=mode,
-                                cache=cache[i] if cache is not None else None,
-                                verify=verify, tree=tree, prefill_resume=prefill_resume)
+            x, nc, a = block_apply(layer, x, cfg=cfg, spec=spec, mode=mode,
+                                   cache=cache[i] if cache is not None else None,
+                                   verify=verify, tree=tree, prefill_resume=prefill_resume)
+        aux = aux + a
         new_cache.append(nc)
     x = rmsnorm_apply(model.final_norm, x, cfg.norm_eps)
-    return x, (new_cache if cache is not None else None)
+    return x, (new_cache if cache is not None else None), aux
 
 
 def _head_matmul(model: LM, h: torch.Tensor, cfg) -> torch.Tensor:
@@ -187,9 +197,9 @@ def _ce_chunk(model: LM, hc, yc, mc, cfg):
 
 def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor, cfg, *,
             mode: str = "train", loss_mask: torch.Tensor | None = None):
-    """Chunked softmax cross-entropy. → (loss, {"ce", "aux", "tokens"}).
-    ``aux`` (the MoE router loss in JAX) is 0: no ported layer has one."""
-    h, _ = lm_hidden(model, tokens, cfg, mode=mode)
+    """Chunked softmax cross-entropy plus the MoE router loss.
+    → (loss, {"ce", "aux", "tokens"})."""
+    h, _, aux = lm_hidden(model, tokens, cfg, mode=mode)
     b, s, _ = h.shape
     chunk = min(cfg.loss_chunk, s)
     pad = (-s) % chunk
@@ -208,20 +218,19 @@ def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor, cfg, *,
         t, n = checkpoint(_ce_chunk, *args, use_reentrant=False) if remat else _ce_chunk(*args)
         tot, cnt = tot + t, cnt + n
     ce = tot / torch.clamp_min(cnt, 1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 def prefill(model: LM, tokens: torch.Tensor, cache: list, cfg):
     """Run the prompt through the model, filling the cache.
     → (last-position logits (B, V), new_cache)."""
-    h, new_cache = lm_hidden(model, tokens, cfg, mode="serve", cache=cache)
+    h, new_cache, _ = lm_hidden(model, tokens, cfg, mode="serve", cache=cache)
     return _head_matmul(model, h[:, -1:, :], cfg)[:, 0], new_cache
 
 
 def decode_step(model: LM, tokens: torch.Tensor, cache: list, cfg):
     """One decode step. tokens: (B, 1) int → (logits (B, V), new_cache)."""
-    h, new_cache = lm_hidden(model, tokens, cfg, mode="serve", cache=cache)
+    h, new_cache, _ = lm_hidden(model, tokens, cfg, mode="serve", cache=cache)
     return _head_matmul(model, h[:, -1:, :], cfg)[:, 0], new_cache
 
 
@@ -246,8 +255,8 @@ def verify_step(model: LM, tokens: torch.Tensor, cache: list, cfg, *, tree=None,
     logit_cols ((B,) int) one hidden state per slot is gathered *before* the
     head matmul, → (logits (B, V), new_cache): the chunk step never builds
     (B, S, V) logits."""
-    h, new_cache = lm_hidden(model, tokens, cfg, mode="serve", cache=cache, verify=True,
-                             tree=tree, prefill_resume=prefill_resume)
+    h, new_cache, _ = lm_hidden(model, tokens, cfg, mode="serve", cache=cache, verify=True,
+                                tree=tree, prefill_resume=prefill_resume)
     if logit_cols is not None:
         cols = logit_cols.to(torch.long)[:, None, None].expand(-1, 1, h.shape[-1])
         return _head_matmul(model, torch.gather(h, 1, cols), cfg)[:, 0], new_cache

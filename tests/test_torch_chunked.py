@@ -296,7 +296,7 @@ class TestPrefillBugfixes:
         req = ts.Request(rid=0, prompt=prompt, max_new_tokens=1)
         assert eng.add(req)
         with torch.no_grad():
-            h, _ = tm.lm_hidden(model, torch.from_numpy(prompt)[None], tcfg, mode="serve")
+            h, _, _ = tm.lm_hidden(model, torch.from_numpy(prompt)[None], tcfg, mode="serve")
             want = int(torch.argmax(tm.lm_logits(model, h[:, -1], tcfg)))
         jreq = js.Request(rid=0, prompt=prompt, max_new_tokens=1)
         assert js.Engine(params, jcfg, max_slots=1, max_len=20).add(jreq)

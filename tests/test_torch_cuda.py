@@ -182,6 +182,51 @@ def test_lut_refused_plan_raises(cuda, impl):
         launch(packed, a_r, 5, out, bad, *_splitk.launch_args(bad, a_r.device))
 
 
+GROUPED = {
+    "decode": (tdg.ternary_decode_gemm_fused_grouped, tdg.ternary_decode_gemm_fused_plain),
+    "lookup": (vlg.vlut_lookup_gemm_fused_grouped, vlg.vlut_lookup_gemm_fused_plain),
+}
+# (E, M, KG, g, C): split-K traps (odd E, M off the tiles, C 5 and 17, KG
+# not divisible by the splits), a one-K-group g=4 segment, llama4-scout's
+# w2 g=4 segment and a w1 slice of its 16 experts (no split)
+GROUPED_TRAPS = [(3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (3, 1000, 191, 5, 5), (7, 70, 1, 4, 3),
+                 (16, 5120, 3, 4, 16), (16, 1024, 1024, 5, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+def test_grouped_kernel_matches_plain_and_single_launches(cuda, impl):
+    """Each grouped kernel (E experts in one launch) against its plain
+    version and against E launches of the single kernel, bit for bit, on
+    split-K traps (two launches back to back: the experts' workspace and
+    counters are left zeroed), a strided x, an all-zero padding row (its
+    output must be exactly 0), (E, M) and (E, 1) weight scales, f32 and
+    bf16."""
+    kern, plain = GROUPED[impl]
+    single = KERNELS[impl][0]
+    rng = np.random.default_rng(11)
+    assert any(PLANS[impl](m, kg, c, g, e=e).splits > 1 for e, m, kg, g, c in GROUPED_TRAPS)
+    for e, m, kg, g, c in GROUPED_TRAPS:
+        packed = torch.tensor(rng.integers(0, 3 ** g, (e, m, kg)).astype(np.uint8), device=cuda)
+        wide = torch.tensor(rng.standard_normal((e, c, kg * g + 4)).astype(np.float32), device=cuda)
+        x = wide[..., 4:]
+        x[:, -1] = 0                                  # a padding row of every expert
+        a_scale = act_token_scale(x.reshape(e * c, -1).T).reshape(e, c).contiguous()
+        for w_scale in (torch.tensor(rng.random((e, m)).astype(np.float32), device=cuda),
+                        torch.full((e, 1), 0.5, device=cuda)):
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x.to(dt)
+                before = kern.launches
+                got = [kern(packed, xd, a_scale, w_scale, g=g, out_dtype=dt) for _ in range(2)]
+                assert kern.launches == before + 2
+                want = plain(packed, xd, a_scale, w_scale, g=g, out_dtype=dt)
+                each = torch.stack([single(packed[i], xd[i], a_scale[i], w_scale[i], g=g,
+                                           out_dtype=dt) for i in range(e)])
+                assert torch.equal(got[0], want) and torch.equal(got[1], want)
+                assert torch.equal(got[0], each)
+                assert not got[0][:, -1].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["decode", "lookup"])
 def test_unfused_pipeline_on_the_card(cuda, impl):

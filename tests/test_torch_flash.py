@@ -141,9 +141,9 @@ def test_lm_hidden_flash_matches_auto(smoke_lm):
     eval mode): only the summation order differs."""
     _, tcfg, _, model, tok = smoke_lm
     with torch.no_grad():
-        h_auto, _ = tm.lm_hidden(model, torch.from_numpy(tok), tcfg, mode="eval")
-        h_fl, _ = tm.lm_hidden(model, torch.from_numpy(tok), tcfg.with_(attn_impl="flash"),
-                               mode="eval")
+        h_auto, _, _ = tm.lm_hidden(model, torch.from_numpy(tok), tcfg, mode="eval")
+        h_fl, _, _ = tm.lm_hidden(model, torch.from_numpy(tok), tcfg.with_(attn_impl="flash"),
+                                  mode="eval")
     np.testing.assert_allclose(h_fl.numpy(), h_auto.numpy(), rtol=1e-5, atol=1e-5)
 
 
@@ -160,8 +160,8 @@ def test_lm_hidden_flash_matches_jax(smoke_lm):
     for mode in ("serve", "eval"):
         jh, _, _ = jm.lm_hidden(params, jnp.asarray(tok), jcfg.with_(attn_impl="flash"), mode=mode)
         with torch.no_grad():
-            th, _ = tm.lm_hidden(model, torch.from_numpy(tok), tcfg.with_(attn_impl="flash"),
-                                 mode=mode)
+            th, _, _ = tm.lm_hidden(model, torch.from_numpy(tok), tcfg.with_(attn_impl="flash"),
+                                    mode=mode)
         a, b = th.numpy(), np.asarray(jh)
         if mode == "serve":
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)

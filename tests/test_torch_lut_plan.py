@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.core import pack_weight, ternary_quantize  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import _splitk, ops  # noqa: E402
 from repro_torch.kernels import vlut_lookup_gemm as vlg  # noqa: E402
 
 #: smollm-360m's BitLinear shapes (M, K): q and o, k and v, gate and up, down
@@ -54,6 +54,48 @@ def test_plan_tiles_cover_exactly(m, kg, n, g):
     _cover([p.rows(x) for x in range(p.m_tiles)], m)
     _cover([p.tokens(y) for y in range(p.n_tiles)], n)
     _cover([p.kgroups(z) for z in range(p.splits)], kg)
+
+
+#: grouped launches (E, M, KG, g, N): llama4-scout's routed experts at
+#: decode, verify and prefill N, and ragged traps (odd E, M off the tiles,
+#: N 5 and 17, KG not divisible by the splits)
+GROUPED_CASES = (
+    [(16, 8192, 1024, 5, n) for n in (4, 16, 64)]
+    + [(16, 5120, 1636, 5, 16), (16, 5120, 3, 4, 16)]
+    + [(3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (3, 1000, 191, 5, 5), (1, 960, 192, 5, 4)]
+)
+
+
+@pytest.mark.parametrize("e,m,kg,g,n", GROUPED_CASES)
+def test_grouped_plan_counts_the_experts(e, m, kg, g, n, monkeypatch):
+    """A grouped plan covers each expert's rows, tokens and K-groups as a
+    single plan does, counts E × tiles toward the wave (S = 1 at llama4's
+    expert shapes, within two waves where it splits), sizes the split-K
+    workspace and counters for every expert, and is the single plan at
+    E = 1."""
+    p = vlg.lut_plan(m, kg, n, g, e=e)
+    assert p.e == e and p.blocks == e * p.m_tiles * p.n_tiles * p.splits
+    _cover([p.rows(x) for x in range(p.m_tiles)], m)
+    _cover([p.tokens(y) for y in range(p.n_tiles)], n)
+    _cover([p.kgroups(z) for z in range(p.splits)], kg)
+    tiles = e * p.m_tiles * p.n_tiles
+    if tiles >= vlg.WAVE:
+        assert p.splits == 1, p
+    else:
+        assert min(vlg.WAVE, tiles * kg) <= p.blocks <= 2 * vlg.WAVE, p
+    if e == 16:
+        assert p.splits == 1
+    assert vlg.lut_plan(m, kg, n, g, e=1) == vlg.lut_plan(m, kg, n, g)
+    if p.splits > 1:    # the workspace the wrapper would pass, sized here on the CPU
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+        monkeypatch.setattr(_splitk, "_WORKSPACE", {})
+        ws, counters = _splitk.launch_args(p, torch.device("cpu"))
+        assert ws.numel() >= e * m * n and counters.numel() >= tiles
+        assert not ws.any() and not counters.any()
+
+
+def test_grouped_cases_include_a_split_k_launch():
+    assert any(vlg.lut_plan(m, kg, n, g, e=e).splits > 1 for e, m, kg, g, n in GROUPED_CASES)
 
 
 def test_cover_cases_include_uneven_splits():

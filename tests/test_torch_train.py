@@ -165,7 +165,7 @@ def test_lm_loss_without_mask_and_remat_off(loss_case):
 def test_lm_logits_and_dots_policy(loss_case):
     dtype, jcfg, tcfg, params, model, tok, _, _ = loss_case
     with torch.no_grad():
-        h, _ = tm.lm_hidden(model, torch.from_numpy(tok), tcfg, mode="eval")
+        h, _, _ = tm.lm_hidden(model, torch.from_numpy(tok), tcfg, mode="eval")
         logits = tm.lm_logits(model, h, tcfg)
     assert logits.shape == (2, 40, tcfg.vocab) and logits.dtype == torch.float32
     with pytest.raises(NotImplementedError):
