@@ -170,6 +170,45 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    versions (MOE_LOGIT_RTOL). (d) One decode step of 4 full slots under
    torch.profiler, and layer 0's MoE FFN at 4 tokens timed whole and as
    its expert compute alone: the dispatch's device share of a step.
+   Phase 10 (a) also holds the two grouped integer kernels
+   (`ternary_decode_gemm_grouped`, `vlut_lookup_gemm_grouped`: the
+   unfused pipeline's middle pass over the experts) at the same weights,
+   C and padding rows (the rows quantized and de-interleaved as the
+   pipeline does) against their plain versions and 16 single integer
+   launches, and at the same split-K traps (launched twice, 3 graph
+   replays): expected difference 0.
+11. mla: the MLA mixer on `deepseek-v3-671b` at its published widths (d
+   7168, 128 heads, q/kv latent ranks 1536/512, rope 64, 256 experts top-8
+   + 1 shared, d_ff 2048 and 18432 dense, vocab 129280, bf16), depth cut
+   from 61 to 16 layers (its 3 dense + 13 MoE: the packed model, ~34 GB,
+   fits the card; 61 layers, ~138 GB, do not), random weights from a
+   seeded generator on the card, drawn and packed layer by layer, after
+   phase 10 (its model freed first). (a) All four grouped kernels (fused
+   and integer, both impls) at the first MoE layer's expert weights (E
+   256; w1 M 2048, K 7168 = 1432 g=5 + 2 g=4 groups; w2 M 7168, K 2048 =
+   408 + 2), C 16, bf16, a zero padding row, against their plain versions
+   (16 experts at a time): expected difference 0. (b) Device ms per
+   linear's grouped launches and per layer's 6, beside the bound (bytes /
+   3.35 TB/s), 256 single launches, the plain version (eager), a decode
+   step's rows (32 real, the rest 0) and a bf16 `torch.bmm` yardstick.
+   The batched unfused pipeline against the fused one on the same rows
+   (one bf16 ulp: fused sums each segment in f32, unfused in int32).
+   (c) Serving 8 greedy requests (prompts 16-64, 16 new tokens, 4 slots):
+   impl="decode" and "lookup" (identical tokens), unfused with both impls
+   (identical tokens; where they leave the fused run's, the divergence is
+   replayed under both pipelines and must be a near-tie or follow a MoE
+   routing flip: a bf16 rounding can move a token across a router top-k
+   boundary), chunk 64 + chain k 4, and paged (page 16)
+   whole-prompt; each run's counts zeroed just before it and checked per
+   forward (14 single launches a layer and 6 grouped a MoE layer; 2 more
+   single a layer where the forward expands `wkv_b`: prefill and the
+   chunk steps' resume reads), no other mpGeMM kernel, every request
+   completed; one prefill's logits through the kernels against their
+   plain versions, fused and unfused (MOE_LOGIT_RTOL). (d) One decode
+   step of 4 full slots
+   under torch.profiler: wall and device ms, busy share, the device ms
+   of one layer's `wkv_b` unpack (to f32, every layer and step) and of
+   the MoE dispatch.
 
 Output: a `kernels` JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}. Details go to
@@ -221,6 +260,16 @@ GROUPED_META = {
     "vlut_lookup_gemm_fused_grouped": dict(
         impl="lookup", source="src/repro_torch/csrc/vlut_lookup_gemm.cu",
         replaces="src/repro/kernels/vlut_lookup_gemm.py:222"),
+}
+#: the grouped launches of the integer pair, reached under the same vmap
+#: when a MoE layer runs the unfused pipeline
+GROUPED_INT_META = {
+    "ternary_decode_gemm_grouped": dict(
+        impl="decode", source="src/repro_torch/csrc/ternary_decode_gemm.cu",
+        replaces="src/repro/kernels/ternary_decode_gemm.py:129"),
+    "vlut_lookup_gemm_grouped": dict(
+        impl="lookup", source="src/repro_torch/csrc/vlut_lookup_gemm.cu",
+        replaces="src/repro/kernels/vlut_lookup_gemm.py:171"),
 }
 # (g, (M, KG)) of the saturated integer checks: all +1 weights, activations
 # 127, every sum 127*K (K = 2560 and 960)
@@ -303,6 +352,16 @@ MOE_RAGGED = ((3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (3, 1000, 191, 5, 5), (7, 
 # logits should agree exactly; the bound on max |diff| relative to the
 # largest logit leaves room only for a library's run-to-run sum order.
 MOE_LOGIT_RTOL = 1e-4
+# Phase 11 (MLA): deepseek-v3-671b at its published widths, depth cut to
+# its 3 dense layers and the first 13 of its 58 MoE layers: the packed
+# model (~34 GB) fits the card, all 61 layers (~138 GB) do not. Every
+# grouped launch of its runs has C = 16 rows per expert (the capacity
+# floor min(T * 8, 16) binds up to 409 tokens a step); a decode step of 4
+# tokens gives at most 4 x 8 = 32 of those 256 x 16 rows real tokens.
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 16
+MLA_TOKENS = 16
+MLA_DECODE_ROWS = 32
 # ops of the MoE dispatch whose device time phase 10's profile logs (the
 # indexing ops also serve the attention cache)
 MOE_DISPATCH_OPS = ("aten::sort", "aten::cumsum", "aten::one_hot", "aten::index_put_",
@@ -1030,6 +1089,52 @@ def near_tie(torch, model, cfg, prompt, ref, got) -> dict:
     return tie
 
 
+def fusion_divergence(torch, model, cfg, prompt, ref, got) -> dict:
+    """The first step where the unfused run's tokens `got` leave the fused
+    run's `ref`, replayed on the card with B = 1 under both pipelines
+    (prefill, then decode of ref's earlier tokens): each pipeline's logits
+    there, and the MoE routing decisions (tokens whose top-k expert set
+    differs) the two pipelines took apart on the way. Fused sums each
+    segment in f32, unfused in int32 before one dequant: a bf16 rounding
+    apart, which can move a token across a top-k boundary of the router,
+    and a routing flip moves the logits by far more than rounding. Raises
+    unless the divergence is a near-tie (TIE_RTOL, the fused logits) or
+    follows a routing flip."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_cache, moe, prefill_into_slot
+
+    dev = torch.device("cuda")
+    t = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+    rows, picks = {}, {}
+    for fusion in ("fused", "unfused"):
+        rec = []
+
+        def top_k(scores, k, _orig=moe.top_k_indices, _rec=rec):
+            out = _orig(scores, k)
+            _rec.append(out.sort(-1).values)
+            return out
+
+        with torch.no_grad(), planted(moe, "top_k_indices", top_k), \
+                ops.dispatch_override(impl="decode", fusion=fusion):
+            row, cache, _ = prefill_into_slot(model, init_cache(cfg, 1, 256, device=dev), 0,
+                                              prompt, cfg, max_len=256)
+            for tok in ref[:t]:
+                row, cache = decode_step(model, torch.tensor([[tok]], dtype=torch.int32, device=dev),
+                                         cache, cfg)
+        rows[fusion], picks[fusion] = row[0].float(), rec
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(picks["fused"], picks["unfused"]))
+    gaps = {f: abs((r[ref[t]] - r[got[t]]).item()) for f, r in rows.items()}
+    scale = rows["fused"].abs().max().item()
+    div = {"step": t, "ref_token": ref[t], "token": got[t], "gap": gaps["fused"],
+           "gap_unfused": gaps["unfused"], "max_abs_logit": scale, "routing_flips": flips,
+           "routed_tokens": sum(int(a.shape[0]) for a in picks["fused"]),
+           "logits_max_abs_diff": (rows["fused"] - rows["unfused"]).abs().max().item()}
+    if gaps["fused"] > TIE_RTOL * scale and not flips:
+        raise AssertionError(f"greedy divergence at step {t} is no near-tie and no routing flip "
+                             f"precedes it: {div}")
+    return div
+
+
 def tie_check(torch, model, cfg, label, prompts, ref, got, ref_name="the reference") -> list:
     """Each request's tokens `got` equal the reference tokens `ref`, or
     leave them only at a near-tie (`near_tie` raises otherwise); logs and
@@ -1041,42 +1146,67 @@ def tie_check(torch, model, cfg, label, prompts, ref, got, ref_name="the referen
     return ties
 
 
-def launches_per_forward(model, impl: str) -> dict:
-    """{kernel: launches per forward} of `model` with the fused pipeline:
-    one launch per packed segment of every BitLinear, the single kernel for
-    a dense weight and the grouped one for stacked experts (smollm-360m:
-    224 single; llama4-scout: 8 single and 4 grouped per layer)."""
+def single_kernel(impl: str, fusion: str = "fused") -> str:
+    """The name of the single mpGeMM kernel an impl and fusion launch."""
+    name = "vlut_lookup_gemm" if impl == "lookup" else "ternary_decode_gemm"
+    return f"{name}_fused" if fusion == "fused" else name
+
+
+def mla_expands(s: int, verify: bool, prefill_resume: bool) -> bool:
+    """Whether a forward of S tokens over a cache runs its MLA layers'
+    `wkv_b` BitLinear: the naive prefill and the chunked-prefill resume read
+    expand the latents through it, the absorbed decode and verify unpack it
+    instead (`models.mla.mla_apply`'s rule)."""
+    return s > 1 and (prefill_resume or not verify)
+
+
+def launches_per_forward(model, impl: str, fusion: str = "fused", expand: bool = True) -> dict:
+    """{kernel: launches per forward} of `model`: one launch per packed
+    segment of every BitLinear, the single kernel for a dense weight and
+    the grouped one for stacked experts (smollm-360m: 224 single;
+    llama4-scout: 8 single and 4 grouped per layer; deepseek-v3: 14 single
+    and 6 grouped per MoE layer, 14 single per dense one, and with `expand`
+    2 more single a layer for MLA's `wkv_b`)."""
     from repro_torch.models.common import PackedLinear
 
-    single = "vlut_lookup_gemm_fused" if impl == "lookup" else "ternary_decode_gemm_fused"
+    single = single_kernel(impl, fusion)
     out = {single: 0, f"{single}_grouped": 0}
-    for lin in model.modules():
-        if isinstance(lin, PackedLinear):
+    for name, lin in model.named_modules():
+        if isinstance(lin, PackedLinear) and (expand or not name.endswith("mixer.wkv_b")):
             segs = int(lin.packed5.shape[-1] > 0) + int(lin.packed4.shape[-1] > 0)
             out[f"{single}_grouped" if lin.packed5.ndim == 3 else single] += segs
     return {k: v for k, v in out.items() if v}
 
 
-def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", spec=None,
-                temperature=0.0, slots=4, **kw) -> dict:
-    """Phases 8 (c), 9 and 10: one serving run with its counts zeroed just
-    before it. Every forward (target and drafter) is counted through
+def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", fusion="fused",
+                spec=None, temperature=0.0, slots=4, **kw) -> dict:
+    """Phases 8 (c), 9, 10 and 11: one serving run with its counts zeroed
+    just before it. Every forward (target and drafter) is counted through
     `lm_hidden`, with the token count N = B x S its mpGeMM launches
-    (`launches_per_forward`: 224 at smollm-360m's full depth) see. Each
+    (`launches_per_forward`: 224 at smollm-360m's full depth; on MLA
+    layers with or without `wkv_b`, by the forward's path) see. Each
     admission's wall time and prefix-hit tokens are recorded (whole-prompt
     admission ends in a host sync)."""
     from repro_torch.models import decoder
     from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request
 
-    eng = Engine(model, cfg, max_slots=slots, max_len=256, mpgemm_impl=impl, spec=spec,
-                 temperature=temperature, seed=7, device="cuda", **kw)
-    n_hist: dict = {}
+    eng = Engine(model, cfg, max_slots=slots, max_len=256, mpgemm_impl=impl,
+                 mpgemm_fusion=fusion, spec=spec, temperature=temperature, seed=7, device="cuda",
+                 **kw)
+    per_fwd = launches_per_forward(model, impl, fusion)
+    absorbed = launches_per_forward(model, impl, fusion, expand=False)
+    n_hist: dict = {}                       # N per launch → launches
+    expanding = [0, 0]                      # forwards that expand wkv_b, that absorb it
     lm_hidden = decoder.lm_hidden
     admissions = []
     add = eng.add
 
     def counted(model_, tokens, *a, **k):
-        n_hist[tokens.numel()] = n_hist.get(tokens.numel(), 0) + 1
+        expands = mla_expands(tokens.shape[1], k.get("verify", False),
+                              k.get("prefill_resume", False))
+        expanding[0 if expands else 1] += 1
+        n_hist[tokens.numel()] = (n_hist.get(tokens.numel(), 0)
+                                  + sum((per_fwd if expands else absorbed).values()))
         return lm_hidden(model_, tokens, *a, **k)
 
     def timed_add(req):
@@ -1099,12 +1229,11 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", sp
     finally:
         decoder.lm_hidden = lm_hidden
     launches = {nm: fn.launches for nm, fn in counters.items()}
-    forwards = sum(n_hist.values())
+    forwards = sum(expanding)
     target = stats.decode_steps + stats.chunk_steps + (0 if eng.prefill_chunk else len(reqs))
-    kernel = "vlut_lookup_gemm_fused" if impl == "lookup" else "ternary_decode_gemm_fused"
-    per_fwd = launches_per_forward(model, impl)
-    per_forward = sum(per_fwd.values())
-    want = {nm: per_fwd.get(nm, 0) * forwards for nm in counters}
+    kernel = single_kernel(impl, fusion)
+    want = {nm: per_fwd.get(nm, 0) * expanding[0] + absorbed.get(nm, 0) * expanding[1]
+            for nm in counters}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     drafter_forwards = forwards - target
@@ -1115,7 +1244,7 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", sp
     if not all(0 <= t < cfg.vocab for r in reqs for t in r.generated):
         raise AssertionError(f"{name}: a token outside the vocabulary")
     row = {
-        "impl": impl, "spec": None if spec is None else {
+        "impl": impl, "fusion": fusion, "spec": None if spec is None else {
             "k": spec.k, "drafter": spec.drafter, "adaptive_k": spec.adaptive_k,
             "tree": spec.tree, "stochastic": spec.stochastic},
         "temperature": temperature, "slots": slots,
@@ -1123,8 +1252,10 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", sp
            for k, v in kw.items()},
         "tokens": [list(map(int, r.generated)) for r in reqs],
         "launches": launches, "forwards": forwards, "target_forwards": target,
+        "launches_per_forward": {"expanding": per_fwd, "absorbing": absorbed,
+                                 "forwards": {"expanding": expanding[0], "absorbing": expanding[1]}},
         "drafter_forwards": drafter_forwards,
-        "mpgemm_tokens_per_launch": {str(n): c * per_forward for n, c in sorted(n_hist.items())},
+        "mpgemm_tokens_per_launch": {str(n): c for n, c in sorted(n_hist.items())},
         "decode_tok_s": stats.decode_tok_s, "prefill_tok_s": stats.prefill_tok_s,
         "ttft_p50_ms": sorted(stats.ttft_s)[len(stats.ttft_s) // 2] * 1e3, "wall_s": stats.wall_s,
         "decode_tokens": stats.decode_tokens, "decode_steps": stats.decode_steps,
@@ -1328,6 +1459,50 @@ def grouped_kernels() -> dict:
     }
 
 
+def grouped_int_kernels() -> dict:
+    """{name: (grouped integer kernel wrapper, plain version, single
+    integer kernel)}."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+
+    return {
+        "ternary_decode_gemm_grouped": (tdg.ternary_decode_gemm_grouped,
+                                        tdg.ternary_decode_gemm_plain, tdg.ternary_decode_gemm),
+        "vlut_lookup_gemm_grouped": (vlg.vlut_lookup_gemm_grouped, vlg.vlut_lookup_gemm_plain,
+                                     vlg.vlut_lookup_gemm),
+    }
+
+
+def grouped_int_launches(torch, pw, x):
+    """The grouped integer launches of one stacked expert linear, as
+    `ternary_matmul_batched(fusion="unfused")` makes them: the rows
+    quantized once, each segment de-interleaved into (E, g, KG, C):
+    [(packed, a_r, g)], one per segment."""
+    from repro_torch.core import act_quant_tokens
+    from repro_torch.kernels import ops
+
+    e, c, k = x.shape
+    a_q, _ = act_quant_tokens(x.reshape(e * c, k).T)
+    return [(packed, ops._deinterleave(a_q[lo:hi], g, e), g) for packed, lo, hi, g in ops._segments(pw)]
+
+
+def int_launch_bytes(launches) -> int:
+    """Bytes the grouped integer launches must move: codes, int8 a_r, the
+    int32 output."""
+    return sum(pk.numel() + ar.numel() + 4 * pk.shape[0] * pk.shape[1] * ar.shape[-1]
+               for pk, ar, g in launches)
+
+
+def experts_chunked(torch, fn, experts: int = 16):
+    """`fn` (a plain version over stacked operands) applied to `experts`
+    experts at a time and concatenated: the same function on the same
+    inputs, without 256 experts' dense f32 weights at once."""
+    def run(*args, **kw):
+        e = args[0].shape[0]
+        return torch.cat([fn(*(a[i:i + experts] for a in args), **kw) for i in range(0, e, experts)])
+    return run
+
+
 def grouped_launches(torch, pw, x):
     """The grouped launches of one stacked expert linear, as
     `ternary_matmul_batched` makes them: [(packed, x slice, a_scale,
@@ -1361,9 +1536,8 @@ def moe_kernel_checks(torch, model, gen) -> dict:
 
     dev = torch.device("cuda")
     kernels = grouped_kernels()
-    plans = {"ternary_decode_gemm_fused_grouped":
-             lambda e, m, kg, g, c: decode_plan_for(tdg, m, kg, c, g, e=e),
-             "vlut_lookup_gemm_fused_grouped": lambda e, m, kg, g, c: vlg.lut_plan(m, kg, c, g, e=e)}
+    plans = {"decode": lambda e, m, kg, g, c: decode_plan_for(tdg, m, kg, c, g, e=e),
+             "lookup": lambda e, m, kg, g, c: vlg.lut_plan(m, kg, c, g, e=e)}
     ffn = model.layers[0].ffn
     lins = {"w1": ffn.experts.w1.pw, "w3": ffn.experts.w3.pw, "w2": ffn.experts.w2.pw}
     e = lins["w1"].packed5.shape[0]
@@ -1389,8 +1563,32 @@ def moe_kernel_checks(torch, model, gen) -> dict:
                                   (got.float() - each.float()).abs().max().item())
                         max_err[name] = max(max_err[name], err)
                         n_checks += 1
-    log(f"moe: {n_checks} grouped-kernel checks (against the plain version and {e} single "
-        f"launches) at {MOE_ARCH}'s expert shapes, C {MOE_TOKENS}: max |diff| {max_err}")
+    # the grouped integer kernels (the unfused pipeline's middle pass) on
+    # the same weights and rows, quantized and de-interleaved as the
+    # pipeline does
+    int_kernels = grouped_int_kernels()
+    max_err.update({name: 0.0 for name in int_kernels})
+    for lname in ("w1", "w2"):
+        pw = lins[lname]
+        for c in MOE_TOKENS:
+            x = (torch.randn((e, c, pw.K), generator=gen, device=dev) * 3.0).to(torch.bfloat16)
+            x[:, -1] = 0                           # a padding row of every expert
+            for packed, a_r, g in grouped_int_launches(torch, pw, x):
+                for name, (kern, plain, single) in int_kernels.items():
+                    got = kern(packed, a_r, g=g)
+                    want = plain(packed, a_r, g=g)
+                    each = torch.stack([single(packed[i], a_r[i], g=g) for i in range(e)])
+                    torch.cuda.synchronize()
+                    assert got.shape == (e, pw.M, c) and got.dtype == torch.int32
+                    if got[..., -1].any():
+                        raise AssertionError(f"{name}: a padding row's output is not 0")
+                    err = max((got.long() - want.long()).abs().max().item(),
+                              (got.long() - each.long()).abs().max().item())
+                    max_err[name] = max(max_err[name], float(err))
+                    n_checks += 1
+    log(f"moe: {n_checks} grouped-kernel checks, fused and integer (against the plain version "
+        f"and {e} single launches) at {MOE_ARCH}'s expert shapes, C {MOE_TOKENS}: max |diff| "
+        f"{max_err}")
     for name, err in max_err.items():
         if err != 0.0:
             raise AssertionError(f"{name} differs from its plain version or single launches by {err}")
@@ -1408,7 +1606,18 @@ def moe_kernel_checks(torch, model, gen) -> dict:
                 a_scale = act_scales(torch, xd)
                 cases.append(((packed, xd, a_scale, w_scale), dict(g=g, out_dtype=dt)))
         traps[name] = splitk_traps(torch, name, kern, plain, cases)
-        traps[name]["plans"] = [plan_row(plans[name](*shape)) for shape in MOE_RAGGED]
+    for name, (kern, plain, _) in int_kernels.items():
+        cases = []
+        for ne, m, kg, g, c in MOE_RAGGED:
+            packed = torch.randint(0, 3 ** g, (ne, m, kg), generator=gen, device=dev,
+                                   dtype=torch.int32).to(torch.uint8)
+            a_r = torch.randint(-127, 128, (ne, g, kg, c), generator=gen, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+            cases.append(((packed, a_r), dict(g=g)))
+        traps[name] = splitk_traps(torch, name, kern, plain, cases)
+    for name in traps:
+        impl = "decode" if name.startswith("ternary") else "lookup"
+        traps[name]["plans"] = [plan_row(plans[impl](*shape)) for shape in MOE_RAGGED]
         if all(row["splits"] == 1 for row in traps[name]["plans"]):
             raise AssertionError(f"{name}: no grouped trap splits K")
         log(f"moe: {name} traps: {traps[name]['cases']} cases, each launched twice back to "
@@ -1496,40 +1705,46 @@ def act_scales(torch, x):
 
 
 @contextlib.contextmanager
-def plain_mpgemm():
-    """Route the fused pipeline through the kernels' plain versions (on
-    CUDA tensors too) for the duration of one call."""
+def plain_mpgemm(torch):
+    """Route both pipelines through the kernels' plain versions (on CUDA
+    tensors too) for the duration of one call; the grouped ones 16 experts
+    at a time (`experts_chunked`)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ternary_decode_gemm as tdg
     from repro_torch.kernels import vlut_lookup_gemm as vlg
 
     plain = {"decode": tdg.ternary_decode_gemm_fused_plain, "lookup": vlg.vlut_lookup_gemm_fused_plain}
-    with planted(ops, "_KERNELS", plain), planted(ops, "_GROUPED_KERNELS", plain):
+    plain_int = {"decode": tdg.ternary_decode_gemm_plain, "lookup": vlg.vlut_lookup_gemm_plain}
+    with planted(ops, "_KERNELS", plain), planted(ops, "_INT_KERNELS", plain_int), \
+            planted(ops, "_GROUPED_KERNELS", {k: experts_chunked(torch, fn) for k, fn in plain.items()}), \
+            planted(ops, "_INT_GROUPED_KERNELS",
+                    {k: experts_chunked(torch, fn) for k, fn in plain_int.items()}):
         yield
 
 
-def moe_dispatch_ms(torch, model, cfg, tokens: int) -> dict:
-    """Device ms (CUDA-graph replay) of layer 0's MoE FFN on `tokens`
+def moe_dispatch_ms(torch, model, cfg, tokens: int, layer: int = 0) -> dict:
+    """Device ms (CUDA-graph replay) of a MoE layer's FFN on `tokens`
     tokens: whole; its dispatch alone (router, top-k, positions, scatter,
     gather back, combine), with the expert linears and the shared expert
     stubbed out by zeros of their output shapes; and its expert compute
     alone (the grouped expert linears with their SwiGLU, and the shared
-    expert) on random rows, and on rows zero but for one row of 4 experts:
-    the layer's own pattern at a decode step (4 tokens, top-1, the other
-    rows padding)."""
+    expert) on random rows, and on rows zero but for row 0 of tokens × top-k
+    experts: the layer's own pattern at a decode step (the other rows
+    padding)."""
     import torch.nn.functional as F
 
     from repro_torch.models import moe
     from repro_torch.models.common import linear_batched_apply
 
-    ffn, dev = model.layers[0].ffn, torch.device("cuda")
+    ffn, dev = model.layers[layer].ffn, torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     dt = model.embed.table.dtype
     e, cap, d = cfg.moe.n_experts, moe.capacity(tokens, cfg), cfg.d_model
     x = torch.randn((tokens, 1, d), generator=gen, device=dev).to(dt)
     buf = torch.randn((e, cap, d), generator=gen, device=dev).to(dt)
     sparse = torch.zeros_like(buf)
-    sparse[:tokens, 0] = buf[:tokens, 0]
+    real = min(e, tokens * cfg.moe.top_k)
+    sparse[:real, 0] = buf[:real, 0]
 
     def experts(b):
         h = F.silu(linear_batched_apply(ffn.experts.w1, b)) * linear_batched_apply(ffn.experts.w3, b)
@@ -1545,9 +1760,24 @@ def moe_dispatch_ms(torch, model, cfg, tokens: int) -> dict:
     whole = device_ms(torch, lambda: moe.moe_apply(ffn, x, cfg))
     with planted(moe, "linear_batched_apply", zeros_linear), planted(moe, "dense_ffn_apply", zeros_ffn):
         dispatch = device_ms(torch, lambda: moe.moe_apply(ffn, x, cfg))
-    return {"tokens": tokens, "rows_per_expert": cap, "layer_ms": whole, "dispatch_ms": dispatch,
+    return {"tokens": tokens, "layer": layer, "rows_per_expert": cap, "real_rows": real,
+            "layer_ms": whole, "dispatch_ms": dispatch,
             "expert_compute_ms": device_ms(torch, lambda: experts(buf)),
             "expert_compute_zero_rows_ms": device_ms(torch, lambda: experts(sparse))}
+
+
+def packed_model_bytes(model) -> dict:
+    """Device bytes of a model built with `init_lm(packed=True)` and an
+    untied head: packed codes and scales, embedding, head, the rest."""
+    out = {
+        "packed_bitlinears": sum(b.numel() * b.element_size() for b in model.layers.buffers()),
+        "embed": model.embed.table.numel() * model.embed.table.element_size(),
+        "head": model.head.w.numel() * model.head.w.element_size(),
+        "other": sum(q.numel() * q.element_size() for q in model.layers.parameters())
+                 + model.final_norm.scale.numel() * 4,
+    }
+    out["total"] = sum(out.values())
+    return out
 
 
 def check_moe(torch, counters) -> dict:
@@ -1574,14 +1804,7 @@ def check_moe(torch, counters) -> dict:
     torch.cuda.reset_peak_memory_stats()
     model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), packed=True)
     torch.cuda.synchronize()
-    model_bytes = {
-        "packed_bitlinears": sum(b.numel() * b.element_size() for b in model.layers.buffers()),
-        "embed": model.embed.table.numel() * model.embed.table.element_size(),
-        "head": model.head.w.numel() * model.head.w.element_size(),
-        "other": sum(q.numel() * q.element_size() for q in model.layers.parameters())
-                 + model.final_norm.scale.numel() * 4,
-    }
-    model_bytes["total"] = sum(model_bytes.values())
+    model_bytes = packed_model_bytes(model)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "experts": cfg.moe.n_experts, "model_bytes": model_bytes,
            "build_s": time.perf_counter() - t0,
@@ -1623,7 +1846,7 @@ def check_moe(torch, counters) -> dict:
     tok = torch.from_numpy(prompts[0][None, :]).cuda()
     with ops.dispatch_override(impl="decode"):
         got, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
-        with plain_mpgemm():
+        with plain_mpgemm(torch):
             want, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
     got, want = got.float(), want.float()
     if got.shape != (1, cfg.vocab) or not torch.isfinite(got).all():
@@ -1661,6 +1884,344 @@ def check_moe(torch, counters) -> dict:
         log(f"moe:   op {name}: {ms:.4f} ms device, {calls:.1f} calls per step")
     out["seconds"] = time.perf_counter() - t0
     log(f"moe: phase 10 took {out['seconds']:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def call_launches(kind: str, fn, launches) -> None:
+    """Run `fn` (a grouped kernel or its plain version) over grouped
+    launches: fused (packed, x, a_scale, w_scale, g, out dtype) or integer
+    (packed, a_r, g)."""
+    for launch in launches:
+        if kind == "fused":
+            pk, xs, sc, ws, g, odt = launch
+            fn(pk, xs, sc, ws, g=g, out_dtype=odt)
+        else:
+            pk, ar, g = launch
+            fn(pk, ar, g=g)
+
+
+def single_launches(kind: str, fn, launches) -> None:
+    """The same products as E launches of the single kernel `fn` each."""
+    for launch in launches:
+        for i in range(launch[0].shape[0]):
+            if kind == "fused":
+                pk, xs, sc, ws, g, odt = launch
+                fn(pk[i], xs[i], sc[i], ws[i], g=g, out_dtype=odt)
+            else:
+                pk, ar, g = launch
+                fn(pk[i], ar[i], g=g)
+
+
+def dequantized(torch, pw, experts: int = 32):
+    """(E, K, M) bf16 dense expert weights of a stacked PackedWeight, built
+    `experts` at a time: the bf16 `torch.bmm` yardstick's operand."""
+    from repro_torch.core.packing import PackedWeight
+
+    e = pw.packed5.shape[0]
+    out = torch.empty((e, pw.K, pw.M), dtype=torch.bfloat16, device="cuda")
+    for i in range(0, e, experts):
+        part = PackedWeight(pw.packed5[i:i + experts], pw.packed4[i:i + experts],
+                            pw.scale[i:i + experts], pw.K)
+        out[i:i + experts] = (part.unpack().to(torch.bfloat16)
+                              * part.scale[..., None].to(torch.bfloat16)).transpose(1, 2)
+    return out
+
+
+def mla_kernel_checks(torch, model, cfg, gen) -> dict:
+    """Phase 11 (a) and (b): the four grouped kernels (fused and integer,
+    decode and lookup) at the first MoE layer's expert weights (256
+    experts; w1: M 2048, K 7168 = 1432 g=5 + 2 g=4 groups; w2: M 7168,
+    K 2048 = 408 + 2), C = MLA_TOKENS rows per expert with a zero padding
+    row, bf16, against their plain versions (16 experts at a time),
+    expected difference 0; then the device ms per linear's launches and
+    per layer's 6, beside the bound, 256 single launches, the plain
+    version (eager: 256 experts' plain version does not fit one graph), a
+    decode step's rows (MLA_DECODE_ROWS real, the rest 0) and a bf16
+    `torch.bmm` against the dequantized experts (a yardstick only). Also
+    the batched unfused pipeline against the fused one on the same rows."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    layer = next(i for i, sp in enumerate(cfg.layer_specs()) if sp.ffn == "moe")
+    ffn = model.layers[layer].ffn
+    lins = {"w1": ffn.experts.w1.pw, "w3": ffn.experts.w3.pw, "w2": ffn.experts.w2.pw}
+    e, c = lins["w1"].packed5.shape[0], MLA_TOKENS
+    kinds = {"fused": (grouped_kernels(), grouped_launches),
+             "int": (grouped_int_kernels(), grouped_int_launches)}
+    xs = {}
+    for k in {pw.K for pw in lins.values()}:
+        x = (torch.randn((e, c, k), generator=gen, device=dev) * 3.0).to(torch.bfloat16)
+        x[:, -1] = 0                               # a padding row of every expert
+        xs[k] = x
+    launches = {(kind, ln): make(torch, pw, xs[pw.K]) for kind, (_, make) in kinds.items()
+                for ln, pw in lins.items()}
+
+    # (a) against the plain versions
+    max_err = {}
+    for kind, (kernels, _) in kinds.items():
+        for name, (kern, plain, _) in kernels.items():
+            err = 0.0
+            for ln in ("w1", "w2"):
+                for launch in launches[(kind, ln)]:
+                    args = launch[:4] if kind == "fused" else launch[:2]
+                    kw = dict(g=launch[4], out_dtype=launch[5]) if kind == "fused" else dict(g=launch[2])
+                    got = kern(*args, **kw)
+                    want = experts_chunked(torch, plain)(*args, **kw)
+                    torch.cuda.synchronize()
+                    pad = got[:, -1] if kind == "fused" else got[..., -1]
+                    if pad.any():
+                        raise AssertionError(f"mla: {name}: a padding row's output is not 0")
+                    err = max(err, (got.double() - want.double()).abs().max().item())
+            max_err[name] = err
+    log(f"mla: the four grouped kernels at layer {layer}'s experts (E {e}, C {c}, bf16) "
+        f"against their plain versions: max |diff| {max_err}")
+    for name, err in max_err.items():
+        if err != 0.0:
+            raise AssertionError(f"mla: {name} differs from its plain version by {err}")
+    # the batched pipelines: unfused (one quantize, de-interleave and
+    # dequant over the 256 experts) against fused, each through its grouped
+    # kernels; bf16 outputs one rounding of f32 values 1e-7 apart: at most
+    # one bf16 ulp (2^-8 of a value, bounded by 2^-7 of the largest)
+    fusion_err = {}
+    for ln in ("w1", "w2"):
+        outs = {(impl, fusion): ops.ternary_matmul_batched(lins[ln], xs[lins[ln].K], impl=impl,
+                                                           fusion=fusion)
+                for impl in IMPLS for fusion in ("fused", "unfused")}
+        if not torch.equal(outs[("decode", "unfused")], outs[("lookup", "unfused")]):
+            raise AssertionError(f"mla: {ln}: the unfused pipeline differs between impls")
+        ref = outs[("decode", "fused")].float()
+        fusion_err[ln] = (outs[("decode", "unfused")].float() - ref).abs().max().item() / ref.abs().max().item()
+        if fusion_err[ln] > 2.0 ** -7:
+            raise AssertionError(f"mla: {ln}: unfused differs from fused by {fusion_err[ln]} of "
+                                 "the largest output")
+    log(f"mla: ternary_matmul_batched unfused vs fused at E {e}, C {c}: max |diff| / max |out| "
+        f"{fusion_err} (bound 2^-7); unfused equal between impls")
+
+    # (b) device times
+    deq = {ln: dequantized(torch, lins[ln]) for ln in ("w1", "w2")}
+    rows = {}
+    for ln in ("w1", "w2"):
+        pw = lins[ln]
+        sparse = torch.zeros_like(xs[pw.K])
+        sparse[:MLA_DECODE_ROWS, 0] = xs[pw.K][:MLA_DECODE_ROWS, 0]
+        entry = {"launches": len(launches[("fused", ln)]),
+                 "bmm_ms": device_ms(torch, lambda: torch.bmm(xs[pw.K], deq[ln]))}
+        for kind, (kernels, make) in kinds.items():
+            ls = launches[(kind, ln)]
+            nbytes = launch_bytes(torch, ls) if kind == "fused" else int_launch_bytes(ls)
+            entry[f"{kind}_bytes"] = nbytes
+            entry[f"{kind}_bound_ms"] = nbytes / HBM_BYTES_S * 1e3
+            zero_ls = make(torch, pw, sparse)
+            for name, (kern, plain, single) in kernels.items():
+                entry[name] = {
+                    "ms": device_ms(torch, lambda: call_launches(kind, kern, ls)),
+                    "singles_ms": device_ms(torch, lambda: single_launches(kind, single, ls)),
+                    "plain_ms": eager_ms(torch, lambda: call_launches(
+                        kind, experts_chunked(torch, plain), ls), reps=1),
+                    "zero_rows_ms": device_ms(torch, lambda: call_launches(kind, kern, zero_ls)),
+                }
+        rows[ln] = entry
+        log(f"mla: {ln} (E {e}, M {pw.M}, K {pw.K}, {entry['launches']} launches) at C={c}: bound "
+            f"{entry['fused_bound_ms']:.4f} ms fused, {entry['int_bound_ms']:.4f} integer (bytes); "
+            + ", ".join(f"{nm} {entry[nm]['ms']:.4f} ms ({e} single launches "
+                        f"{entry[nm]['singles_ms']:.4f}, plain {entry[nm]['plain_ms']:.2f}, on a "
+                        f"decode step's {MLA_DECODE_ROWS} rows {entry[nm]['zero_rows_ms']:.4f})"
+                        for kernels, _ in kinds.values() for nm in kernels)
+            + f"; bf16 bmm yardstick {entry['bmm_ms']:.4f} ms")
+    # one MoE layer's 6 grouped launches of each kind (the kernels line's unit)
+    library_ms = device_ms(torch, lambda: [torch.bmm(xs[lins[ln].K], deq["w2" if ln == "w2" else "w1"])
+                                           for ln in lins])
+    layer_row = {}
+    for kind, (kernels, _) in kinds.items():
+        ls = [launch for ln in lins for launch in launches[(kind, ln)]]
+        nbytes = launch_bytes(torch, ls) if kind == "fused" else int_launch_bytes(ls)
+        nops = sum(2 * e * c * launch[0].shape[1] * launch[0].shape[2] * launch[-1 if kind == "int" else 4]
+                   for launch in ls)
+        row = {"launches": len(ls), "bytes": nbytes, "int8_ops": nops,
+               "bound_ms": max(nbytes / HBM_BYTES_S, nops / INT8_OPS_S) * 1e3,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_S >= nops / INT8_OPS_S else "operations",
+               "library_ms": library_ms}
+        for name, (kern, plain, _) in kernels.items():
+            row[name] = {"ms": device_ms(torch, lambda: call_launches(kind, kern, ls)),
+                         "plain_ms": eager_ms(torch, lambda: call_launches(
+                             kind, experts_chunked(torch, plain), ls), reps=1)}
+        layer_row[kind] = row
+        log(f"mla: one layer's {len(ls)} grouped {kind} launches at C={c}: bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            + ", ".join(f"{nm} {row[nm]['ms']:.4f} ms (plain {row[nm]['plain_ms']:.2f})"
+                        for nm in kernels)
+            + f", bf16 bmm yardstick (3 bmm) {library_ms:.4f} ms")
+    del deq
+    return {"layer": layer, "experts": e, "rows_per_expert": c, "max_abs_err": max_err,
+            "unfused_vs_fused_rel": fusion_err, "per_linear": rows, "per_layer": layer_row}
+
+
+def mla_wkv_b_unpack_ms(torch, model, cfg) -> dict:
+    """Device ms (CUDA-graph replay) of one layer's `_wkv_b_dense`: the
+    absorbed decode unpacks wkv_b to f32 in every layer at every step."""
+    from repro_torch.models.mla import _wkv_b_dense
+
+    mixer = model.layers[0].mixer
+    ms = device_ms(torch, lambda: _wkv_b_dense(mixer, cfg, torch.float32))
+    ql, kvl, nope, rp, vd = (cfg.mla.q_lora_rank, cfg.mla.kv_lora_rank, cfg.mla.qk_nope_dim,
+                             cfg.mla.qk_rope_dim, cfg.mla.v_dim)
+    return {"layer_ms": ms, "step_ms": ms * cfg.n_layers,
+            "f32_bytes": 4 * kvl * cfg.n_heads * (nope + vd)}
+
+
+def check_mla(torch, counters) -> dict:
+    """Phase 11: the MLA mixer and deepseek-v3-671b at its published widths,
+    depth cut to MLA_LAYERS (bf16, random weights from a seeded generator,
+    drawn and packed layer by layer): (a)-(b) `mla_kernel_checks`; (c)
+    serving 8 greedy requests (prompts 16-64, 16 new tokens, 4 slots) with
+    impl="decode" and "lookup" (same tokens), unfused with both impls (same
+    tokens; each divergence from the fused run a near-tie or after a
+    routing flip, `fusion_divergence`), chunk 64 + chain k 4, and paged
+    (page 16) whole-prompt, each with its launches counted per forward path
+    and no other mpGeMM kernel, every request completed; one prefill's
+    logits through the kernels against their plain versions, fused and
+    unfused; (d) one decode step
+    of 4 full slots under torch.profiler, the wkv_b unpack's and the MoE
+    dispatch's device time."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache, init_lm, prefill
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve import PagedKVConfig
+    from repro_torch.spec import SpecConfig
+
+    t0 = time.perf_counter()
+    full = get_config(MLA_ARCH)
+    cfg = full.with_(n_layers=MLA_LAYERS, layers=full.layers[:MLA_LAYERS])
+    specs = cfg.layer_specs()
+    n_moe = sum(sp.ffn == "moe" for sp in specs)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), packed=True)
+    torch.cuda.synchronize()
+    model_bytes = packed_model_bytes(model)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "dense_layers": cfg.n_layers - n_moe,
+           "moe_layers": n_moe, "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+           "d_model": cfg.d_model, "experts": cfg.moe.n_experts, "model_bytes": model_bytes,
+           "build_s": time.perf_counter() - t0,
+           "build_peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"mla: {cfg.name} {cfg.dtype}, {cfg.n_layers} of {full.n_layers} layers ({cfg.n_layers - n_moe} "
+        f"dense, {n_moe} MoE), d {cfg.d_model}, {cfg.n_heads} heads, MLA {cfg.mla}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_ff {cfg.moe.d_ff_expert}, vocab "
+        f"{cfg.vocab}: built and packed layer by layer in {out['build_s']:.1f} s (peak "
+        f"{out['build_peak_bytes'] / 2**30:.2f} GiB); bytes {model_bytes}")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out["kernels"] = mla_kernel_checks(torch, model, cfg, gen)
+
+    # (c) serving
+    for impl in IMPLS:
+        for fusion in ("fused", "unfused"):
+            single = single_kernel(impl, fusion)
+            want = {single: 16 * cfg.n_layers, f"{single}_grouped": 6 * n_moe}
+            got = launches_per_forward(model, impl, fusion)
+            absorbed = launches_per_forward(model, impl, fusion, expand=False)
+            if got != want or absorbed != {**want, single: 14 * cfg.n_layers}:
+                raise AssertionError(f"mla: launches per forward {got} / {absorbed}: expected 16 / 14 "
+                                     "single a layer and 6 grouped a MoE layer")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(16, 65))).astype(np.int32)
+               for _ in range(8)]
+    runs = {}
+    for impl in IMPLS:
+        runs[impl] = serve_multi(torch, model, cfg, prompts, counters, f"mla {impl}", impl=impl)
+    if runs["decode"]["tokens"] != runs["lookup"]["tokens"]:
+        raise AssertionError("mla: impl=decode and impl=lookup emitted different greedy tokens")
+    for impl in IMPLS:
+        runs[f"unfused_{impl}"] = serve_multi(torch, model, cfg, prompts, counters,
+                                              f"mla unfused {impl}", impl=impl, fusion="unfused")
+    if runs["unfused_decode"]["tokens"] != runs["unfused_lookup"]["tokens"]:
+        raise AssertionError("mla: unfused impl=decode and impl=lookup emitted different tokens")
+    # fused sums each segment in f32, unfused in int32: they part at a
+    # near-tie or after a routing flip (`fusion_divergence` raises otherwise)
+    divs = [fusion_divergence(torch, model, cfg, p, r, g) for p, r, g in
+            zip(prompts, runs["decode"]["tokens"], runs["unfused_decode"]["tokens"]) if r != g]
+    runs["unfused_decode"]["divergences"] = divs
+    log(f"mla: unfused tokens equal between impls; {len(divs)}/8 requests leave the fused run's "
+        "tokens: " + ", ".join(
+            f"step {d['step']} (gap {d['gap']:.2e} of {d['max_abs_logit']:.3f}, "
+            f"{d['routing_flips']} of {d['routed_tokens']} routed tokens flipped before it)"
+            for d in divs))
+    runs["chunked_chain"] = serve_multi(torch, model, cfg, prompts, counters, "mla chunked chain",
+                                        spec=SpecConfig(k=SPEC_K), prefill_chunk=PREFILL_CHUNK)
+    runs["paged"] = serve_multi(torch, model, cfg, prompts, counters, "mla paged",
+                                paged_kv=PagedKVConfig(page_size=PAGE_SIZE))
+    for name in ("chunked_chain", "paged"):
+        row = runs[name]
+        row["rows_per_expert"] = {int(n): capacity(int(n), cfg) for n in row["mpgemm_tokens_per_launch"]}
+        row["same_tokens_as_whole_prompt"] = sum(
+            a == b for a, b in zip(row["tokens"], runs["decode"]["tokens"]))
+        log(f"mla: {name}: rows per expert by step tokens {row['rows_per_expert']}; "
+            f"{row['same_tokens_as_whole_prompt']}/8 requests emit the whole-prompt run's tokens "
+            "(padding rows take capacity in a wide step, as in JAX)")
+    out["serve"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in runs.items()}
+
+    tok = torch.from_numpy(prompts[0][None, :]).cuda()
+    with ops.dispatch_override(impl="decode"):
+        got, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
+        with plain_mpgemm(torch):
+            want, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
+    got, want = got.float(), want.float()
+    if got.shape != (1, cfg.vocab) or not torch.isfinite(got).all():
+        raise AssertionError(f"mla: bad logits, shape {tuple(got.shape)}")
+    diff, scale = (got - want).abs().max().item(), want.abs().max().item()
+    out["logits_kernels_vs_plain"] = {"max_abs_diff": diff, "max_abs_logit": scale,
+                                      "argmax": [int(got.argmax()), int(want.argmax())]}
+    log(f"mla: prefill logits through the kernels vs their plain versions: max |diff| {diff}, "
+        f"max |logit| {scale:.4f}, argmax {int(got.argmax())} vs {int(want.argmax())}")
+    if diff > MOE_LOGIT_RTOL * scale:
+        raise AssertionError(f"mla: logits differ by {diff} > {MOE_LOGIT_RTOL} * {scale}")
+    with ops.dispatch_override(impl="decode", fusion="unfused"):
+        got, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
+        with plain_mpgemm(torch):
+            want, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
+    got, want = got.float(), want.float()
+    diff, scale = (got - want).abs().max().item(), want.abs().max().item()
+    out["unfused_logits_kernels_vs_plain"] = {"max_abs_diff": diff, "max_abs_logit": scale}
+    log(f"mla: unfused prefill logits through the integer kernels vs their plain versions: "
+        f"max |diff| {diff}, max |logit| {scale:.4f}")
+    if not torch.isfinite(got).all() or diff > MOE_LOGIT_RTOL * scale:
+        raise AssertionError(f"mla: unfused logits differ by {diff} > {MOE_LOGIT_RTOL} * {scale}")
+
+    # (d) one decode step of 4 full slots: the wkv_b unpack's and the MoE
+    # dispatch's share of it
+    prof = profile_decode(torch, model, cfg, prompts, op_names=MOE_DISPATCH_OPS)
+    prof["wkv_b_unpack"] = mla_wkv_b_unpack_ms(torch, model, cfg)
+    prof["moe_layer"] = moe_dispatch_ms(torch, model, cfg, tokens=4, layer=out["kernels"]["layer"])
+    prof["moe_dispatch_ms_per_step"] = prof["moe_layer"]["dispatch_ms"] * n_moe
+    for key, ms in (("wkv_b_unpack_share", prof["wkv_b_unpack"]["step_ms"]),
+                    ("moe_dispatch_share", prof["moe_dispatch_ms_per_step"])):
+        prof[key] = ms / prof["device_ms_per_step"] if prof["device_ms_per_step"] else None
+    out["decode_profile"] = prof
+    ml = prof["moe_layer"]
+    log(f"mla: decode step (4 slots) wall {prof['wall_ms_per_step']:.3f} ms, device busy "
+        f"{prof['device_ms_per_step']:.3f} ms"
+        + (f" ({100 * prof['device_busy_share']:.1f}%)" if prof["device_busy_share"] else
+           " (the profiler saw no device time: not measured)")
+        + f"; wkv_b unpack {prof['wkv_b_unpack']['layer_ms']:.4f} ms a layer, "
+        f"{prof['wkv_b_unpack']['step_ms']:.3f} ms a step"
+        + (f" ({100 * prof['wkv_b_unpack_share']:.1f}% of device time)"
+           if prof["wkv_b_unpack_share"] is not None else "")
+        + f"; one MoE layer at 4 tokens {ml['layer_ms']:.4f} ms: its dispatch alone "
+        f"{ml['dispatch_ms']:.4f} ms, its expert compute alone {ml['expert_compute_ms']:.4f} ms on "
+        f"random rows, {ml['expert_compute_zero_rows_ms']:.4f} ms on the layer's own rows "
+        f"({ml['real_rows']} of {cfg.moe.n_experts} x {ml['rows_per_expert']} real); dispatch x "
+        f"{n_moe} layers {prof['moe_dispatch_ms_per_step']:.3f} ms a step"
+        + (f" ({100 * prof['moe_dispatch_share']:.1f}% of device time)"
+           if prof["moe_dispatch_share"] is not None else ""))
+    for name, ms in prof["top_kernels_ms_per_step"]:
+        log(f"mla:   {ms:8.4f} ms  {name}")
+    for name, (ms, calls) in prof["op_device_ms_per_step"].items():
+        log(f"mla:   op {name}: {ms:.4f} ms device, {calls:.1f} calls per step")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mla: phase 11 took {out['seconds']:.1f} s")
     del model
     torch.cuda.empty_cache()
     return out
@@ -1971,6 +2532,7 @@ def main() -> int:
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build
         from repro_torch.kernels import ternary_decode_gemm as tdg
+        from repro_torch.kernels import vlut_lookup_gemm as vlg
         from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.ternary_decode_gemm import (
             ternary_decode_gemm,
@@ -2030,6 +2592,8 @@ def main() -> int:
                 "vlut_lookup_gemm_fused_grouped": vlut_lookup_gemm_fused_grouped,
                 "ternary_decode_gemm": ternary_decode_gemm,
                 "vlut_lookup_gemm": vlut_lookup_gemm,
+                "ternary_decode_gemm_grouped": tdg.ternary_decode_gemm_grouped,
+                "vlut_lookup_gemm_grouped": vlg.vlut_lookup_gemm_grouped,
                 "flash_attention": flash_attention}
     runs = {}
     for name, meta in KERNEL_META.items():
@@ -2088,8 +2652,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 10. MoE FFN: llama4-scout at full width (after phase 9; its model is
-    # freed before phases 6 and 7)
+    # freed before phase 11)
     moe = check_moe(torch, counters)
+
+    # 11. MLA: deepseek-v3-671b at full width, depth cut (its model is freed
+    # before phases 6 and 7)
+    mla = check_mla(torch, counters)
 
     # 6. flash
     flash = check_flash(torch)
@@ -2121,11 +2689,23 @@ def main() -> int:
                 "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"],
                 "library_ms": layer["library_ms"]}
 
+    def grouped_int_row(name, meta):
+        layer = mla["kernels"]["per_layer"]["int"]
+        err = max(moe["kernels"]["max_abs_err"][name], mla["kernels"]["max_abs_err"][name])
+        return {"name": name, "route": "cuda", "source": meta["source"],
+                "replaces": meta["replaces"],
+                "launches": mla["serve"][f"unfused_{meta['impl']}"]["launches"][name],
+                "max_abs_err": float(err), "ms": layer[name]["ms"],
+                "plain_ms": layer[name]["plain_ms"], "bound_ms": layer["bound_ms"],
+                "bound_by": layer["bound_by"], "library_ms": layer["library_ms"]}
+
     frow = flash["time"]
     kern_line = {"kernels": [
         kernel_row(name, meta) for name, meta in KERNEL_META.items()
     ] + [
         grouped_row(name, meta) for name, meta in GROUPED_META.items()
+    ] + [
+        grouped_int_row(name, meta) for name, meta in GROUPED_INT_META.items()
     ] + [
         {"name": "flash_attention", "route": "cuda", **FLASH_META,
          "launches": trained["launches"]["flash_attention"], "max_abs_err": flash["max_abs_err"],
@@ -2135,7 +2715,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
-        "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches (unfused pipelines: 224 BitLinears); grouped mpGeMM: one llama4-scout MoE layer's 4 grouped launches at C = 4 rows per expert; compare: one call at (M, K) = (2560, 960); flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
+        "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches (unfused pipelines: 224 BitLinears); grouped mpGeMM: one llama4-scout MoE layer's 4 grouped launches at C = 4 rows per expert; grouped integer mpGeMM: one deepseek-v3 MoE layer's 6 grouped launches at C = 16 (plain_ms eager); compare: one call at (M, K) = (2560, 960); flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
         "per_tokens": per_n, "splitk_fused_traps": fused_traps,
         "decode_plans": {n: [plan_row(decode_plan_for(tdg, m, k // 5, n, 5)) for m, k in SHAPES]
                          for n in TOKENS},
@@ -2150,7 +2730,7 @@ def main() -> int:
         "decode_profile": prof,
         "multi_token": multi,
         "paged": paged,
-        "moe": moe,
+        "moe": moe, "mla": mla,
         "flash": flash, "train": trained,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

@@ -23,6 +23,7 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.blocks import Block
 from repro_torch.models.common import Embedding, Linear, PackedLinear, QLinear, RMSNorm
 from repro_torch.models.decoder import LM, compress_layout
+from repro_torch.models.mla import MLA
 from repro_torch.models.moe import DenseFFN, MoEFFN
 
 
@@ -71,17 +72,22 @@ def _ffn(node, r, device):
         _swiglu(node["shared"], r, device) if "shared" in node else None)
 
 
-def _block(node, r, device) -> Block:
-    mx = node["mixer"]
+def _mixer(mx, r, device):
+    """The MLA mixer where the node carries its latent projections
+    ("wq_a", ...), else the GQA attention mixer (with its optional q/k
+    norms)."""
+    if "wq_a" in mx:
+        return MLA(*(_norm(mx[k], r, device) if k.endswith("norm") else _linear(mx[k], r, device)
+                     for k in ("wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b", "wo")))
     qk = ((_norm(mx["q_norm"], r, device), _norm(mx["k_norm"], r, device))
           if "q_norm" in mx else (None, None))
+    return Attention(*(_linear(mx[k], r, device) for k in ("wq", "wk", "wv", "wo")), *qk)
+
+
+def _block(node, r, device) -> Block:
     ffn = (() if "ffn" not in node
            else (_norm(node["ffn_norm"], r, device), _ffn(node["ffn"], r, device)))
-    return Block(
-        _norm(node["mixer_norm"], r, device),
-        Attention(*(_linear(mx[k], r, device) for k in ("wq", "wk", "wv", "wo")), *qk),
-        *ffn,
-    )
+    return Block(_norm(node["mixer_norm"], r, device), _mixer(node["mixer"], r, device), *ffn)
 
 
 def _reps(stage_node) -> int:

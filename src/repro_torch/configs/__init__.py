@@ -8,11 +8,12 @@ from __future__ import annotations
 
 import importlib
 
-from .base import LayerSpec, MoEConfig, ModelConfig, uniform_layers
+from .base import LayerSpec, MLAConfig, MoEConfig, ModelConfig, uniform_layers
 
 _MODULES = {
     "smollm-360m": "smollm_360m",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 
@@ -26,4 +27,5 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["LayerSpec", "MoEConfig", "ModelConfig", "uniform_layers", "get_config"]
+__all__ = ["LayerSpec", "MLAConfig", "MoEConfig", "ModelConfig", "uniform_layers",
+           "get_config"]

@@ -20,6 +20,8 @@
 //   a_r     (g, KG, N) int8, contiguous: pre-quantized and de-interleaved,
 //           a_r[j, kg, n] = a_q[kg*g + j, n]
 //   out     (M, N) int32, contiguous: out[m, n] = sum_k trit(W[m, k]) * a_q[k, n]
+// Their grouped entries stack E such products of one shape: packed (E, M, KG),
+// a_r (E, g, KG, N), out (E, M, N), each expert at its own stride.
 // Both kernels of a pair are one template: an int8 activation type selects
 // the integer prologue and epilogue at compile time.
 #pragma once

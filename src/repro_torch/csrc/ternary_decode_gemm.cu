@@ -69,7 +69,8 @@
 //   ((N, M) fused, (M, N) integer); a per-tile arrival counter picks the
 //   last block, which writes the output and returns its workspace entries
 //   and its counter to 0. One launch per BitLinear, no memset.
-// - Grouped launch (`ternary_decode_gemm_fused_grouped`): E independent
+// - Grouped launch (`ternary_decode_gemm_fused_grouped`, and
+//   `ternary_decode_gemm_grouped` for the integer twin): E independent
 //   products of one shape, one launch. The TPU package reaches this kernel
 //   under `jax.vmap` over a Mixture-of-Experts layer's stacked expert
 //   weights (src/repro/models/common.py `linear_batched_apply`), which adds
@@ -643,6 +644,15 @@ extern "C" int ternary_decode_gemm_fused_grouped(
   return decode_fused(p, g, a_bf16, out_bf16, bm, bn, smem, stream);
 }
 
+// The integer entries' common body: check the plan, launch on `stream`.
+static int decode_int(const vlut::decode::Params& p, int g, int bm, int bn, long long smem,
+                      void* stream) {
+  if (!vlut::decode::plan_ok(p, g, 1, bm, bn, smem)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(g == 5 ? vlut::decode::launch_tiles<5, int8_t, int32_t>(p, bm, bn, (size_t)smem, s)
+                      : vlut::decode::launch_tiles<4, int8_t, int32_t>(p, bm, bn, (size_t)smem, s));
+}
+
 extern "C" int ternary_decode_gemm(
     const void* packed, const void* a_r, void* out, void* ws, void* counters, int M, int KG,
     int N, int g, int bm, int bn, int splits, int kstep, int codes_aligned, int acts_aligned,
@@ -650,8 +660,20 @@ extern "C" int ternary_decode_gemm(
   const vlut::decode::Params p{(const uint8_t*)packed, a_r, nullptr, nullptr, out,
                                (int32_t*)ws, (int*)counters, M, KG, N, 0, 0, N, splits,
                                kstep, codes_aligned, acts_aligned, 1, 0, 0, 0, 0, 0};
-  if (!vlut::decode::plan_ok(p, g, 1, bm, bn, smem)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(g == 5 ? vlut::decode::launch_tiles<5, int8_t, int32_t>(p, bm, bn, (size_t)smem, s)
-                      : vlut::decode::launch_tiles<4, int8_t, int32_t>(p, bm, bn, (size_t)smem, s));
+  return decode_int(p, g, bm, bn, smem, stream);
+}
+
+// The grouped integer entry: E products of one shape in one launch, expert
+// e reading packed + e*es_packed (M, KG) and a_r + e*es_a (g, KG, N) and
+// writing out + e*es_out (M, N); strides in elements. The unfused
+// pipeline's middle pass over a MoE layer's stacked experts.
+extern "C" int ternary_decode_gemm_grouped(
+    const void* packed, const void* a_r, void* out, void* ws, void* counters, int M, int KG,
+    int N, int g, int E, long long es_packed, long long es_a, long long es_out, int bm, int bn,
+    int splits, int kstep, int codes_aligned, int acts_aligned, long long smem, void* stream) {
+  const vlut::decode::Params p{(const uint8_t*)packed, a_r, nullptr, nullptr, out,
+                               (int32_t*)ws, (int*)counters, M, KG, N, 0, 0, N, splits,
+                               kstep, codes_aligned, acts_aligned, E, es_packed, es_a, 0, 0,
+                               es_out};
+  return decode_int(p, g, bm, bn, smem, stream);
 }

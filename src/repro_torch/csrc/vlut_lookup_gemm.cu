@@ -67,7 +67,8 @@
 //   kernel quantizes each token's K run (f32 cast first, IEEE division,
 //   round half to even, clip +-127: this file must not be built with
 //   --use_fast_math).
-// - Grouped launch (`vlut_lookup_gemm_fused_grouped`): E independent
+// - Grouped launch (`vlut_lookup_gemm_fused_grouped`, and
+//   `vlut_lookup_gemm_grouped` for the integer twin): E independent
 //   products of one shape, one launch. The TPU package reaches this kernel
 //   under `jax.vmap` over a Mixture-of-Experts layer's stacked expert
 //   weights (src/repro/models/common.py `linear_batched_apply`); here the
@@ -481,6 +482,11 @@ cudaError_t launch_lut_types(const LutParams& p, size_t smem, int a_bf16, int ou
   const void *packed, const void *a_r, void *out, void *ws, void *counters,       \
       int M, int KG, int N, int g, int bm, int splits, int chunk, long long smem,  \
       void *stream
+#define VLUT_LUT_INT_GROUPED_ENTRY_ARGS                                            \
+  const void *packed, const void *a_r, void *out, void *ws, void *counters,       \
+      int M, int KG, int N, int g, int E, long long es_packed, long long es_a,     \
+      long long es_out, int bm, int splits, int chunk, long long smem,             \
+      void *stream
 
 // The fused entries' common body: check the plan, launch on `stream`.
 static int lut_fused(const vlut::LutParams& p, int g, int a_bf16, int out_bf16, long long smem,
@@ -513,12 +519,29 @@ extern "C" int vlut_lookup_gemm_fused_grouped(VLUT_LUT_GROUPED_ENTRY_ARGS) {
   return lut_fused(p, g, a_bf16, out_bf16, smem, stream);
 }
 
-extern "C" int vlut_lookup_gemm(VLUT_LUT_INT_ENTRY_ARGS) {
-  if (!vlut::plan_ok(M, KG, N, g, bm, splits, chunk, smem, ws, counters))
+// The integer entries' common body: check the plan, launch on `stream`.
+static int lut_int(const vlut::LutParams& p, int g, long long smem, void* stream) {
+  if (!vlut::plan_ok(p.M, p.KG, p.N, g, p.bm, p.splits, p.chunk, smem, p.ws, p.counters, p.E))
     return (int)cudaErrorInvalidValue;
-  const vlut::LutParams p{(const uint8_t*)packed, a_r, nullptr, nullptr, out, (int32_t*)ws,
-                          (int*)counters, M, KG, N, 0, 0, N, bm, splits, chunk, 1, 0, 0, 0, 0, 0};
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(g == 5 ? vlut::launch_lut<5, int8_t, int32_t>(p, (size_t)smem, s)
                       : vlut::launch_lut<4, int8_t, int32_t>(p, (size_t)smem, s));
+}
+
+extern "C" int vlut_lookup_gemm(VLUT_LUT_INT_ENTRY_ARGS) {
+  const vlut::LutParams p{(const uint8_t*)packed, a_r, nullptr, nullptr, out, (int32_t*)ws,
+                          (int*)counters, M, KG, N, 0, 0, N, bm, splits, chunk, 1, 0, 0, 0, 0, 0};
+  return lut_int(p, g, smem, stream);
+}
+
+// The grouped integer entry: E products of one shape in one launch, expert
+// e reading packed + e*es_packed (M, KG) and a_r + e*es_a (g, KG, N) and
+// writing out + e*es_out (M, N); strides in elements. The unfused
+// pipeline's middle pass over a MoE layer's stacked experts.
+extern "C" int vlut_lookup_gemm_grouped(VLUT_LUT_INT_GROUPED_ENTRY_ARGS) {
+  if (es_packed < 0 || es_a < 0 || es_out < 0) return (int)cudaErrorInvalidValue;
+  const vlut::LutParams p{(const uint8_t*)packed, a_r, nullptr, nullptr, out, (int32_t*)ws,
+                          (int*)counters, M, KG, N, 0, 0, N, bm, splits, chunk,
+                          E, es_packed, es_a, 0, 0, es_out};
+  return lut_int(p, g, smem, stream);
 }

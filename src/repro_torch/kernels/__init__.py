@@ -1,7 +1,7 @@
 """repro_torch.kernels — the Vec-LUT mpGeMM kernels (fused, and the
-unfused pipeline's integer twins) and the flash-attention forward (CUDA,
-built at first use by `_build`), their plain PyTorch versions, and the
-mpGeMM dispatch. Three wrappers stay in their submodules, which keep the
+unfused pipeline's integer twins, each also grouped over stacked experts)
+and the flash-attention forward (CUDA, built at first use by `_build`),
+their plain PyTorch versions, and the mpGeMM dispatch. Three wrappers stay in their submodules, which keep the
 names: `kernels.flash_attention.flash_attention`,
 `kernels.ternary_decode_gemm.ternary_decode_gemm` and
 `kernels.vlut_lookup_gemm.vlut_lookup_gemm` (the JAX package exports them
@@ -22,12 +22,14 @@ from .ternary_decode_gemm import (
     ternary_decode_gemm_fused,
     ternary_decode_gemm_fused_grouped,
     ternary_decode_gemm_fused_plain,
+    ternary_decode_gemm_grouped,
     ternary_decode_gemm_plain,
 )
 from .vlut_lookup_gemm import (
     vlut_lookup_gemm_fused,
     vlut_lookup_gemm_fused_grouped,
     vlut_lookup_gemm_fused_plain,
+    vlut_lookup_gemm_grouped,
     vlut_lookup_gemm_plain,
 )
 
@@ -39,8 +41,8 @@ __all__ = [
     "ref_mpgemm", "ref_mpgemm_int", "ref_segment_gemm_int",
     "ternary_decode_gemm_plain",
     "ternary_decode_gemm_fused", "ternary_decode_gemm_fused_plain",
-    "ternary_decode_gemm_fused_grouped",
+    "ternary_decode_gemm_fused_grouped", "ternary_decode_gemm_grouped",
     "vlut_lookup_gemm_plain",
     "vlut_lookup_gemm_fused", "vlut_lookup_gemm_fused_plain",
-    "vlut_lookup_gemm_fused_grouped",
+    "vlut_lookup_gemm_fused_grouped", "vlut_lookup_gemm_grouped",
 ]

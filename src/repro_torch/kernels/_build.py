@@ -54,6 +54,12 @@ _DECODE_INT_ARGTYPES = (             # ternary_decode_gemm (ternary_decode_gemm.
     + [ctypes.c_int] * 4             # M, KG, N, g
     + _DECODE_PLAN_ARGTYPES
 )
+_DECODE_INT_GROUPED_ARGTYPES = (     # ternary_decode_gemm_grouped (ternary_decode_gemm.cu)
+    [ctypes.c_void_p] * 5            # packed, a_r, out, ws, counters
+    + [ctypes.c_int] * 5             # M, KG, N, g, E
+    + [ctypes.c_longlong] * 3        # expert strides of packed, a_r, out
+    + _DECODE_PLAN_ARGTYPES
+)
 _PLAN_ARGTYPES = (                   # the launch plan (vlut_lookup_gemm.cu)
     [ctypes.c_int] * 3               # bm, splits, chunk
     + [ctypes.c_longlong]            # dynamic shared bytes
@@ -79,6 +85,12 @@ _LUT_INT_ARGTYPES = (                # VLUT_LUT_INT_ENTRY_ARGS (vlut_lookup_gemm
     + [ctypes.c_int] * 4             # M, KG, N, g
     + _PLAN_ARGTYPES
 )
+_LUT_INT_GROUPED_ARGTYPES = (        # VLUT_LUT_INT_GROUPED_ENTRY_ARGS (vlut_lookup_gemm.cu)
+    [ctypes.c_void_p] * 5            # packed, a_r, out, ws, counters
+    + [ctypes.c_int] * 5             # M, KG, N, g, E
+    + [ctypes.c_longlong] * 3        # expert strides of packed, a_r, out
+    + _PLAN_ARGTYPES
+)
 _FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
     [ctypes.c_void_p] * 4            # q, k, v, o
     + [ctypes.c_int] * 6             # B, H, KV, Sq, Sk, D
@@ -93,7 +105,8 @@ _FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
 #: the library's C entries; each returns a cudaError_t
 ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused",
            "ternary_decode_gemm_fused_grouped", "vlut_lookup_gemm_fused_grouped",
-           "ternary_decode_gemm", "vlut_lookup_gemm", "flash_attention_fwd")
+           "ternary_decode_gemm", "vlut_lookup_gemm", "ternary_decode_gemm_grouped",
+           "vlut_lookup_gemm_grouped", "flash_attention_fwd")
 #: the ctypes signature of every entry
 _ARGTYPES = {
     "ternary_decode_gemm_fused": _DECODE_ARGTYPES,
@@ -102,6 +115,8 @@ _ARGTYPES = {
     "vlut_lookup_gemm_fused_grouped": _LUT_GROUPED_ARGTYPES,
     "ternary_decode_gemm": _DECODE_INT_ARGTYPES,
     "vlut_lookup_gemm": _LUT_INT_ARGTYPES,
+    "ternary_decode_gemm_grouped": _DECODE_INT_GROUPED_ARGTYPES,
+    "vlut_lookup_gemm_grouped": _LUT_INT_GROUPED_ARGTYPES,
     "flash_attention_fwd": _FLASH_ARGTYPES,
 }
 
@@ -262,6 +277,29 @@ def launch_decode_int(packed: torch.Tensor, a_r: torch.Tensor, g: int, out: torc
         raise RuntimeError(f"ternary_decode_gemm: CUDA error {rc} at launch ({plan})")
 
 
+def _int_grouped_args(packed: torch.Tensor, a_r: torch.Tensor, out: torch.Tensor, g: int,
+                      ws, counters) -> tuple:
+    """The grouped integer entries' arguments up to the plan, from packed
+    (E, M, KG), a_r (E, g, KG, N) and out (E, M, N), each expert stride in
+    elements."""
+    e, m, kg = packed.shape
+    return (packed.data_ptr(), a_r.data_ptr(), out.data_ptr(), _ptr(ws), _ptr(counters),
+            m, kg, a_r.shape[3], g, e, packed.stride(0), a_r.stride(0), out.stride(0))
+
+
+def launch_decode_int_grouped(packed: torch.Tensor, a_r: torch.Tensor, g: int,
+                              out: torch.Tensor, plan, ws, counters) -> None:
+    """Call `ternary_decode_gemm_grouped` (E experts in one launch: packed
+    (E, M, KG) u8, a_r (E, g, KG, N) i8 → out (E, M, N) i32) as
+    `launch_decode` calls the fused entry; `plan` counts the E experts."""
+    stream = torch.cuda.current_stream(a_r.device).cuda_stream
+    rc = load().ternary_decode_gemm_grouped(
+        *_int_grouped_args(packed, a_r, out, g, ws, counters), *_decode_plan_args(plan), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ternary_decode_gemm_grouped: CUDA error {rc} at launch ({plan})")
+
+
 def launch_lut(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,
                w_scale: torch.Tensor, g: int, out: torch.Tensor, plan, ws, counters) -> None:
     """Call `vlut_lookup_gemm_fused` with its launch plan (a `LutPlan`) and,
@@ -308,6 +346,20 @@ def launch_lut_int(packed: torch.Tensor, a_r: torch.Tensor, g: int, out: torch.T
     )
     if rc != 0:
         raise RuntimeError(f"vlut_lookup_gemm: CUDA error {rc} at launch ({plan})")
+
+
+def launch_lut_int_grouped(packed: torch.Tensor, a_r: torch.Tensor, g: int, out: torch.Tensor,
+                           plan, ws, counters) -> None:
+    """Call `vlut_lookup_gemm_grouped` (E experts in one launch: packed
+    (E, M, KG) u8, a_r (E, g, KG, N) i8 → out (E, M, N) i32) as
+    `launch_lut` calls the fused entry; `plan` counts the E experts."""
+    stream = torch.cuda.current_stream(a_r.device).cuda_stream
+    rc = load().vlut_lookup_gemm_grouped(
+        *_int_grouped_args(packed, a_r, out, g, ws, counters),
+        plan.bm, plan.splits, plan.chunk, plan.smem, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"vlut_lookup_gemm_grouped: CUDA error {rc} at launch ({plan})")
 
 
 def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,

@@ -37,8 +37,14 @@ from .ternary_decode_gemm import (
     ternary_decode_gemm,
     ternary_decode_gemm_fused,
     ternary_decode_gemm_fused_grouped,
+    ternary_decode_gemm_grouped,
 )
-from .vlut_lookup_gemm import vlut_lookup_gemm, vlut_lookup_gemm_fused, vlut_lookup_gemm_fused_grouped
+from .vlut_lookup_gemm import (
+    vlut_lookup_gemm,
+    vlut_lookup_gemm_fused,
+    vlut_lookup_gemm_fused_grouped,
+    vlut_lookup_gemm_grouped,
+)
 
 IMPLS = ("decode", "lookup")
 FUSIONS = ("fused", "unfused")
@@ -46,6 +52,7 @@ _KERNELS = {"decode": ternary_decode_gemm_fused, "lookup": vlut_lookup_gemm_fuse
 _GROUPED_KERNELS = {"decode": ternary_decode_gemm_fused_grouped,
                     "lookup": vlut_lookup_gemm_fused_grouped}
 _INT_KERNELS = {"decode": ternary_decode_gemm, "lookup": vlut_lookup_gemm}
+_INT_GROUPED_KERNELS = {"decode": ternary_decode_gemm_grouped, "lookup": vlut_lookup_gemm_grouped}
 
 
 @dataclasses.dataclass
@@ -135,34 +142,50 @@ def _mpgemm_tokens(pw: PackedWeight, x: torch.Tensor, impl: str,
     return parts[0] if len(parts) == 1 else (parts[0] + parts[1]).to(out_dtype)
 
 
-def _deinterleave(a_q: torch.Tensor, g: int) -> torch.Tensor:
+def _deinterleave(a_q: torch.Tensor, g: int, e: int = 0) -> torch.Tensor:
     """(K, N) → (g, K//g, N) contiguous: A_r[j, k, :] = A[k*g+j, :] (§3.3
-    layout). Only the unfused pipeline materializes it, one copy per
-    segment; the fused kernels de-interleave in shared memory."""
+    layout). With e > 0 the N columns are e experts' tokens in turn, → (e,
+    g, K//g, N/e), the grouped kernels' operand. Only the unfused pipeline
+    materializes it, one copy per segment; the fused kernels de-interleave
+    in shared memory."""
     k, n = a_q.shape
+    if e:
+        return a_q.view(k // g, g, e, n // e).permute(2, 1, 0, 3).contiguous()
     return a_q.view(k // g, g, n).permute(1, 0, 2).contiguous()
 
 
 def _segment_gemm_int(packed: torch.Tensor, a_q_seg: torch.Tensor, g: int,
-                      impl: str) -> torch.Tensor:
+                      impl: str, e: int = 0) -> torch.Tensor:
     """Unfused integer segment: packed (M, KG) uint8 × a_q_seg (K, N) int8
-    → (M, N) int32, through the chosen integer kernel. Nothing is padded:
+    → (M, N) int32, through the chosen integer kernel; with e > 0 stacked
+    packed (E, M, KG) and N = E*C tokens, expert by expert, → (E, M, C)
+    through ONE launch of the grouped integer kernel. Nothing is padded:
     the kernels mask ragged edges themselves."""
-    return _INT_KERNELS[impl](packed, _deinterleave(a_q_seg, g), g=g)
+    kernel = _INT_GROUPED_KERNELS[impl] if e else _INT_KERNELS[impl]
+    return kernel(packed, _deinterleave(a_q_seg, g, e), g=g)
 
 
-def _mpgemm_unfused(pw: PackedWeight, a: torch.Tensor, impl: str,
-                    out_dtype) -> torch.Tensor:
-    """The three-pass pipeline: a (K, N) float → (M, N) out_dtype."""
+def _mpgemm_unfused(pw: PackedWeight, a: torch.Tensor, impl: str, out_dtype,
+                    e: int = 0) -> torch.Tensor:
+    """The three-pass pipeline: a (K, N) float → (M, N) out_dtype. With
+    e > 0, a stacked `pw` and N = E*C tokens, expert e's C in turn → (E, M,
+    C): each pass is one call over every expert (the quantizer's scales
+    are per token, so one call over all E*C tokens gives each expert's
+    bits)."""
     _check_impl(impl)
     a_q, a_scale = act_quant_tokens(a)                               # (K, N) int8
-    parts = [_segment_gemm_int(packed, a_q[lo:hi], g, impl)
+    n = a.shape[1]
+    parts = [_segment_gemm_int(packed, a_q[lo:hi], g, impl, e)
              for packed, lo, hi, g in _segments(pw)]
     if not parts:
-        return torch.zeros((pw.M, a.shape[1]), dtype=out_dtype, device=a.device)
+        shape = (e, pw.M, n // e) if e else (pw.M, n)
+        return torch.zeros(shape, dtype=out_dtype, device=a.device)
     acc = parts[0] if len(parts) == 1 else parts[0] + parts[1]      # int32 sum
-    w_scale = pw.scale.expand(pw.M)
-    return ((acc.to(torch.float32) * w_scale[:, None]) * a_scale[None, :]).to(out_dtype)
+    if e:
+        w_scale, a_scale = pw.scale.expand(e, pw.M)[..., None], a_scale.view(e, 1, n // e)
+    else:
+        w_scale, a_scale = pw.scale.expand(pw.M)[:, None], a_scale[None, :]
+    return ((acc.to(torch.float32) * w_scale) * a_scale).to(out_dtype)
 
 
 def vlut_mpgemm(pw: PackedWeight, a: torch.Tensor, *, impl: str = "decode",
@@ -225,18 +248,17 @@ def ternary_matmul_batched(pw: PackedWeight, x: torch.Tensor, impl: str | None =
     activation scales are taken per (expert, row) over the full K, a
     single-segment weight is written straight in x's dtype, and a
     two-segment weight gives one f32 partial per segment, summed and then
-    cast. Each segment is ONE grouped launch over all E experts. The
-    unfused pipeline loops over the experts through the integer kernels,
-    E launches per segment (the grouped integer kernels are not ported)."""
+    cast. The unfused pipeline keeps `_mpgemm_unfused`'s passes, each
+    batched over the experts: one quantize over all E*C rows, one
+    de-interleave copy and one dequant. Either way each segment is ONE
+    grouped launch over all E experts."""
     impl = impl if impl is not None else _dispatch.impl
     fusion = fusion if fusion is not None else _dispatch.fusion
     _check_fusion(fusion)
     _check_impl(impl)
     e, c, k = x.shape
     if fusion == "unfused":
-        parts = [_mpgemm_unfused(PackedWeight(pw.packed5[i], pw.packed4[i], pw.scale[i], pw.K),
-                                 x[i].T, impl, x.dtype).T for i in range(e)]
-        return torch.stack(parts)
+        return _mpgemm_unfused(pw, x.reshape(e * c, k).T, impl, x.dtype, e=e).transpose(1, 2)
     if k > 1 and x.stride(2) != 1:
         x = x.contiguous()
     x_f = x if x.is_floating_point() else x.to(torch.float32)

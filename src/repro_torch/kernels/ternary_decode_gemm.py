@@ -1,6 +1,6 @@
-"""Ternary-decode mpGeMM: the fused kernel, its grouped form (E experts of
-one shape in one launch) and its integer twin, each with its CUDA kernel's
-wrapper, its plain PyTorch version and its launch count.
+"""Ternary-decode mpGeMM: the fused kernel and its integer twin, each also
+in a grouped form (E experts of one shape in one launch), each with its
+CUDA kernel's wrapper, its plain PyTorch version and its launch count.
 
 Ports of the TPU kernels `ternary_decode_gemm_fused` and
 `ternary_decode_gemm` (src/repro/kernels/ternary_decode_gemm.py). The CUDA
@@ -161,10 +161,12 @@ def fused_aligned(packed: torch.Tensor, x: torch.Tensor) -> tuple[bool, bool]:
 def int_aligned(packed: torch.Tensor, a_r: torch.Tensor) -> tuple[bool, bool]:
     """The integer kernel's alignment claims: codes as for `fused_aligned`;
     a_r in 4-byte words of 4 tokens where KG % 4 == 0, N % 4 == 0 and a_r's
-    base is 4-byte aligned."""
-    kg = packed.shape[1]
+    base is 4-byte aligned. Contiguous stacked operands (the grouped
+    kernel's) keep every expert's view so: their expert strides M*KG and
+    g*KG*N are then multiples of 4 too."""
+    kg = packed.shape[-1]
     codes = kg % 4 == 0 and packed.data_ptr() % 4 == 0
-    acts = kg % 4 == 0 and a_r.shape[2] % 4 == 0 and a_r.data_ptr() % 4 == 0
+    acts = kg % 4 == 0 and a_r.shape[-1] % 4 == 0 and a_r.data_ptr() % 4 == 0
     return codes, acts
 
 
@@ -234,6 +236,22 @@ def check_int_args(packed, a_r, g: int) -> None:
     if packed.device != a_r.device:
         raise ValueError(f"all operands must be on one device, got "
                          f"{packed.device} and {a_r.device}")
+
+
+def check_int_grouped_args(packed, a_r, g: int) -> None:
+    """Validate the grouped integer-mpGeMM contract shared by both kernels.
+
+    packed (E, M, KG) uint8 contiguous; a_r (E, g, KG, N) int8 contiguous;
+    E >= 1; each expert's slices meet `check_int_args`."""
+    if packed.ndim != 3 or a_r.ndim != 4:
+        raise ValueError(f"grouped operands must be stacked: packed (E, M, KG), a_r "
+                         f"(E, g, KG, N); got {tuple(packed.shape)}, {tuple(a_r.shape)}")
+    if packed.shape[0] != a_r.shape[0] or packed.shape[0] < 1:
+        raise ValueError(f"every operand needs the same expert count >= 1, got "
+                         f"{packed.shape[0]} and {a_r.shape[0]}")
+    if not (packed.is_contiguous() and a_r.is_contiguous()):
+        raise ValueError("packed and a_r must be contiguous")
+    check_int_args(packed[0], a_r[0], g)
 
 
 def check_f32_exact(k: int) -> None:
@@ -332,11 +350,13 @@ ternary_decode_gemm_fused_grouped.launches = 0
 def ternary_decode_gemm_plain(packed, a_r, *, g: int) -> torch.Tensor:
     """Plain version of the integer kernel: decode the trits and take the
     exact integer product W (M, K) · A_q (K, N) as one f32 matmul of exact
-    integers → (M, N) int32."""
-    _, kg, n = a_r.shape
+    integers → (M, N) int32. Stacked operands (a leading expert axis, as
+    the grouped kernel takes them) give one batched matmul: the plain
+    version of both kernels."""
+    *lead, _, kg, n = a_r.shape
     check_f32_exact(kg * g)
-    a_q = a_r.permute(1, 0, 2).reshape(kg * g, n).to(torch.float32)   # (K, N)
-    w = unpack_ternary(packed, g).to(torch.float32)                  # (M, K)
+    a_q = a_r.transpose(-3, -2).reshape(*lead, kg * g, n).to(torch.float32)   # (..., K, N)
+    w = unpack_ternary(packed, g).to(torch.float32)                  # (..., M, K)
     return (w @ a_q).to(torch.int32)
 
 
@@ -361,3 +381,32 @@ def ternary_decode_gemm(packed, a_r, *, g: int) -> torch.Tensor:
 
 
 ternary_decode_gemm.launches = 0
+
+
+def ternary_decode_gemm_grouped(packed, a_r, *, g: int) -> torch.Tensor:
+    """E integer products of one shape in one launch: packed (E, M, KG)
+    uint8 × a_r (E, g, KG, N) int8 → (E, M, N) int32, expert e bit for bit
+    `ternary_decode_gemm(packed[e], a_r[e])`. The counterpart of the TPU
+    kernel under `jax.vmap` over stacked expert weights (the MoE layers'
+    unfused pipeline).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    add one to ``ternary_decode_gemm_grouped.launches``) or raise."""
+    check_int_grouped_args(packed, a_r, g)
+    if a_r.device.type == "cpu":
+        return ternary_decode_gemm_plain(packed, a_r, g=g)
+    if a_r.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    e, m, kg = packed.shape
+    out = torch.empty((e, m, a_r.shape[3]), dtype=torch.int32, device=a_r.device)
+    if out.numel() == 0 or kg == 0:
+        return out.zero_()
+    codes, acts = int_aligned(packed, a_r)
+    plan = decode_plan(m, kg, a_r.shape[3], g, codes_aligned=codes, acts_aligned=acts, e=e)
+    _build.launch_decode_int_grouped(packed, a_r, g, out, plan,
+                                     *_splitk.launch_args(plan, a_r.device))
+    ternary_decode_gemm_grouped.launches += 1
+    return out
+
+
+ternary_decode_gemm_grouped.launches = 0

@@ -1,7 +1,7 @@
-"""Vector-LUT mpGeMM (the paper's kernel): the fused kernel, its grouped
-form (E experts of one shape in one launch) and its integer twin, each
-with its CUDA kernel's wrapper, its plain PyTorch version and its launch
-count.
+"""Vector-LUT mpGeMM (the paper's kernel): the fused kernel and its
+integer twin, each also in a grouped form (E experts of one shape in one
+launch), each with its CUDA kernel's wrapper, its plain PyTorch version and
+its launch count.
 
 Ports of the TPU kernels `vlut_lookup_gemm_fused` and `vlut_lookup_gemm`
 (src/repro/kernels/vlut_lookup_gemm.py). The CUDA source of both is
@@ -32,6 +32,7 @@ from .ternary_decode_gemm import (
     check_fused_args,
     check_grouped_args,
     check_int_args,
+    check_int_grouped_args,
     epilogue,
     quantize_tokens,
 )
@@ -247,7 +248,11 @@ vlut_lookup_gemm_fused_grouped.launches = 0
 
 def vlut_lookup_gemm_plain(packed, a_r, *, g: int) -> torch.Tensor:
     """Plain version of the integer kernel: the table gather of
-    `_lut_gather_int` on a_r (g, KG, N) int8 → (M, N) int32."""
+    `_lut_gather_int` on a_r (g, KG, N) int8 → (M, N) int32. Stacked
+    operands (a leading expert axis, as the grouped kernel takes them) run
+    expert by expert: the plain version of both kernels."""
+    if packed.ndim == 3:
+        return torch.stack([vlut_lookup_gemm_plain(pe, ae, g=g) for pe, ae in zip(packed, a_r)])
     q = a_r.permute(2, 1, 0).to(torch.float32)                       # (N, KG, g)
     return _lut_gather_int(q, packed, g).T.contiguous()
 
@@ -272,3 +277,30 @@ def vlut_lookup_gemm(packed, a_r, *, g: int) -> torch.Tensor:
 
 
 vlut_lookup_gemm.launches = 0
+
+
+def vlut_lookup_gemm_grouped(packed, a_r, *, g: int) -> torch.Tensor:
+    """E integer products of one shape in one launch: packed (E, M, KG)
+    uint8 × a_r (E, g, KG, N) int8 → (E, M, N) int32, expert e bit for bit
+    `vlut_lookup_gemm(packed[e], a_r[e])`. The counterpart of the TPU
+    kernel under `jax.vmap` over stacked expert weights (the MoE layers'
+    unfused pipeline).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    add one to ``vlut_lookup_gemm_grouped.launches``) or raise."""
+    check_int_grouped_args(packed, a_r, g)
+    if a_r.device.type == "cpu":
+        return vlut_lookup_gemm_plain(packed, a_r, g=g)
+    if a_r.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    e, m, kg = packed.shape
+    out = torch.empty((e, m, a_r.shape[3]), dtype=torch.int32, device=a_r.device)
+    if out.numel() == 0 or kg == 0:
+        return out.zero_()
+    plan = lut_plan(m, kg, a_r.shape[3], g, e=e)
+    _build.launch_lut_int_grouped(packed, a_r, g, out, plan, *_launch_args(plan, a_r.device))
+    vlut_lookup_gemm_grouped.launches += 1
+    return out
+
+
+vlut_lookup_gemm_grouped.launches = 0

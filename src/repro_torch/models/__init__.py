@@ -1,7 +1,7 @@
-"""repro_torch.models — the GQA decoder of the serving and training paths,
-ported from `repro.models` (attention mixer, dense FFN, dense and paged KV
-caches, chunked CE loss, the multi-token verify step and its cache
-bookkeeping)."""
+"""repro_torch.models — the decoder of the serving and training paths,
+ported from `repro.models` (attention and MLA mixers, dense and MoE FFNs,
+dense and paged KV caches, chunked CE loss, the multi-token verify step and
+its cache bookkeeping)."""
 from .common import linear_apply, rmsnorm_apply, rope
 from .convert import pack_params
 from .decoder import (
@@ -23,6 +23,7 @@ from .decoder import (
     stacked_shapes,
     verify_step,
 )
+from .mla import MLA, mla_apply, mla_cache_init, mla_init
 from .paged import (
     POOL_KEYS,
     compact_paged_block,
@@ -41,6 +42,7 @@ __all__ = [
     "lm_hidden", "lm_logits", "lm_loss", "prefill", "prefill_bucket",
     "prefill_into_slot", "rollback_cache", "scatter_slot_cache",
     "verify_step", "reset_slot_idx", "compact_tree_cache",
+    "MLA", "mla_apply", "mla_cache_init", "mla_init",
     "POOL_KEYS", "page_phys", "page_scatter", "page_view", "set_block_tables",
     "scrub_pages", "compact_paged_block", "gather_page", "restore_page",
 ]

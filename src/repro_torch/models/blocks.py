@@ -1,6 +1,6 @@
 """Pre-norm residual blocks (ported from `repro.models.blocks`): the
-attention mixer with a dense, Mixture-of-Experts or no FFN. The other
-mixers (MLA, SSM) and cross-attention are not ported yet."""
+attention or MLA mixer with a dense, Mixture-of-Experts or no FFN. The SSM
+mixer and cross-attention are not ported yet."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +8,11 @@ from torch import nn
 
 from .attention import attn_apply, attn_cache_init, attn_init
 from .common import rmsnorm_apply, rmsnorm_init
+from .mla import mla_apply, mla_cache_init, mla_init
 from .moe import dense_ffn_apply, dense_ffn_init, moe_apply, moe_init
+
+_MIXER_INIT = {"attn": attn_init, "mla": mla_init}
+_CACHE_INIT = {"attn": attn_cache_init, "mla": mla_cache_init}
 
 
 class Block(nn.Module):
@@ -19,17 +23,17 @@ class Block(nn.Module):
 
 
 def _check_spec(spec) -> None:
-    if spec.mixer != "attn" or spec.ffn not in ("dense", "moe", "none") or spec.cross_attn:
+    if spec.mixer not in _MIXER_INIT or spec.ffn not in ("dense", "moe", "none") or spec.cross_attn:
         raise NotImplementedError(
             f"layer {spec} is not ported yet: repro_torch has the attention "
-            "mixer with a dense, MoE or no FFN only"
+            "and MLA mixers with a dense, MoE or no FFN only"
         )
 
 
 def block_init(cfg, spec, *, generator, device) -> Block:
     _check_spec(spec)
     kw = dict(generator=generator, device=device)
-    mixer = attn_init(cfg, spec, **kw)
+    mixer = _MIXER_INIT[spec.mixer](cfg, spec, **kw)
     if spec.ffn == "none":
         return Block(rmsnorm_init(cfg.d_model, device), mixer)
     ffn = (moe_init(cfg, **kw) if spec.ffn == "moe"
@@ -45,8 +49,8 @@ def block_cache_init(cfg, spec, batch: int, max_len: int, dtype, device,
             "ssm layers carry recurrent state, not per-position KV — there "
             "is nothing page-granular to own, so paged caching refuses them")
     _check_spec(spec)
-    return attn_cache_init(cfg, spec, batch, max_len, dtype, device,
-                           page_size=page_size, n_pages=n_pages)
+    return _CACHE_INIT[spec.mixer](cfg, spec, batch, max_len, dtype, device,
+                                   page_size=page_size, n_pages=n_pages)
 
 
 def block_apply(p: Block, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
@@ -55,10 +59,14 @@ def block_apply(p: Block, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
     """→ (x, new_cache, aux_loss): aux is the MoE router loss (0 for other
     FFNs and outside training). `prefill_resume` selects the MLA mixer's
     chunked prefill read; the attention mixer reads the same way either
-    way, so it has no effect here (as in the JAX package)."""
+    way, so it does not take it (as in the JAX package)."""
     h = rmsnorm_apply(p.mixer_norm, x, cfg.norm_eps)
-    y, new_cache = attn_apply(p.mixer, h, cfg=cfg, spec=spec, mode=mode, cache=cache,
-                              verify=verify, tree=tree)
+    if spec.mixer == "mla":
+        y, new_cache = mla_apply(p.mixer, h, cfg=cfg, spec=spec, mode=mode, cache=cache,
+                                 verify=verify, tree=tree, prefill_resume=prefill_resume)
+    else:
+        y, new_cache = attn_apply(p.mixer, h, cfg=cfg, spec=spec, mode=mode, cache=cache,
+                                  verify=verify, tree=tree)
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn != "none":

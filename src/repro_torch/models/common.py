@@ -67,12 +67,23 @@ class Linear(nn.Module):
 def linear_init(k_in: int, m_out: int, cfg, *, generator: torch.Generator,
                 device, quant: bool = True, experts: int = 0) -> nn.Module:
     """A (k_in, m_out) linear; experts > 0 stacks that many on a leading
-    axis (a MoE layer's expert weights, (E, k_in, m_out))."""
-    lead = (experts,) if experts else ()
-    w = torch.randn((*lead, k_in, m_out), generator=generator, device=device,
-                    dtype=torch.float32) * (1.0 / (k_in ** 0.5))
+    axis (a MoE layer's expert weights, (E, k_in, m_out)), drawn one expert
+    at a time (deepseek-v3's 256 × 7168 × 2048 stack would otherwise pass
+    through a 15 GB f32 draw)."""
+    dtype = torch_dtype(cfg)
+
+    def draw():
+        w = torch.randn((k_in, m_out), generator=generator, device=device, dtype=torch.float32)
+        return (w * (1.0 / (k_in ** 0.5))).to(dtype)
+
+    if experts:
+        w = torch.empty((experts, k_in, m_out), dtype=dtype, device=device)
+        for e in range(experts):
+            w[e] = draw()
+    else:
+        w = draw()
     cls = QLinear if (quant and cfg.quant == "ternary") else Linear
-    return cls(w.to(torch_dtype(cfg)))
+    return cls(w)
 
 
 def linear_apply(p: nn.Module, x: torch.Tensor, mode: str = "serve") -> torch.Tensor:

@@ -26,7 +26,7 @@ from repro_torch import resolve_device
 from .blocks import block_apply, block_cache_init, block_init
 from .common import Linear, embed_apply, embed_init, linear_init, rmsnorm_apply, rmsnorm_init
 from .convert import pack_params
-from .paged import compact_paged_block
+from .paged import POOL_KEYS, compact_paged_block
 
 
 class LM(nn.Module):
@@ -279,7 +279,7 @@ def prefill_into_slot(model: LM, cache: list, slot: int, prompt, cfg, *,
     left-padded prefill into a fresh cache (pad positions negative, set via
     `rollback_cache`), then copied into the slot of the batched cache.
     → (logits (1, V), cache, padded_len)."""
-    device = cache[0]["k"].device
+    device = cache[0]["idx"].device
     n = len(prompt)
     bucket = prefill_bucket(n, max_len)
     single = init_cache(cfg, 1, max_len, device=device)
@@ -332,7 +332,9 @@ def compact_tree_cache(cache: list, pos: torch.Tensor, sel: torch.Tensor,
     Source indices past the buffer are clamped (their columns' writes are
     dropped: only a window crossing the buffer end has them), and columns
     whose destination passes the buffer end are dropped, never wrapped.
-    Only k, v and slot_pos are touched; idx is rollback's job.
+    Only the per-position leaves are touched (attention k, v and slot_pos;
+    MLA ckv and krope, which have no slot_pos: their slot index is their
+    position); idx is rollback's job.
 
     Paged layers (dicts carrying a ``tab``) route through
     `paged.compact_paged_block`: the same (B, N)-window gather and write,
@@ -350,14 +352,15 @@ def compact_tree_cache(cache: list, pos: torch.Tensor, sel: torch.Tensor,
         if "tab" in layer:
             compact_paged_block(layer, src, dst, live)
             continue
-        length = layer["slot_pos"].shape[1]
+        keys = [key for key in POOL_KEYS if key in layer]
+        length = layer[keys[0]].shape[1]
         keep = dst < length
         # dst past the end wraps onto slots below pos, distinct from the
         # row's in-range ones (N <= length): writing their current contents
         # back is the drop
         dst_w = torch.remainder(dst, length)
         src_c = src.clamp(max=length - 1)
-        for key in ("k", "v", "slot_pos"):
+        for key in keys:
             leaf = layer[key]
             gathered = leaf[bidx, src_c]
             if key == "slot_pos":

@@ -1,10 +1,11 @@
 """Paged KV cache primitives: a physical page pool + per-slot block tables
 (ported from `repro.models.paged`).
 
-Layout (one dict per attention layer, as the port's dense cache):
+Layout (one dict per attention or MLA layer, as the port's dense cache):
 
   * pool leaves — ``k``/``v``: ``(n_pages + 1, page_size, kv, hd)``,
-    ``slot_pos``: ``(n_pages + 1, page_size)``. One physical pool is shared
+    ``slot_pos``: ``(n_pages + 1, page_size)`` (GQA), or ``ckv``/``krope``:
+    ``(n_pages + 1, page_size, ·)`` (MLA). One physical pool is shared
     by every slot; ``n_pages`` *includes* the reserved null page 0, and the
     extra last page (index ``n_pages``) is the write sink described below.
   * ``tab``: ``(batch, max_len // page_size)`` int32 block table — entry
@@ -17,7 +18,9 @@ Layout (one dict per attention layer, as the port's dense cache):
 
 Null-page discipline: physical page 0 is never allocated. On the READ side
 an unmapped table entry gathers page 0, whose ``slot_pos`` is all ``-1``
-(the position mask never attends it). On the WRITE side an unmapped or
+(the position mask never attends it) and whose MLA content sits at
+logical positions beyond every live query (index-as-position, contiguous
+writes). On the WRITE side an unmapped or
 out-of-range target must not land on page 0, which every slot shares. JAX
 remaps such targets to ``n_pages``, one past its pool, and its scatter's
 ``mode="drop"`` discards them; torch has no dropping scatter, so each pool
@@ -28,10 +31,10 @@ too; `gather_page` and `restore_page` never touch it.
 
 Stale-entry safety mirrors the dense rollback argument, with one paging
 addition: a recycled page keeps its previous owner's content, so the host
-pager scrubs ``slot_pos = -1`` on every fresh allocation (`scrub_pages`).
-
-The MLA leaves (``ckv``/``krope``) of the JAX pool wait for the MLA port;
-`POOL_KEYS` keeps their names so the primitives treat them alike.
+pager scrubs ``slot_pos = -1`` on every fresh GQA allocation
+(`scrub_pages`). MLA pools need no scrub: index-as-position plus writes
+from the page start keep stale latents at logical positions above every
+live query until they are overwritten.
 """
 from __future__ import annotations
 
@@ -98,8 +101,11 @@ def scrub_pages(cache: list, pages: torch.Tensor) -> list:
 
     This is the paging leg of the stale-entry safety argument: a recycled
     page still holds its previous owner's recorded positions, which could
-    otherwise unmask garbage K/V for a new owner whose queries pass them."""
+    otherwise unmask garbage K/V for a new owner whose queries pass them.
+    MLA pools carry no slot_pos and need no scrub (index-as-position)."""
     for layer in _paged_layers(cache):
+        if "slot_pos" not in layer:
+            continue
         sp = layer["slot_pos"]
         sp[pages.clamp(max=pool_pages(sp))] = -1
     return cache

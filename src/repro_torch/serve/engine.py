@@ -222,9 +222,12 @@ class Engine:
         self.prefill_chunk = prefill_chunk
         self.token_budget = token_budget
         self.prefilling: dict[int, Request] = {}    # slot → mid-prefill request
-        # decode rows ride the chunk step unless speculation runs its own
-        # draft → verify step over them
-        self._decode_rides = spec is None
+        # decode rows ride the chunk step only when their logits come off
+        # the path plain decode uses: unless speculation runs its own draft
+        # → verify step over them, and never on MLA layers, whose decode is
+        # absorbed while the chunk step reads through prefill_resume (the
+        # naive expansion); those slots decode in their own step each tick
+        self._decode_rides = spec is None and not any(s.mixer == "mla" for s in specs)
         self.spec = spec
         self.drafter = None
         self._tree = None
@@ -482,8 +485,8 @@ class Engine:
         if self.prefilling:
             self._chunk_step()
             if not self._decode_rides:
-                # speculative engines run their own draft → verify step over
-                # the decoding slots in the same tick
+                # speculative and MLA engines run their own decode (or draft
+                # → verify) step over the decoding slots in the same tick
                 self.decode_once()
         else:
             self.decode_once()

@@ -227,6 +227,61 @@ def test_grouped_kernel_matches_plain_and_single_launches(cuda, impl):
                 assert not got[0][:, -1].any()
 
 
+GROUPED_INT = {
+    "decode": (tdg.ternary_decode_gemm_grouped, tdg.ternary_decode_gemm_plain),
+    "lookup": (vlg.vlut_lookup_gemm_grouped, vlg.vlut_lookup_gemm_plain),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+def test_grouped_int_kernel_matches_plain_and_single_launches(cuda, impl):
+    """Each grouped integer kernel (E experts in one launch) against its
+    plain version and E launches of the single integer kernel, bit for bit,
+    on the grouped split-K traps, launched twice back to back (the
+    experts' workspace and counters are left zeroed) and with C % 4 == 0
+    and != 0 (word and byte loads of a_r)."""
+    kern, plain = GROUPED_INT[impl]
+    single = INT_KERNELS[impl][0]
+    rng = np.random.default_rng(12)
+    for e, m, kg, g, c in GROUPED_TRAPS:
+        packed = torch.tensor(rng.integers(0, 3 ** g, (e, m, kg)).astype(np.uint8), device=cuda)
+        a_r = torch.tensor(rng.integers(-127, 128, (e, g, kg, c)).astype(np.int8), device=cuda)
+        before = kern.launches
+        got = [kern(packed, a_r, g=g) for _ in range(2)]
+        assert kern.launches == before + 2
+        want = plain(packed, a_r, g=g)
+        each = torch.stack([single(packed[i], a_r[i], g=g) for i in range(e)])
+        assert torch.equal(got[0], want) and torch.equal(got[1], want)
+        assert torch.equal(got[0], each)
+
+
+@pytest.mark.cuda
+def test_deepseek_smoke_serving_on_the_card_matches_the_cpu(cuda):
+    """The MLA mixer and the 4-expert MoE on the card: deepseek-v3-671b's
+    smoke config in f32 serves the CPU's greedy tokens with both impls,
+    fused and unfused (one grouped integer launch per expert segment)."""
+    cfg = get_config("deepseek-v3-671b", smoke=True).with_(dtype="float32")
+    model = pack_params(init_lm(cfg, torch.Generator().manual_seed(0)), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (5, 17, 30)]
+    outs = []
+    for impl, fusion, device in (("decode", "fused", "cpu"), ("decode", "fused", "cuda"),
+                                 ("lookup", "fused", "cuda"), ("decode", "unfused", "cuda"),
+                                 ("lookup", "unfused", "cuda")):
+        before = GROUPED_INT[impl][0].launches
+        eng = Engine(model, cfg, max_slots=2, max_len=48, mpgemm_impl=impl,
+                     mpgemm_fusion=fusion, device=device)
+        sched = ContinuousBatchingScheduler(eng)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        sched.submit(reqs)
+        assert sched.run_to_completion().completed == 3
+        assert (GROUPED_INT[impl][0].launches > before) == (fusion == "unfused" and device == "cuda")
+        outs.append([r.generated for r in reqs])
+    assert outs[0] == outs[1] == outs[2]
+    assert outs[3] == outs[4]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["decode", "lookup"])
 def test_unfused_pipeline_on_the_card(cuda, impl):

@@ -75,11 +75,16 @@ def test_plan_tiles_cover_exactly(m, kg, n, g, aligned):
 
 #: grouped launches (E, M, KG, g, N): llama4-scout's routed experts (w1/w3:
 #: M 8192, K 5120; w2: M 5120, K 8192 = 1636 g=5 + 3 g=4 groups) at decode,
-#: verify and prefill N, and ragged traps (odd E, M off the tiles, N 5 and
-#: 17, KG not divisible by the splits)
+#: verify and prefill N; deepseek-v3-671b's 256 (w1/w3: M 2048, K 7168 =
+#: 1432 g=5 + 2 g=4 groups; w2: M 7168, K 2048 = 408 + 2) at C 16; and
+#: ragged traps (odd E, M off the tiles, N 5 and 17, KG not divisible by
+#: the splits)
+DEEPSEEK_EXPERTS = [(256, 2048, 1432, 5, 16), (256, 2048, 2, 4, 16),
+                    (256, 7168, 408, 5, 16), (256, 7168, 2, 4, 16)]
 GROUPED_CASES = (
     [(16, 8192, 1024, 5, n) for n in (4, 16, 64)]
     + [(16, 5120, 1636, 5, 16), (16, 5120, 3, 4, 16)]
+    + DEEPSEEK_EXPERTS
     + [(3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (3, 1000, 191, 5, 5), (1, 960, 192, 5, 4)]
 )
 
@@ -102,7 +107,7 @@ def test_grouped_plan_counts_the_experts(e, m, kg, g, n, monkeypatch):
     else:
         cap = kg // 4 if kg % 4 == 0 else kg
         assert min(tdg.WAVE, tiles * cap) <= p.blocks <= 2 * tdg.WAVE, p
-    if e == 16:
+    if e >= 16:
         assert p.splits == 1
     assert tdg.decode_plan(m, kg, n, g, e=1) == tdg.decode_plan(m, kg, n, g)
     if p.splits > 1:    # the workspace the wrapper would pass, sized here on the CPU
@@ -208,6 +213,33 @@ def test_alignment_predicate_on_the_models_views():
                     assert tdg.fused_aligned(packed, x[:, lo:hi]) == (want, want)
                     a_r = ops._deinterleave(a_q[lo:hi], g)
                     assert tdg.int_aligned(packed, a_r) == (want, want and n % 4 == 0)
+
+
+@pytest.mark.parametrize("e,m,kg,g,n", DEEPSEEK_EXPERTS)
+def test_grouped_integer_plan_on_the_stacked_views(e, m, kg, g, n):
+    """The grouped integer kernel's operands as `ops._deinterleave(a_q, g,
+    e)` stacks them (E experts' C rows in turn): every expert's a_r slice
+    is its single product's de-interleaved copy; the alignment claims hold
+    for the stacked tensors exactly where a single expert's hold (word
+    loads of codes and a_r where KG % 4 == 0 and C % 4 == 0: every
+    deepseek segment but the 2-group g=4 ones); the plan at E = 256 is the
+    launch the wrapper makes, its workspace E*M*N and counters E*tiles.
+    Checked at 3 experts of the real (M, KG, C): the plan does not depend
+    on the tensors."""
+    rng = np.random.default_rng(kg + m)
+    packed = torch.tensor(rng.integers(0, 3 ** g, (3, m, kg)).astype(np.uint8))
+    a_q = torch.tensor(rng.integers(-127, 128, (kg * g, 3 * n)).astype(np.int8))
+    a_r = ops._deinterleave(a_q, g, 3)
+    assert a_r.shape == (3, g, kg, n) and a_r.is_contiguous()
+    for i in range(3):
+        single = ops._deinterleave(a_q[:, i * n:(i + 1) * n].contiguous(), g)
+        assert torch.equal(a_r[i], single)
+        assert tdg.int_aligned(packed[i], a_r[i]) == tdg.int_aligned(packed, a_r)
+    want = kg % 4 == 0
+    assert tdg.int_aligned(packed, a_r) == (want, want and n % 4 == 0)
+    p = tdg.decode_plan(m, kg, n, g, codes_aligned=want, acts_aligned=want, e=e)
+    assert p.e == 256 and p.splits == 1 and p.blocks == 256 * p.m_tiles * p.n_tiles
+    assert p.smem == tdg.decode_smem_bytes(g, p.bn, p.kstep) <= SMEM_STATIC_MAX
 
 
 def test_alignment_predicate_rejects_offset_pointers_and_strides():
@@ -437,6 +469,25 @@ def test_emulated_fused_kernel_equals_plain(m, kg, n, g, dt):
     want = tdg.ternary_decode_gemm_fused_plain(torch.tensor(packed), x, a_scale, w_scale,
                                                g=g, out_dtype=dt)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("e,m,kg,g,n", [(3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (2, 64, 40, 5, 16)])
+def test_emulated_grouped_integer_kernel_equals_plain(e, m, kg, g, n):
+    """The grouped integer kernel, emulated expert by expert with the
+    grouped plan (each expert's blocks add into its own workspace slice),
+    equals `ternary_decode_gemm_grouped` (its plain version on the CPU) and
+    E single integer calls bit for bit; every case splits K."""
+    rng = np.random.default_rng(e + m + kg)
+    packed = rng.integers(0, 3 ** g, (e, m, kg)).astype(np.uint8)
+    a_r = rng.integers(-127, 128, (e, g, kg, n)).astype(np.int8)
+    plan = tdg.decode_plan(m, kg, n, g, e=e)
+    assert plan.splits > 1
+    got = np.stack([_emulate(packed[i], a_r[i], plan, "int") for i in range(e)])
+    want = tdg.ternary_decode_gemm_grouped(torch.tensor(packed), torch.tensor(a_r), g=g)
+    assert torch.equal(torch.tensor(got), want)
+    for i in range(e):
+        assert torch.equal(want[i], tdg.ternary_decode_gemm(torch.tensor(packed[i]),
+                                                            torch.tensor(a_r[i]), g=g))
 
 
 def test_emulated_saturated_sums_at_the_largest_split():

@@ -36,6 +36,12 @@ def test_walk_covers_the_package():
     assert "src/repro_torch/serve/engine.py" in rels
 
 
+def test_walk_covers_the_mla_slice():
+    rels = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"src/repro_torch/models/mla.py", "src/repro_torch/configs/deepseek_v3_671b.py",
+            "src/repro_torch/kernels/ternary_decode_gemm.py"} <= rels
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))

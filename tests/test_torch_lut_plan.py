@@ -57,11 +57,16 @@ def test_plan_tiles_cover_exactly(m, kg, n, g):
 
 
 #: grouped launches (E, M, KG, g, N): llama4-scout's routed experts at
-#: decode, verify and prefill N, and ragged traps (odd E, M off the tiles,
-#: N 5 and 17, KG not divisible by the splits)
+#: decode, verify and prefill N; deepseek-v3-671b's 256 (w1/w3: M 2048, K
+#: 7168 = 1432 g=5 + 2 g=4 groups; w2: M 7168, K 2048 = 408 + 2) at C 16;
+#: and ragged traps (odd E, M off the tiles, N 5 and 17, KG not divisible
+#: by the splits)
+DEEPSEEK_EXPERTS = [(256, 2048, 1432, 5, 16), (256, 2048, 2, 4, 16),
+                    (256, 7168, 408, 5, 16), (256, 7168, 2, 4, 16)]
 GROUPED_CASES = (
     [(16, 8192, 1024, 5, n) for n in (4, 16, 64)]
     + [(16, 5120, 1636, 5, 16), (16, 5120, 3, 4, 16)]
+    + DEEPSEEK_EXPERTS
     + [(3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (3, 1000, 191, 5, 5), (1, 960, 192, 5, 4)]
 )
 
@@ -83,7 +88,7 @@ def test_grouped_plan_counts_the_experts(e, m, kg, g, n, monkeypatch):
         assert p.splits == 1, p
     else:
         assert min(vlg.WAVE, tiles * kg) <= p.blocks <= 2 * vlg.WAVE, p
-    if e == 16:
+    if e >= 16:
         assert p.splits == 1
     assert vlg.lut_plan(m, kg, n, g, e=1) == vlg.lut_plan(m, kg, n, g)
     if p.splits > 1:    # the workspace the wrapper would pass, sized here on the CPU
@@ -186,3 +191,33 @@ def test_split_k_sums_equal_the_plain_version(m, kg, n, g):
     p, got = _tiled_plain(packed, a_r, g)
     assert p.splits > 1 or p.n_tiles > 1
     assert torch.equal(got, vlg.vlut_lookup_gemm_plain(packed, a_r, g=g))
+
+
+@pytest.mark.parametrize("e,m,kg,g,n", [(3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (2, 256, 40, 5, 16)])
+def test_grouped_integer_split_k_sums_equal_the_plain_version(e, m, kg, g, n):
+    """The grouped integer kernel's decomposition: each expert's blocks of
+    the grouped plan (its own rows, tokens, K-splits and chunks, summed into
+    its own output slice) give `vlut_lookup_gemm_grouped` (its plain
+    version on the CPU) and E single integer calls bit for bit; every case
+    splits K."""
+    rng = np.random.default_rng(e + m + kg)
+    packed = torch.tensor(rng.integers(0, 3 ** g, (e, m, kg)).astype(np.uint8))
+    a_r = torch.tensor(rng.integers(-127, 128, (e, g, kg, n)).astype(np.int8))
+    p = vlg.lut_plan(m, kg, n, g, e=e)
+    assert p.splits > 1
+    want = vlg.vlut_lookup_gemm_grouped(packed, a_r, g=g)
+    for i in range(e):
+        got = torch.zeros((m, n), dtype=torch.int32)
+        for x in range(p.m_tiles):
+            r0, r1 = p.rows(x)
+            for y in range(p.n_tiles):
+                t0, t1 = p.tokens(y)
+                for z in range(p.splits):
+                    k0, k1 = p.kgroups(z)
+                    for c0 in range(k0, k1, p.chunk):
+                        c1 = min(k1, c0 + p.chunk)
+                        got[r0:r1, t0:t1] += vlg.vlut_lookup_gemm_plain(
+                            packed[i, r0:r1, c0:c1].contiguous(),
+                            a_r[i, :, c0:c1, t0:t1].contiguous(), g=g)
+        assert torch.equal(got, want[i])
+        assert torch.equal(want[i], vlg.vlut_lookup_gemm(packed[i], a_r[i], g=g))

@@ -1,8 +1,10 @@
 """The unfused mpGeMM pipeline of repro_torch against the JAX package's: the
 integer kernels' plain versions against the JAX Pallas kernels in interpret
 mode (as the JAX package's own CPU tests run them), `vlut_mpgemm` and
-`segment_mpgemm` with fusion off, the dispatch knob, the wrappers' device
-contract, and greedy serving with `Engine(mpgemm_fusion="unfused")`."""
+`segment_mpgemm` with fusion off, the batched (MoE) pipeline against
+JAX's vmapped one and its grouped integer kernels, the dispatch knob, the
+wrappers' device contract, and greedy serving with
+`Engine(mpgemm_fusion="unfused")`."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,6 +20,7 @@ from repro.core import pack_ternary as jpack_ternary  # noqa: E402
 from repro.core import pack_weight as jpack_weight  # noqa: E402
 from repro.core import ternary_quantize as jternary  # noqa: E402
 from repro.kernels import segment_mpgemm as jsegment_mpgemm  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ternary_decode_gemm as jdecode  # noqa: E402
 from repro.kernels import vlut_lookup_gemm as jlookup  # noqa: E402
 from repro.kernels import vlut_mpgemm as jvlut_mpgemm  # noqa: E402
@@ -190,6 +193,95 @@ def test_ternary_matmul_unfused_leading_dims(monkeypatch):
         ops.vlut_mpgemm(tp, x.reshape(24, 57).T, fusion="staged")
     with pytest.raises(NotImplementedError):
         ops.vlut_mpgemm(tp, x.reshape(24, 57).T, impl="xla", fusion="unfused")
+
+
+def _stacked_packed(e, m, k, seed=0):
+    """(JAX stacked PackedWeight, port stacked PackedWeight) of E experts'
+    (M, K) weights: codes (E, M, KG), scales (E, M)."""
+    rng = np.random.default_rng(seed)
+    tw = jternary(jnp.asarray(rng.standard_normal((e, m, k)).astype(np.float32)))
+    jp = jpack_weight(tw.values, tw.scale)
+    tp = PackedWeight(torch.tensor(np.asarray(jp.packed5)), torch.tensor(np.asarray(jp.packed4)),
+                      torch.tensor(np.asarray(jp.scale)), K=jp.K)
+    return jp, tp
+
+
+_jit_vmap_unfused = {
+    impl: jax.jit(jax.vmap(lambda pw, xe, impl=impl: jops.ternary_matmul(pw, xe, impl=impl,
+                                                                         fusion="unfused")))
+    for impl in ("decode", "lookup")}
+
+
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,m,k,c", [(3, 17, 57, 5), (4, 24, 40, 16)])
+def test_batched_unfused_matches_jax_vmap(impl, dtype, e, m, k, c, monkeypatch):
+    """`ternary_matmul_batched(fusion="unfused")` against JAX's
+    `jax.vmap(ternary_matmul)` over stacked experts with the unfused
+    pipeline (interpreted Pallas integer kernels), bit for bit, and
+    against E single `ternary_matmul` calls (K = 57: two segments; K = 40:
+    one); the port makes ONE grouped integer launch per segment and no
+    single integer launch."""
+    jp, tp = _stacked_packed(e, m, k, seed=e + k)
+    x = (np.random.default_rng(c).standard_normal((e, c, k)) * 3).astype(np.float32)
+    with jops.dispatch_override(interpret=True):
+        want = _jit_vmap_unfused[impl](jp, jnp.asarray(x).astype(dtype))
+    calls = []
+    for name, kern in list(ops._INT_GROUPED_KERNELS.items()):
+        monkeypatch.setitem(ops._INT_GROUPED_KERNELS, name,
+                            lambda *a, _k=kern, _n=name, **kw: calls.append(_n) or _k(*a, **kw))
+    monkeypatch.setattr(ops, "_INT_KERNELS", {})
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = ops.ternary_matmul_batched(tp, xt, impl=impl, fusion="unfused")
+    assert got.shape == (e, c, m) and got.dtype == xt.dtype
+    assert calls == [impl] * len(ops._segments(tp))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    monkeypatch.undo()
+    for i in range(e):
+        pw = PackedWeight(tp.packed5[i], tp.packed4[i], tp.scale[i], tp.K)
+        assert torch.equal(got[i], ops.ternary_matmul(pw, xt[i], impl=impl, fusion="unfused"))
+
+
+GROUPED_INT = {"decode": tdg.ternary_decode_gemm_grouped, "lookup": vlg.vlut_lookup_gemm_grouped}
+
+
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+@pytest.mark.parametrize("e,m,kg,n,g", [(3, 10, 7, 5, 5), (1, 19, 4, 8, 4), (5, 33, 12, 17, 5)])
+def test_grouped_int_kernels_are_the_single_kernel_per_expert(impl, e, m, kg, n, g):
+    """The grouped integer wrappers (their plain version on the CPU): expert
+    e of packed (E, M, KG) × a_r (E, g, KG, N) is the single integer
+    kernel on expert e's slices, bit for bit, and the launch counts stay
+    untouched on the CPU."""
+    rng = np.random.default_rng(e * m + kg)
+    packed = torch.tensor(rng.integers(0, 3 ** g, (e, m, kg)).astype(np.uint8))
+    a_r = torch.tensor(rng.integers(-127, 128, (e, g, kg, n)).astype(np.int8))
+    before = GROUPED_INT[impl].launches
+    got = GROUPED_INT[impl](packed, a_r, g=g)
+    assert got.shape == (e, m, n) and got.dtype == torch.int32
+    for i in range(e):
+        assert torch.equal(got[i], INT_KERNELS[impl](packed[i], a_r[i], g=g))
+    assert GROUPED_INT[impl].launches == before
+
+
+def test_grouped_int_argument_checks():
+    packed = torch.zeros((2, 4, 8), dtype=torch.uint8)
+    a_r = torch.zeros((2, 5, 8, 3), dtype=torch.int8)
+    for kern in GROUPED_INT.values():
+        assert kern(packed, a_r, g=5).shape == (2, 4, 3)
+        bad = [
+            (packed, a_r, 3),                                          # g
+            (packed[0], a_r, 5),                                       # packed not stacked
+            (packed, a_r[0], 5),                                       # a_r not stacked
+            (packed, a_r[:1], 5),                                      # expert counts
+            (packed[:, :, :4], a_r[:, :, :4], 5),                      # packed not contiguous
+            (packed, a_r.transpose(2, 3).contiguous().transpose(2, 3), 5),   # a_r not contiguous
+            (packed, a_r.to(torch.int16), 5),                          # a_r dtype
+            (packed, torch.zeros((2, 5, 7, 3), dtype=torch.int8), 5),  # a_r's KG
+            (packed, a_r.to("meta"), 5),                               # two devices
+        ]
+        for p, a, g in bad:
+            with pytest.raises(ValueError):
+                kern(p, a, g=g)
 
 
 def test_int_argument_checks():
