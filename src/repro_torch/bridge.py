@@ -25,6 +25,7 @@ from repro_torch.models.common import Embedding, Linear, PackedLinear, QLinear, 
 from repro_torch.models.decoder import LM, compress_layout
 from repro_torch.models.mla import MLA
 from repro_torch.models.moe import DenseFFN, MoEFFN
+from repro_torch.models.ssm import SSM
 
 
 def to_torch(arr, device) -> torch.Tensor:
@@ -74,8 +75,13 @@ def _ffn(node, r, device):
 
 def _mixer(mx, r, device):
     """The MLA mixer where the node carries its latent projections
-    ("wq_a", ...), else the GQA attention mixer (with its optional q/k
-    norms)."""
+    ("wq_a", ...), the SSM mixer where it carries "in_proj", else the GQA
+    attention mixer (with its optional q/k norms)."""
+    if "in_proj" in mx:
+        return SSM(_linear(mx["in_proj"], r, device),
+                   *(to_torch(np.asarray(mx[k])[r], device)
+                     for k in ("conv_w", "conv_b", "A_log", "D", "dt_bias")),
+                   _norm(mx["norm"], r, device), _linear(mx["out_proj"], r, device))
     if "wq_a" in mx:
         return MLA(*(_norm(mx[k], r, device) if k.endswith("norm") else _linear(mx[k], r, device)
                      for k in ("wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b", "wo")))

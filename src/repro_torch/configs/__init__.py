@@ -2,18 +2,24 @@
 
 Each module exposes CONFIG (the published dims) and SMOKE (a reduced
 same-family config for CPU tests), as in the JAX package. Only the
-architectures whose serving path has been ported are registered; asking for
-any other raises."""
+architectures whose serving path has been ported are registered (every
+decoder-only one); asking for any other (the enc-dec whisper-medium) raises."""
 from __future__ import annotations
 
 import importlib
 
-from .base import LayerSpec, MLAConfig, MoEConfig, ModelConfig, uniform_layers
+from .base import LayerSpec, MLAConfig, MoEConfig, ModelConfig, SSMConfig, uniform_layers
 
 _MODULES = {
     "smollm-360m": "smollm_360m",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "gemma3-1b": "gemma3_1b",
+    "internlm2-1.8b": "internlm2_1_8b",
+    "command-r-35b": "command_r_35b",
+    "chameleon-34b": "chameleon_34b",
 }
 
 
@@ -27,5 +33,5 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["LayerSpec", "MLAConfig", "MoEConfig", "ModelConfig", "uniform_layers",
+__all__ = ["LayerSpec", "MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig", "uniform_layers",
            "get_config"]

@@ -1,6 +1,6 @@
 """Serving launcher: continuous batching over synthetic requests.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m|llama4-scout-17b-a16e \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch ARCH \
       [--smoke] [--device cuda|cpu] [--mpgemm-impl decode|lookup] \
       [--spec-k N [--spec-adaptive | --spec-tree B1,B2,...]] \
       [--prefill-chunk N [--token-budget T]] \
@@ -15,6 +15,12 @@ prefill/decode step; --token-budget caps the real tokens per tick.
 --page-size P serves from a paged KV cache of P-token pages with radix
 prompt-prefix sharing; --kv-pages sizes its pool and --offload-pages its
 host-RAM tier for cold prefix pages.
+
+ARCH is any decoder-only architecture of `repro_torch.configs`:
+smollm-360m, gemma3-1b, internlm2-1.8b, command-r-35b, chameleon-34b,
+llama4-scout-17b-a16e, deepseek-v3-671b, mamba2-1.3b, jamba-1.5-large-398b.
+SSM layers (mamba2, jamba) and windowed layers (gemma3) serve whole prompts
+only: the engine refuses speculation, chunked prefill and paging on them.
 
 Weights are random, drawn from a seeded `torch.Generator` on the device and
 packed a layer at a time (`init_lm(..., packed=True)`: llama4-scout's dense

@@ -1,5 +1,5 @@
 """repro_torch.models — the decoder of the serving and training paths,
-ported from `repro.models` (attention and MLA mixers, dense and MoE FFNs,
+ported from `repro.models` (attention, MLA and SSM mixers, dense and MoE FFNs,
 dense and paged KV caches, chunked CE loss, the multi-token verify step and
 its cache bookkeeping)."""
 from .common import linear_apply, rmsnorm_apply, rope
@@ -35,6 +35,7 @@ from .paged import (
     scrub_pages,
     set_block_tables,
 )
+from .ssm import SSM, ssm_apply, ssm_cache_init, ssm_init
 
 __all__ = [
     "linear_apply", "rmsnorm_apply", "rope", "pack_params", "LM", "compress_layout",
@@ -45,4 +46,5 @@ __all__ = [
     "MLA", "mla_apply", "mla_cache_init", "mla_init",
     "POOL_KEYS", "page_phys", "page_scatter", "page_view", "set_block_tables",
     "scrub_pages", "compact_paged_block", "gather_page", "restore_page",
+    "SSM", "ssm_apply", "ssm_cache_init", "ssm_init",
 ]

@@ -1,6 +1,6 @@
 """Pre-norm residual blocks (ported from `repro.models.blocks`): the
-attention or MLA mixer with a dense, Mixture-of-Experts or no FFN. The SSM
-mixer and cross-attention are not ported yet."""
+attention, MLA or SSM mixer with a dense, Mixture-of-Experts or no FFN.
+Cross-attention (the enc-dec decoder's) is not ported yet."""
 from __future__ import annotations
 
 import torch
@@ -10,9 +10,10 @@ from .attention import attn_apply, attn_cache_init, attn_init
 from .common import rmsnorm_apply, rmsnorm_init
 from .mla import mla_apply, mla_cache_init, mla_init
 from .moe import dense_ffn_apply, dense_ffn_init, moe_apply, moe_init
+from .ssm import ssm_apply, ssm_cache_init, ssm_init
 
-_MIXER_INIT = {"attn": attn_init, "mla": mla_init}
-_CACHE_INIT = {"attn": attn_cache_init, "mla": mla_cache_init}
+_MIXER_INIT = {"attn": attn_init, "mla": mla_init, "ssm": ssm_init}
+_CACHE_INIT = {"attn": attn_cache_init, "mla": mla_cache_init, "ssm": ssm_cache_init}
 
 
 class Block(nn.Module):
@@ -25,8 +26,8 @@ class Block(nn.Module):
 def _check_spec(spec) -> None:
     if spec.mixer not in _MIXER_INIT or spec.ffn not in ("dense", "moe", "none") or spec.cross_attn:
         raise NotImplementedError(
-            f"layer {spec} is not ported yet: repro_torch has the attention "
-            "and MLA mixers with a dense, MoE or no FFN only"
+            f"layer {spec} is not ported yet: repro_torch has the attention, "
+            "MLA and SSM mixers with a dense, MoE or no FFN only"
         )
 
 
@@ -64,6 +65,12 @@ def block_apply(p: Block, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
     if spec.mixer == "mla":
         y, new_cache = mla_apply(p.mixer, h, cfg=cfg, spec=spec, mode=mode, cache=cache,
                                  verify=verify, tree=tree, prefill_resume=prefill_resume)
+    elif spec.mixer == "ssm":
+        if verify:
+            raise ValueError(
+                "multi-token verification needs a rollbackable cache; "
+                "ssm mixers carry recurrent state and cannot be verified")
+        y, new_cache = ssm_apply(p.mixer, h, cfg=cfg, spec=spec, mode=mode, cache=cache)
     else:
         y, new_cache = attn_apply(p.mixer, h, cfg=cfg, spec=spec, mode=mode, cache=cache,
                                   verify=verify, tree=tree)

@@ -1,5 +1,6 @@
 """Shared model building blocks: linears (QAT-ternary / packed-serve /
-dense), RMSNorm, RoPE, embeddings (ported from `repro.models.common`).
+dense), RMSNorm and its gated form, RoPE, embeddings (ported from
+`repro.models.common`).
 
 The JAX package keeps parameters as nested dicts keyed "qw" (dense weight of
 a quantizable linear, (K_in, M_out)), "pw" (its packed form) and "w" (a
@@ -131,6 +132,13 @@ def rmsnorm_apply(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     xf = x.to(torch.float32)
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p.scale).to(x.dtype)
+
+
+def gated_rmsnorm_apply(p: RMSNorm, x: torch.Tensor, gate: torch.Tensor,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's norm(x * silu(gate)): the gate is cast to x's dtype and
+    the product rounded there before the f32 norm, as in the JAX package."""
+    return rmsnorm_apply(p, x * torch.nn.functional.silu(gate.to(x.dtype)), eps)
 
 
 # --------------------------------------------------------------------------

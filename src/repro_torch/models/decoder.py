@@ -274,14 +274,15 @@ def prefill_bucket(n: int, max_len: int | None = None) -> int:
 
 
 def prefill_into_slot(model: LM, cache: list, slot: int, prompt, cfg, *,
-                      max_len: int):
+                      max_len: int, exact_len: bool = False):
     """Admit one prompt into batched slot `slot`: a B=1 bucketed,
     left-padded prefill into a fresh cache (pad positions negative, set via
     `rollback_cache`), then copied into the slot of the batched cache.
-    → (logits (1, V), cache, padded_len)."""
+    exact_len skips the bucket (SSM layers cannot mask pads inside the
+    scan): no padding and no rollback. → (logits (1, V), cache, padded_len)."""
     device = cache[0]["idx"].device
     n = len(prompt)
-    bucket = prefill_bucket(n, max_len)
+    bucket = n if exact_len else prefill_bucket(n, max_len)
     single = init_cache(cfg, 1, max_len, device=device)
     if bucket != n:
         single = rollback_cache(single, torch.tensor([n - bucket], dtype=torch.int32, device=device))
@@ -292,7 +293,9 @@ def prefill_into_slot(model: LM, cache: list, slot: int, prompt, cfg, *,
 
 
 def scatter_slot_cache(full_cache: list, single_cache: list, slot: int) -> list:
-    """Copy a B=1 cache into batched slot `slot`, in place."""
+    """Copy a B=1 cache into batched slot `slot`, in place: every leaf of
+    each layer's dict (attention K/V and positions, MLA latents, SSM conv
+    history and state, idx)."""
     for full, one in zip(full_cache, single_cache):
         for key, leaf in full.items():
             leaf[slot:slot + 1] = one[key].to(leaf.dtype)

@@ -347,10 +347,12 @@ class Engine:
         if self.pager is not None:
             self._paged_prefill(slot, req, matched)
             return True
+        # SSM layers cannot mask pads inside the scan: exact lengths
+        has_ssm = any(s.mixer == "ssm" for s in self.cfg.layer_specs())
         with kernel_ops.dispatch_override(**self._mpgemm):
             logits, self.cache, padded = prefill_into_slot(
                 self.params, self.cache, slot, req.prompt, self.cfg,
-                max_len=self.max_len,
+                max_len=self.max_len, exact_len=has_ssm,
             )
         self.prefill_tokens += len(req.prompt)
         self.prefill_pad_tokens += padded - len(req.prompt)

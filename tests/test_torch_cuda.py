@@ -86,6 +86,37 @@ def test_int_kernel_matches_plain(cuda, impl):
         assert int(got.min()) == int(got.max()) == 127 * 64 * g
 
 
+#: the segments (M, KG, g) of mamba2-1.3b's and gemma3-1b's BitLinears:
+#: g=4 segments of 2, 4, 3 and 1 K-groups, M 256 and 8512
+NEW_SEGMENTS = [(8512, 408, 5), (8512, 2, 4), (2048, 816, 5), (2048, 4, 4), (1024, 228, 5),
+                (1024, 3, 4), (256, 228, 5), (256, 3, 4), (1152, 204, 5), (1152, 1, 4),
+                (6912, 228, 5), (6912, 3, 4), (1152, 1380, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+@pytest.mark.parametrize("n", [1, 4, 17, 61, 200])
+def test_kernels_match_plain_at_the_new_shapes(cuda, impl, n):
+    """Fused (bf16 and f32) and integer kernels against their plain
+    versions, bit for bit, at every new segment and exact-length N; the
+    fused kernels read the segment's view of a (N, K) activation in place,
+    as the model passes it."""
+    kern, plain = KERNELS[impl]
+    ikern, iplain = INT_KERNELS[impl]
+    rng = np.random.default_rng(n)
+    for m, kg, g in NEW_SEGMENTS:
+        packed = torch.tensor(rng.integers(0, 3 ** g, (m, kg)).astype(np.uint8), device=cuda)
+        wide = torch.tensor(rng.standard_normal((n, kg * g + 16)).astype(np.float32), device=cuda)
+        x = wide[:, 16:]
+        w_scale = torch.tensor(rng.random(m).astype(np.float32), device=cuda)
+        for dt in (torch.float32, torch.bfloat16):
+            a_scale = act_token_scale(x.to(dt).T).contiguous()
+            got = kern(packed, x.to(dt), a_scale, w_scale, g=g, out_dtype=dt)
+            assert torch.equal(got, plain(packed, x.to(dt), a_scale, w_scale, g=g, out_dtype=dt))
+        a_r = torch.tensor(rng.integers(-127, 128, (g, kg, n)).astype(np.int8), device=cuda)
+        assert torch.equal(ikern(packed, a_r, g=g), iplain(packed, a_r, g=g))
+
+
 # (M, KG, N, g): ragged M, N = 17 and 33, KG not divisible by the plan's
 # splits, a g=4 segment of one K-group, smollm-360m's q at a decode step
 LUT_TRAPS = [(70, 13, 17, 5), (1000, 77, 33, 5), (1000, 191, 17, 4), (70, 1, 3, 4),
@@ -280,6 +311,32 @@ def test_deepseek_smoke_serving_on_the_card_matches_the_cpu(cuda):
         outs.append([r.generated for r in reqs])
     assert outs[0] == outs[1] == outs[2]
     assert outs[3] == outs[4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b", "gemma3-1b"])
+def test_ssm_and_windowed_smoke_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """The SSM mixer (exact-length prefill, recurrent decode), jamba's
+    hybrid stack and gemma3's ring cache on the card: each smoke config in
+    f32 serves the CPU's greedy tokens with both impls, fused and
+    unfused."""
+    cfg = get_config(arch, smoke=True).with_(dtype="float32")
+    model = pack_params(init_lm(cfg, torch.Generator().manual_seed(0)), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (5, 17, 30)]
+    outs = []
+    for impl, fusion, device in (("decode", "fused", "cpu"), ("decode", "fused", "cuda"),
+                                 ("lookup", "fused", "cuda"), ("decode", "unfused", "cpu"),
+                                 ("decode", "unfused", "cuda"), ("lookup", "unfused", "cuda")):
+        eng = Engine(model, cfg, max_slots=2, max_len=48, mpgemm_impl=impl,
+                     mpgemm_fusion=fusion, device=device)
+        sched = ContinuousBatchingScheduler(eng)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        sched.submit(reqs)
+        assert sched.run_to_completion().completed == 3
+        outs.append([r.generated for r in reqs])
+    assert outs[0] == outs[1] == outs[2]
+    assert outs[3] == outs[4] == outs[5]
 
 
 @pytest.mark.cuda

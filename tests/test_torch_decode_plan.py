@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.core import act_token_scale, pack_weight, ternary_quantize  # noqa: E402
-from repro_torch.core.packing import unpack_ternary  # noqa: E402
+from repro_torch.core.packing import pack_group_sizes, unpack_ternary  # noqa: E402
 from repro_torch.kernels import _build, _splitk, ops  # noqa: E402
 from repro_torch.kernels import ternary_decode_gemm as tdg  # noqa: E402
 
@@ -39,11 +39,29 @@ def _k964_segments():
     return [(p.shape[0], p.shape[1], g) for p, _, _, g in ops._segments(pw)]
 
 
+#: the BitLinears (M, K) of mamba2-1.3b (in_proj, out_proj) and gemma3-1b
+#: (wq, wk and wv, wo, w1 and w3, w2): g=4 segments of 1 and 4 K-groups and
+#: M 256 and 8512, which no earlier config had
+NEW_LINEARS = [(8512, 2048), (2048, 4096), (1024, 1152), (256, 1152), (1152, 1024),
+               (6912, 1152), (1152, 6912)]
+#: token counts exact-length prefill gives (no 16-multiple bucket), and decode
+ODD_N = (1, 17, 61, 200)
+
+
+def _segments_of(m, k):
+    """(M, KG, g) of a (M, K) weight's non-empty segments, by pack_group_sizes."""
+    n5, n4 = pack_group_sizes(k)
+    return [(m, kg, g) for kg, g in ((n5, 5), (n4, 4)) if kg]
+
+
+NEW_SEGMENTS = [seg for m, k in NEW_LINEARS for seg in _segments_of(m, k)]
+
 COVER_CASES = (
     [(m, k // 5, n, 5) for m, k in SMOLLM for n in (1, 4, 16, 64, 256)]
     + [(70, 13, 17, 5), (1000, 77, 33, 5), (1000, 191, 17, 4), (70, 1, 3, 4),
        (2560, 512, 1000, 5)]
     + [(m, kg, n, g) for m, kg, g in _k964_segments() for n in (1, 4, 17, 256)]
+    + [(m, kg, n, g) for m, kg, g in NEW_SEGMENTS for n in ODD_N]
 )
 
 
@@ -120,6 +138,30 @@ def test_grouped_plan_counts_the_experts(e, m, kg, g, n, monkeypatch):
 
 def test_grouped_cases_include_a_split_k_launch():
     assert any(tdg.decode_plan(m, kg, n, g, e=e).splits > 1 for e, m, kg, g, n in GROUPED_CASES)
+
+
+def test_new_segments_are_the_ones_no_earlier_config_had():
+    """The g=4 segments hold 2, 4, 3 and 1 K-groups (KG4 = 4 is the first
+    g=4 segment whose codes are read as words), and M runs from 256 to
+    8512."""
+    assert sorted({kg for _, kg, g in NEW_SEGMENTS if g == 4}) == [1, 2, 3, 4]
+    assert {m for m, _, _ in NEW_SEGMENTS} >= {256, 8512}
+
+
+@pytest.mark.parametrize("n", ODD_N)
+@pytest.mark.parametrize("m,k", NEW_LINEARS)
+def test_new_linears_plan_within_two_waves(m, k, n):
+    """At every segment of the new linears and exact-length N, the plan
+    fills the card without passing two waves where it splits K, and its
+    shared memory is the kernel's formula within the static limit."""
+    for _, kg, g in _segments_of(m, k):
+        aligned = kg % 4 == 0
+        p = tdg.decode_plan(m, kg, n, g, codes_aligned=aligned, acts_aligned=aligned)
+        tiles = p.m_tiles * p.n_tiles
+        assert p.splits == 1 or p.blocks <= 2 * tdg.WAVE, p
+        cap = kg // 4 if aligned else kg        # splits start on code words
+        assert p.blocks >= min(tdg.WAVE, tiles * cap), p
+        assert p.smem == tdg.decode_smem_bytes(g, p.bn, p.kstep) <= SMEM_STATIC_MAX
 
 
 def test_cover_cases_include_uneven_and_multi_step_splits():
@@ -240,6 +282,25 @@ def test_grouped_integer_plan_on_the_stacked_views(e, m, kg, g, n):
     p = tdg.decode_plan(m, kg, n, g, codes_aligned=want, acts_aligned=want, e=e)
     assert p.e == 256 and p.splits == 1 and p.blocks == 256 * p.m_tiles * p.n_tiles
     assert p.smem == tdg.decode_smem_bytes(g, p.bn, p.kstep) <= SMEM_STATIC_MAX
+
+
+@pytest.mark.parametrize("k", sorted({k for _, k in NEW_LINEARS}))
+def test_alignment_predicate_on_the_new_linears(k):
+    """As above, at the new linears' K: word loads exactly where the
+    segment's KG % 4 == 0 (K 4096's 4-group g=4 segment included, whose
+    view starts 4080 elements into each row), byte loads elsewhere."""
+    rng = np.random.default_rng(k)
+    tw = ternary_quantize(torch.tensor(rng.standard_normal((256, k)).astype(np.float32)))
+    pw = pack_weight(tw.values, tw.scale)
+    for n in (1, 4, 17, 61):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.tensor(rng.standard_normal((n, k)).astype(np.float32)).to(dt)
+            a_q = torch.tensor(rng.integers(-127, 128, (k, n)).astype(np.int8))
+            for packed, lo, hi, g in ops._segments(pw):
+                want = packed.shape[1] % 4 == 0
+                assert tdg.fused_aligned(packed, x[:, lo:hi]) == (want, want)
+                a_r = ops._deinterleave(a_q[lo:hi], g)
+                assert tdg.int_aligned(packed, a_r) == (want, want and n % 4 == 0)
 
 
 def test_alignment_predicate_rejects_offset_pointers_and_strides():
@@ -453,6 +514,35 @@ def test_emulated_integer_kernel_equals_plain(m, kg, n, g):
     got = _emulate(packed, a_r, plan, "int")
     want = tdg.ternary_decode_gemm_plain(torch.tensor(packed), torch.tensor(a_r), g=g)
     assert torch.equal(torch.tensor(got), want)
+
+
+#: the new linears' smallest segments at exact-length N: out_proj's
+#: 4-group g=4 segment (word loads), wo's 1-group one, wk's g=5 segment at
+#: M 256
+NEW_EMU_CASES = [(2048, 4, 61, 4), (1152, 1, 17, 4), (256, 228, 17, 5)]
+
+
+@pytest.mark.parametrize("m,kg,n,g", NEW_EMU_CASES)
+def test_emulated_kernels_on_the_new_segments(m, kg, n, g):
+    """The integer and fused kernels, emulated with the plan the main path
+    launches (word loads where KG % 4 == 0), equal their plain versions bit
+    for bit."""
+    rng = np.random.default_rng(m + kg + n + 2)
+    packed = rng.integers(0, 3 ** g, (m, kg)).astype(np.uint8)
+    aligned = kg % 4 == 0
+    a_r = rng.integers(-127, 128, (g, kg, n)).astype(np.int8)
+    plan = tdg.decode_plan(m, kg, n, g, codes_aligned=aligned, acts_aligned=aligned and n % 4 == 0)
+    want = tdg.ternary_decode_gemm_plain(torch.tensor(packed), torch.tensor(a_r), g=g)
+    assert torch.equal(torch.tensor(_emulate(packed, a_r, plan, "int")), want)
+    x = torch.tensor((rng.standard_normal((n, kg * g)) * 3).astype(np.float32)).to(torch.bfloat16)
+    a_scale = act_token_scale(x.T).contiguous()
+    w_scale = torch.tensor(rng.random(m).astype(np.float32))
+    plan = tdg.decode_plan(m, kg, n, g, codes_aligned=aligned, acts_aligned=aligned)
+    acc = _emulate(packed, x.float().numpy(), plan, "fused", a_scale.numpy())
+    got = tdg.epilogue(torch.tensor(acc).T, w_scale, a_scale, torch.bfloat16)
+    want = tdg.ternary_decode_gemm_fused_plain(torch.tensor(packed), x, a_scale, w_scale,
+                                               g=g, out_dtype=torch.bfloat16)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

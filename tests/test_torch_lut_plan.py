@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.core import pack_weight, ternary_quantize  # noqa: E402
+from repro_torch.core.packing import pack_group_sizes  # noqa: E402
 from repro_torch.kernels import _splitk, ops  # noqa: E402
 from repro_torch.kernels import vlut_lookup_gemm as vlg  # noqa: E402
 
@@ -36,6 +37,23 @@ COVER_CASES = (
        (130, 7, 33, 4), (65, 13, 17, 5), (2560, 512, 1000, 5)]
     + [(m, kg, n, g) for m, kg, g in _k964_segments() for n in (1, 4, 17, 256)]
 )
+#: the BitLinears (M, K) of mamba2-1.3b (in_proj, out_proj) and gemma3-1b
+#: (wq, wk and wv, wo, w1 and w3, w2): g=4 segments of 1 and 4 K-groups and
+#: M 256 and 8512, which no earlier config had
+NEW_LINEARS = [(8512, 2048), (2048, 4096), (1024, 1152), (256, 1152), (1152, 1024),
+               (6912, 1152), (1152, 6912)]
+#: token counts exact-length prefill gives (no 16-multiple bucket), and decode
+ODD_N = (1, 17, 61, 200)
+
+
+def _segments_of(m, k):
+    """(M, KG, g) of a (M, K) weight's non-empty segments, by pack_group_sizes."""
+    n5, n4 = pack_group_sizes(k)
+    return [(m, kg, g) for kg, g in ((n5, 5), (n4, 4)) if kg]
+
+
+NEW_CASES = [(m, kg, n, g) for mm, k in NEW_LINEARS for m, kg, g in _segments_of(mm, k)
+             for n in ODD_N]
 
 
 def _cover(ranges, total):
@@ -47,7 +65,7 @@ def _cover(ranges, total):
     assert pos == total
 
 
-@pytest.mark.parametrize("m,kg,n,g", COVER_CASES)
+@pytest.mark.parametrize("m,kg,n,g", COVER_CASES + NEW_CASES)
 def test_plan_tiles_cover_exactly(m, kg, n, g):
     p = vlg.lut_plan(m, kg, n, g)
     assert p.bm % vlg.BM_UNIT == 0 and 1 <= p.splits <= kg and p.chunk >= 1
@@ -131,6 +149,19 @@ def test_plan_splits_only_where_the_tiles_fall_short(n):
             assert p.blocks <= 2 * vlg.WAVE, p
 
 
+@pytest.mark.parametrize("m,kg,n,g", NEW_CASES)
+def test_new_segments_plan_within_two_waves(m, kg, n, g):
+    """At the new linears' segments and exact-length N, the plan fills the
+    card without passing two waves where it splits K, and its shared memory
+    is the kernel's formula within the budget."""
+    p = vlg.lut_plan(m, kg, n, g)
+    tiles = p.m_tiles * p.n_tiles
+    assert p.splits == 1 or p.blocks <= 2 * vlg.WAVE, p
+    assert p.blocks >= min(vlg.WAVE, tiles * kg), p
+    assert p.smem == vlg.lut_smem_bytes(g, p.bm, p.chunk, 4 * vlg.tok_lanes(min(n, vlg.BN)))
+    assert p.smem <= vlg.SMEM_BUDGET
+
+
 def test_plan_aligns_splits_and_chunks_to_words():
     """Where KG % 4 == 0 and S <= KG/4, every K-slice and every chunk of it
     starts on a multiple of 4 K-groups, so the kernel reads the codes as
@@ -183,7 +214,8 @@ def _tiled_plain(packed, a_r, g):
 
 
 @pytest.mark.parametrize("m,kg,n,g", [(70, 13, 17, 5), (1000, 77, 33, 4), (320, 192, 4, 5),
-                                      (130, 40, 256, 5)])
+                                      (130, 40, 256, 5), (2048, 4, 61, 4), (1152, 1, 200, 4),
+                                      (256, 228, 17, 5)])
 def test_split_k_sums_equal_the_plain_version(m, kg, n, g):
     rng = np.random.default_rng(m + kg + n)
     packed = torch.tensor(rng.integers(0, 3 ** g, (m, kg)).astype(np.uint8))

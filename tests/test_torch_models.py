@@ -170,9 +170,9 @@ def test_rope_rmsnorm_embed():
 def test_unported_paths_raise():
     jcfg, tcfg = _configs("float32")
     with pytest.raises(NotImplementedError):
-        tget_config("gemma3-1b")
+        tget_config("whisper-medium")
     with pytest.raises(NotImplementedError):
-        tm.init_lm(tcfg.with_(layers=tuple(s.__class__(mixer="ssm") for s in tcfg.layer_specs())),
+        tm.init_lm(tcfg.with_(layers=tuple(s.__class__(cross_attn=True) for s in tcfg.layer_specs())),
                    torch.Generator())
     model = tm.init_lm(tcfg, torch.Generator())
     with pytest.raises(NotImplementedError, match="remat_policy"):
