@@ -249,6 +249,36 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    12's. (d) 14 launches a layer, 364 a
    forward; the decode-step profile, the tied f32 head's device ms on its
    own; tok/s and TTFT.
+14. observability (`repro_torch.obs`) on phase 4's model, after phase 9
+   and before the model is freed. Each mpGeMM call with an `Obs` installed
+   records one `mpgemm_dispatch` span (the port runs eagerly) with one
+   `tile` entry per kernel launch. (a) Phase 4's whole-prompt fused decode
+   with `obs=Obs(...)`: phase 4's tokens exactly; the dispatch counter's
+   sum equal to the fused kernel's launch count, 224 per forward; the
+   prompt, generation and success counters equal to the run's ServeStats;
+   8 TTFT and 8 TPOT observations; every per-step effective M in [1, 4].
+   (b) Phase 8's chunk 64 + chain k 4 run with the same `Obs`: phase 8's
+   tokens exactly; chunk and verify step spans; the draft and accept
+   counters equal to ServeStats. (c) Phase 9's paged prefix-sharing run
+   with obs on: phase 9's tokens; the page gauges and counters equal to
+   the pager's; the prefix-hit counters equal to phase 9's. (d) The shared
+   `Obs`'s metrics JSON and trace written to a temp dir and reloaded: the
+   trace holds scheduler ticks, decode, chunk and verify steps and
+   dispatch spans, none dropped; every dispatch span lies inside a step
+   span, or inside a scheduler tick for a whole-prompt admission's
+   prefill (8 x 224 of them). (e) 3 runs with obs off and 3 with obs on,
+   interleaved, in (a)'s configuration: the median host ms per decode step
+   and decode tok/s of each, logged, not gated; and the hook alone on the
+   host: one decode tick's 226 events (224 dispatch spans with their tile
+   lookups, a step, a tick) recorded 200 times. (f) Per-launch device
+   times of kernels #1-#4 at N 4, phase 3's forward timed shape by shape
+   (the forward's 64, 64, 64 and 32 launches of each shape in one graph), fed to
+   `record_kernel_sample`: each achieved-GB/s gauge equal to
+   `mpgemm_cost` bytes / seconds and at most 1.05x the card's HBM rate.
+   Phase 10 runs its plain-vs-kernel prefill with an `Obs` installed (g):
+   one dispatch span per call (7 single and 3 grouped BitLinears a layer),
+   and their tiles one per launch, equal to the launch counters (8 single
+   + 4 grouped a layer: the w2 weights have two packed segments).
 
 Output: a `kernels` JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}. Details go to
@@ -376,6 +406,17 @@ PAGE_SIZE = 16
 SYSTEM_PROMPT = 128
 OFFLOAD_PAGES, OFFLOAD_HOST_PAGES, OFFLOAD_PROMPT = 17, 64, 128
 CPU_SEQ = 256
+# Phase 14 (observability): obs-off and obs-on serving runs, interleaved,
+# for the cost of the layer, and the hook alone over OBS_HOOK_TICKS decode
+# ticks' events. An achieved-GB/s gauge (the bytes a launch must move over
+# its device time) above the card's HBM rate by more than timing noise
+# would mean a wrong byte count or a wrong time.
+OBS_COST_RUNS = 3
+OBS_HOOK_TICKS = 200
+OBS_GBPS_SLACK = 1.05
+OBS_TRACE_NAMES = ("scheduler_tick", "engine_step/decode", "engine_step/chunk",
+                   "engine_step/verify", "mpgemm_dispatch")
+
 # Phase 10 (MoE): llama4-scout-17b-a16e at its published widths and depth.
 # Rows per expert C of the grouped launches: a decode step of 4 slots (4
 # tokens, top-1 of 16 experts: the capacity floor min(T, 16) = 4), a
@@ -1323,7 +1364,7 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", fu
             "tree": spec.tree, "stochastic": spec.stochastic},
         "temperature": temperature, "slots": slots,
         **{k: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
-           for k, v in kw.items()},
+           for k, v in kw.items() if k != "obs"},
         "tokens": [list(map(int, r.generated)) for r in reqs],
         "launches": launches, "forwards": forwards, "target_forwards": target,
         "launches_per_forward": {"expanding": per_fwd, "absorbing": absorbed,
@@ -1332,10 +1373,13 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", fu
         "mpgemm_tokens_per_launch": {str(n): c for n, c in sorted(n_hist.items())},
         "decode_tok_s": stats.decode_tok_s, "prefill_tok_s": stats.prefill_tok_s,
         "decode_only_tok_s": stats.decode_tokens / decode_s[0] if decode_s[0] else None,
+        "decode_ms_per_step": decode_s[0] * 1e3 / stats.decode_steps if stats.decode_steps else None,
         "ttft_p50_ms": sorted(stats.ttft_s)[len(stats.ttft_s) // 2] * 1e3, "wall_s": stats.wall_s,
         "decode_tokens": stats.decode_tokens, "decode_steps": stats.decode_steps,
         "chunk_steps": stats.chunk_steps, "spec_steps": stats.spec_steps,
         "tokens_per_step": stats.decode_tokens_per_step, "nodes_per_step": stats.nodes_per_step,
+        "drafted_tokens": stats.drafted_tokens, "accepted_tokens": stats.accepted_tokens,
+        "completed": stats.completed,
         "acceptance": stats.acceptance_rate, "mean_draft_k": stats.mean_draft_k,
         "skip_rate": stats.skip_rate,
         "prefill_tokens": stats.prefill_tokens, "prefix_hit_tokens": stats.prefix_hit_tokens,
@@ -1427,7 +1471,8 @@ def check_paged(torch, model, cfg, prompts, counters, ref_tokens, multi_tokens,
     """Phase 9: the paged KV cache on phase 4's model. (a) phase 4's prompts
     with both impls, (b) chunked chain and tree speculation, (c) prefix
     sharing against the dense engine, (d) the offload tier against the
-    host pager's decisions, (e) one paged decode step under the profiler."""
+    host pager's decisions, (e) one paged decode step under the profiler.
+    → (results, {"prefix_paged": (c)'s greedy tokens})."""
     import numpy as np
 
     from repro_torch.serve import PagedKVConfig, Pager
@@ -1455,9 +1500,7 @@ def check_paged(torch, model, cfg, prompts, counters, ref_tokens, multi_tokens,
 
     # (c) prefix sharing: a common system prompt of 8 full pages
     rng = np.random.default_rng(9)
-    system = rng.integers(0, cfg.vocab, size=SYSTEM_PROMPT).astype(np.int32)
-    shared = [np.concatenate([system, rng.integers(0, cfg.vocab, size=int(rng.integers(8, 33)))
-                              .astype(np.int32)]) for _ in range(8)]
+    shared = prefix_prompts(cfg, rng)
     dense = run("prefix_dense", shared, None)
     hit = run("prefix_paged", shared, dense["tokens"], paged_kv=paged)
     if hit["prefix_hit_requests"] < 1:
@@ -1516,6 +1559,264 @@ def check_paged(torch, model, cfg, prompts, counters, ref_tokens, multi_tokens,
             + ", " + ", ".join(f"{op} {ms:.4f} ms in {n:.0f} calls" for op, (ms, n) in ops.items()))
     out["seconds"] = time.perf_counter() - t0
     log(f"paged: phase 9 took {out['seconds']:.1f} s")
+    return out, {"prefix_paged": hit["tokens"]}
+
+
+def prefix_prompts(cfg, rng) -> list:
+    """Phase 9 (c)'s prompts (and phase 14 (c)'s): a common system prompt
+    of 8 full pages plus 8-32 unique tokens each, 8 requests."""
+    import numpy as np
+
+    system = rng.integers(0, cfg.vocab, size=SYSTEM_PROMPT).astype(np.int32)
+    return [np.concatenate([system, rng.integers(0, cfg.vocab, size=int(rng.integers(8, 33)))
+                            .astype(np.int32)]) for _ in range(8)]
+
+
+
+def counter_total(o, name: str) -> float:
+    """A counter of an `Obs`'s registry summed over its label sets."""
+    return sum(m.value for m in o.registry.all() if m.name == name)
+
+
+def dispatch_nesting(events) -> dict:
+    """Where each `mpgemm_dispatch` span of a trace lies: inside an engine
+    step span, else inside a scheduler tick, else outside both (steps do
+    not overlap one another, nor ticks). → counts."""
+    import bisect
+
+    def spans(pred):
+        iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if pred(e["name"]))
+        return [a for a, _ in iv], [b for _, b in iv]
+
+    def inside(starts_ends, e) -> bool:
+        starts, ends = starts_ends
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        return i >= 0 and e["ts"] + e["dur"] <= ends[i] + 1e-3      # µs
+    steps = spans(lambda n: n.startswith("engine_step/"))
+    ticks = spans(lambda n: n == "scheduler_tick")
+    out = {"step": 0, "tick": 0, "outside": 0}
+    for e in events:
+        if e["name"] == "mpgemm_dispatch":
+            out["step" if inside(steps, e) else "tick" if inside(ticks, e) else "outside"] += 1
+    return out
+
+
+def obs_kernel_gauges(torch, model, gen) -> dict:
+    """Phase 14 (f): per-launch device time of kernels #1-#4 at N 4 at each
+    of smollm-360m's 4 BitLinear shapes (phase 3's forward, timed shape by
+    shape: the forward's launches of one shape in one graph), fed to
+    `Obs.record_kernel_sample` (the kernel's name as its impl label); each
+    achieved-GB/s gauge must equal `mpgemm_cost` bytes / seconds and stay
+    within OBS_GBPS_SLACK of the card's HBM rate."""
+    from repro_torch.core import act_quant_tokens, act_token_scale
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import PackedLinear
+    from repro_torch.obs import Obs, ObsConfig
+    from repro_torch.roofline import mpgemm_cost
+
+    o = Obs(ObsConfig())
+    n, g = DECODE_N, 5
+    lins = [m.pw for m in model.modules() if isinstance(m, PackedLinear)]
+    rows = {}
+    for m, k in SHAPES:
+        group = [pw for pw in lins if (pw.M, pw.K) == (m, k)]
+        x = torch.randn((n, k), generator=gen, device=gen.device).to(torch.bfloat16)
+        a_scale = act_token_scale(x.T).contiguous()
+        a_r = ops._deinterleave(act_quant_tokens(x.T)[0], g)
+        for name, (kern, _) in {**fused_kernels(), **int_kernels()}.items():
+            fused = name.endswith("_fused")
+
+            def run(kern=kern, fused=fused):
+                for pw in group:
+                    if fused:
+                        kern(pw.packed5, x, a_scale, pw.scale, g=g, out_dtype=torch.bfloat16)
+                    else:
+                        kern(pw.packed5, a_r, g=g)
+            seconds = device_ms(torch, run) / len(group) / 1e3
+            o.record_kernel_sample(g=g, impl=name, m=m, kg=k // g, n=n, fused=fused,
+                                   seconds=seconds)
+            labels = {"impl": name, "g": str(g), "shape": f"{m}x{k}", "m_tokens": str(n)}
+            gbps = o.registry.find("repro:mpgemm_achieved_gbps", labels).value
+            want = mpgemm_cost(m, k, n, g, fused=fused)[1] / seconds / 1e9
+            if gbps != want or gbps * 1e9 > OBS_GBPS_SLACK * HBM_BYTES_S:
+                raise AssertionError(f"obs: {name} at {m}x{k}: gauge {gbps} GB/s, mpgemm_cost "
+                                     f"gives {want}, card {HBM_BYTES_S / 1e9} GB/s")
+            rows.setdefault(name, {})[f"{m}x{k}"] = {
+                "launches": len(group), "us_per_launch": seconds * 1e6, "gbps": gbps,
+                "gflops": o.registry.find("repro:mpgemm_achieved_gflops", labels).value}
+    for name, per_shape in rows.items():
+        forward = sum(r["us_per_launch"] * r["launches"] for r in per_shape.values()) / 1e3
+        log(f"obs: (f) {name} at N={n}: " + ", ".join(
+            f"{shape} {r['us_per_launch']:.2f} us/launch, {r['gbps']:.1f} GB/s"
+            for shape, r in per_shape.items()) + f"; the 4 shapes' launches {forward:.4f} ms")
+    return rows
+
+
+def check_obs(torch, model, cfg, prompts, counters, ref_tokens, multi_tokens, paged,
+              paged_tokens) -> dict:
+    """Phase 14: observability on phase 4's model, (a)-(f) of the module
+    docstring. Every failure raises."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import obs as obs_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import PackedLinear
+    from repro_torch.serve import PagedKVConfig
+    from repro_torch.spec import SpecConfig
+
+    t0 = time.perf_counter()
+    kernel = "ternary_decode_gemm_fused"
+    per_fwd = launches_per_forward(model, "decode")[kernel]          # 224
+    dispatch = "repro:mpgemm_dispatch_total"
+    tmp = tempfile.TemporaryDirectory()
+    exports = {"metrics_out": str(pathlib.Path(tmp.name) / "metrics.json"),
+               "trace_out": str(pathlib.Path(tmp.name) / "trace.json")}
+    out = {"cost_runs": {"off": [], "on": []}}
+
+    def observed_run(name, run_prompts, o, **kw):
+        try:
+            return serve_multi(torch, model, cfg, run_prompts, counters, name, obs=o, **kw)
+        finally:
+            obs_mod.install(None)
+
+    # (a) and (e): whole-prompt fused decode, obs off and on in turns
+    shared, a_launches = None, 0
+    for i in range(OBS_COST_RUNS):
+        for mode in ("off", "on"):
+            o = obs_mod.Obs(obs_mod.ObsConfig(**exports)) if mode == "on" else None
+            row = observed_run(f"obs {mode} {i}", prompts, o)
+            if row["tokens"] != ref_tokens:
+                raise AssertionError(f"obs {mode} {i}: tokens differ from phase 4's")
+            out["cost_runs"][mode].append({k: row[k] for k in (
+                "decode_ms_per_step", "decode_only_tok_s", "decode_tok_s", "ttft_p50_ms",
+                "wall_s")})
+            if o is None:
+                continue
+            spans = sum(e["name"] == "mpgemm_dispatch" for e in o.tracer.events)
+            counted = {"dispatch_total": counter_total(o, dispatch), "dispatch_spans": spans,
+                       "launches": row["launches"][kernel],
+                       "per_forward_x_forwards": per_fwd * row["forwards"]}
+            if len(set(counted.values())) != 1:
+                raise AssertionError(f"obs on {i}: dispatches and launches differ: {counted}")
+            mirrors = {"prompt": (o.c_prompt_tok.value, row["prefill_tokens"]),
+                       "generation": (o.c_gen_tok.value, row["decode_tokens"]),
+                       "success": (o.c_completed.value, row["completed"])}
+            if any(a != b for a, b in mirrors.values()):
+                raise AssertionError(f"obs on {i}: counters against ServeStats {mirrors}")
+            eff = list(o.s_eff_m.samples)
+            if not (o.h_ttft.count == o.h_tpot.count == len(prompts)) or not eff or \
+                    not all(1 <= m <= 4 for m in eff):
+                raise AssertionError(f"obs on {i}: {o.h_ttft.count} TTFT, {o.h_tpot.count} TPOT, "
+                                     f"effective M {sorted(set(eff))}")
+            out["a"] = {**counted, "counters": {k: a for k, (a, _) in mirrors.items()},
+                        "ttft": o.h_ttft.count, "tpot": o.h_tpot.count,
+                        "effective_m": sorted(set(eff)), "decode_steps": len(eff)}
+            shared, a_launches = o, row["launches"][kernel]
+    log(f"obs: (a) 3 runs with obs on: phase 4's tokens; {out['a']}")
+
+    # (b) phase 8's chunk 64 + chain k 4 run, into the same Obs
+    row = observed_run("obs chunk_chain_ngram", prompts, shared, prefill_chunk=PREFILL_CHUNK,
+                       spec=SpecConfig(k=SPEC_K))
+    kinds = {n: sum(e["name"] == n for e in shared.tracer.events) for n in OBS_TRACE_NAMES}
+    got = {"chunk_spans": kinds["engine_step/chunk"], "verify_spans": kinds["engine_step/verify"],
+           "drafted": shared.c_drafted.value, "accepted": shared.c_accepted.value,
+           "dispatch_total": counter_total(shared, dispatch)}
+    want = {"chunk_spans": row["chunk_steps"], "verify_spans": row["spec_steps"],
+            "drafted": row["drafted_tokens"], "accepted": row["accepted_tokens"],
+            "dispatch_total": a_launches + row["launches"][kernel]}
+    if row["tokens"] != multi_tokens["chunk_chain_ngram"] or got != want or \
+            not (got["chunk_spans"] and got["verify_spans"]):
+        raise AssertionError(f"obs (b): tokens equal phase 8's: "
+                             f"{row['tokens'] == multi_tokens['chunk_chain_ngram']}; {got} != {want}")
+    out["b"] = got
+    log(f"obs: (b) chunk 64 + chain k 4: phase 8's tokens; {got}")
+
+    # (c) phase 9's paged prefix-sharing run
+    o = obs_mod.Obs(obs_mod.ObsConfig())
+    row = observed_run("obs prefix_paged", prefix_prompts(cfg, np.random.default_rng(9)), o,
+                       paged_kv=PagedKVConfig(page_size=PAGE_SIZE))
+    pager = row["pager"]
+    pairs = {"total_pages": o.g_pages_total, "free_pages": o.g_pages_free,
+             "shared_pages": o.g_pages_shared, "offloaded_pages": o.g_pages_offloaded,
+             "pages_paged_out": o.c_pages_out, "pages_paged_in": o.c_pages_in,
+             "pages_dropped": o.c_pages_dropped}
+    got = {k: m.value for k, m in pairs.items()}
+    got.update(prefix_hit_tokens=o.c_prefix_hit_tok.value,
+               prefix_hit_requests=o.c_prefix_hit_req.value)
+    want = {**{k: pager[k] for k in pairs},
+            "prefix_hit_tokens": paged["prefix"]["prefix_hit_tokens"],
+            "prefix_hit_requests": paged["prefix"]["prefix_hit_requests"]}
+    if row["tokens"] != paged_tokens["prefix_paged"] or got != want:
+        raise AssertionError(f"obs (c): tokens equal phase 9's: "
+                             f"{row['tokens'] == paged_tokens['prefix_paged']}; {got} != {want}")
+    out["c"] = got
+    log(f"obs: (c) paged prefix sharing: phase 9's tokens; gauges and counters {got}")
+
+    # (d) the exports, reloaded
+    written = shared.finalize()
+    metrics = json.loads(pathlib.Path(exports["metrics_out"]).read_text())
+    trace = json.loads(pathlib.Path(exports["trace_out"]).read_text())
+    tmp.cleanup()
+    events = trace["traceEvents"]
+    names = {n: sum(e["name"] == n for e in events) for n in OBS_TRACE_NAMES}
+    nesting = dispatch_nesting(events)
+    if (sorted(written) != sorted(exports.values())
+            or metrics != json.loads(json.dumps(shared.registry.to_json()))
+            or len(events) != len(shared.tracer.events) or trace["otherData"]["dropped_events"]
+            or not all(names.values()) or nesting["outside"]
+            or nesting["tick"] != per_fwd * len(prompts)):
+        raise AssertionError(f"obs (d): exports {written}, trace names {names}, dropped "
+                             f"{trace['otherData']['dropped_events']}, dispatch spans {nesting}")
+    out["d"] = {"trace_events": len(events), "names": names, "dispatch_nesting": nesting,
+                "metrics": len(metrics["metrics"])}
+    log(f"obs: (d) metrics JSON ({len(metrics['metrics'])} metrics) and trace ({len(events)} "
+        f"events, none dropped) reloaded; {names}; dispatch spans inside a step "
+        f"{nesting['step']}, inside an admission's tick {nesting['tick']}")
+
+    # (e) the cost of obs on: medians of the interleaved runs, not gated
+    med = {mode: {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+           for mode, runs in out["cost_runs"].items()}
+    out["e"] = {"median": med,
+                "host_ms_per_decode_step_on_minus_off": med["on"]["decode_ms_per_step"]
+                - med["off"]["decode_ms_per_step"]}
+    log(f"obs: (e) median of {OBS_COST_RUNS} runs, off vs on: host ms per decode step "
+        f"{med['off']['decode_ms_per_step']:.3f} vs {med['on']['decode_ms_per_step']:.3f} "
+        f"({out['e']['host_ms_per_decode_step_on_minus_off']:+.3f}); decode tok/s (decode_once) "
+        f"{med['off']['decode_only_tok_s']:.2f} vs {med['on']['decode_only_tok_s']:.2f}; decode "
+        f"tok/s (whole run) {med['off']['decode_tok_s']:.2f} vs {med['on']['decode_tok_s']:.2f}")
+
+    # (e) the hook alone on the host: one decode tick's events, 224 dispatch
+    # spans with their tile lookups, a step and a tick, into a fresh Obs
+    pws = [m.pw for m in model.modules() if isinstance(m, PackedLinear)]
+    probe = obs_mod.Obs(obs_mod.ObsConfig())
+
+    def tick_events():
+        t = probe.now()
+        for pw in pws:
+            with probe.mpgemm_span(DECODE_N, pw.K, pw.M, "decode", "fused",
+                                   tiles=ops.launch_tiles(pw, DECODE_N, "decode")):
+                pass
+        probe.step_event("decode", t, m_real=DECODE_N, m_padded=DECODE_N)
+        probe.tracer.complete("scheduler_tick", t)
+    tick_events()
+    t1 = time.perf_counter()
+    for _ in range(OBS_HOOK_TICKS):
+        tick_events()
+    hook_ms = (time.perf_counter() - t1) * 1e3 / OBS_HOOK_TICKS
+    out["e"]["hook_ms_per_decode_tick"] = hook_ms
+    out["e"]["hook_us_per_event"] = hook_ms * 1e3 / (len(pws) + 2)
+    log(f"obs: (e) the hook alone: {hook_ms:.3f} ms per decode tick's {len(pws) + 2} events "
+        f"({out['e']['hook_us_per_event']:.2f} us an event), "
+        f"{100 * hook_ms / med['off']['decode_ms_per_step']:.2f}% of the median obs-off step")
+
+    # (f) the kernel gauges
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(14)
+    out["f"] = obs_kernel_gauges(torch, model, gen)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"obs: phase 14 took {out['seconds']:.1f} s")
     return out
 
 
@@ -1868,6 +2169,7 @@ def check_moe(torch, counters) -> dict:
     dispatch's device time (`moe_dispatch_ms`)."""
     import numpy as np
 
+    from repro_torch import obs as obs_mod
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_cache, init_lm, prefill
@@ -1918,11 +2220,20 @@ def check_moe(torch, counters) -> dict:
     out["serve"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in runs.items()}
     out["serve"]["chunked_chain"]["same_tokens_as_whole_prompt"] = same
 
+    # the kernels' prefill runs with an Obs installed: phase 14 (g)
     tok = torch.from_numpy(prompts[0][None, :]).cuda()
-    with ops.dispatch_override(impl="decode"):
-        got, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
-        with plain_mpgemm(torch):
-            want, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
+    observed = obs_mod.Obs(obs_mod.ObsConfig())
+    for fn in counters.values():
+        fn.launches = 0
+    obs_mod.install(observed)
+    try:
+        with ops.dispatch_override(impl="decode"):
+            got, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
+    finally:
+        obs_mod.install(None)
+    out["obs_dispatch"] = moe_dispatch_spans(model, cfg, observed, counters, tok.shape[1])
+    with ops.dispatch_override(impl="decode"), plain_mpgemm(torch):
+        want, _ = prefill(model, tok, init_cache(cfg, 1, 256, device="cuda"), cfg)
     got, want = got.float(), want.float()
     if got.shape != (1, cfg.vocab) or not torch.isfinite(got).all():
         raise AssertionError(f"moe: bad logits, shape {tuple(got.shape)}")
@@ -1962,6 +2273,40 @@ def check_moe(torch, counters) -> dict:
     del model
     torch.cuda.empty_cache()
     return out
+
+
+def moe_dispatch_spans(model, cfg, observed, counters, tokens: int) -> dict:
+    """Phase 14 (g): one llama4-scout prefill forward of `tokens` tokens
+    with `observed` installed. One dispatch span per BitLinear call (7
+    single and 3 grouped a layer, the grouped ones with the rows per expert
+    as M), and one tile per kernel launch: their sum equals the launch
+    counters (8 single and 4 grouped a layer)."""
+    from repro_torch.models.common import PackedLinear
+    from repro_torch.models.moe import capacity
+
+    launched = {nm: fn.launches for nm, fn in counters.items() if fn.launches}
+    per_fwd = launches_per_forward(model, "decode")
+    spans = [e["args"] for e in observed.tracer.events if e["name"] == "mpgemm_dispatch"]
+    grouped = [s for s in spans if s["tile"] and s["tile"][0].startswith("e")]
+    lins = [m for m in model.modules() if isinstance(m, PackedLinear)]
+    got = {"spans": len(spans),
+           "dispatch_total": counter_total(observed, "repro:mpgemm_dispatch_total"),
+           "grouped_spans": len(grouped),
+           "single_tiles": sum(len(s["tile"]) for s in spans) - sum(len(s["tile"]) for s in grouped),
+           "grouped_tiles": sum(len(s["tile"]) for s in grouped),
+           "grouped_m": sorted({s["m"] for s in grouped})}
+    want = {"spans": len(lins), "dispatch_total": len(lins),
+            "grouped_spans": sum(m.packed5.ndim == 3 for m in lins),
+            "single_tiles": per_fwd["ternary_decode_gemm_fused"],
+            "grouped_tiles": per_fwd["ternary_decode_gemm_fused_grouped"],
+            "grouped_m": [capacity(tokens, cfg)]}
+    if got != want or launched != per_fwd:
+        raise AssertionError(f"moe: dispatch spans {got}, expected {want}; launches {launched}, "
+                             f"expected {per_fwd}")
+    log(f"moe: (g) one prefill with obs on: {got['spans']} dispatch spans ({got['grouped_spans']} "
+        f"grouped, M = {got['grouped_m'][0]} rows per expert) carry {got['single_tiles']} + "
+        f"{got['grouped_tiles']} launch tiles = the launch counters {launched}")
+    return {**got, "launches": launched}
 
 
 def call_launches(kind: str, fn, launches) -> None:
@@ -3207,8 +3552,12 @@ def main() -> int:
                                             runs["decode"]["tokens"])
 
     # 9. paged KV cache (on phase 4's model, after phase 8)
-    paged = check_paged(torch, model, cfg, prompts, counters, runs["decode"]["tokens"],
-                        multi_tokens, prof)
+    paged, paged_tokens = check_paged(torch, model, cfg, prompts, counters,
+                                      runs["decode"]["tokens"], multi_tokens, prof)
+
+    # 14. observability (on phase 4's model, after phase 9)
+    observed = check_obs(torch, model, cfg, prompts, counters, runs["decode"]["tokens"],
+                         multi_tokens, paged, paged_tokens)
 
     del model, cpu_model, weights
     torch.cuda.empty_cache()
@@ -3299,6 +3648,7 @@ def main() -> int:
         "decode_profile": prof,
         "multi_token": multi,
         "paged": paged,
+        "obs": observed,
         "moe": moe, "mla": mla, "ssm": ssm, "windowed": windowed,
         "flash": flash, "train": trained,
         "seconds": time.perf_counter() - t_start,

@@ -22,6 +22,15 @@ default) or "lookup" (the paper's vector-LUT). The JAX package's "xla"
 impl is its shardable dry-run path and waits for the port of `dist`. Its
 `tiles=` override and autotuner (`kernels/autotune.py`) choose TPU VMEM
 tiles; the port's tile selection is still to come (ROADMAP A 7).
+
+With an `Obs` installed (`repro_torch.obs.install`, done by an `Engine`
+built with `obs=`), every `ternary_matmul` / `ternary_matmul_batched` call
+records one `mpgemm_dispatch` span and one `repro:mpgemm_dispatch_total`
+increment, with (M, K, N, impl, fusion) and, as `tile`, the launch plan of
+each packed segment (one entry per kernel launch). The port runs eagerly, so
+this is one span per call, where the JAX package's jitted steps record one
+per compiled shape at trace time. Without one installed, a call pays one
+`current()` lookup.
 """
 from __future__ import annotations
 
@@ -30,16 +39,19 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.core.packing import PackedWeight
 from repro_torch.core.quantize import act_quant_tokens, act_token_scale
 
 from .ternary_decode_gemm import (
+    decode_plan,
     ternary_decode_gemm,
     ternary_decode_gemm_fused,
     ternary_decode_gemm_fused_grouped,
     ternary_decode_gemm_grouped,
 )
 from .vlut_lookup_gemm import (
+    lut_plan,
     vlut_lookup_gemm,
     vlut_lookup_gemm_fused,
     vlut_lookup_gemm_fused_grouped,
@@ -217,6 +229,30 @@ def segment_mpgemm(packed: torch.Tensor, a: torch.Tensor, g: int, impl: str, *,
     return (out.to(torch.float32) * a_scale[None, :]).to(out_dtype)
 
 
+def launch_tiles(pw: PackedWeight, n: int, impl: str, e: int = 1) -> list[str]:
+    """The launch plan of each packed segment of one call at N tokens (per
+    expert, over `e` experts in one grouped launch), one entry per kernel
+    launch: the dispatch span's `tile`, the counterpart of the JAX
+    package's autotuned TPU tiles. Decode: "g5 64x16 s2 k32" (BM x BN,
+    K-splits, K-groups per step); lookup: "g5 bm128 s2 c64" (BM, K-splits,
+    table chunk); "e16 " in front of a grouped launch's. No tokens: no
+    launch."""
+    _check_impl(impl)
+    if n == 0:
+        return []
+    head = f"e{e} " if e > 1 else ""
+    tiles = []
+    for packed, _, _, g in _segments(pw):
+        kg = packed.shape[-1]
+        if impl == "lookup":
+            lp = lut_plan(pw.M, kg, n, g, e=e)
+            tiles.append(f"{head}g{g} bm{lp.bm} s{lp.splits} c{lp.chunk}")
+        else:
+            dp = decode_plan(pw.M, kg, n, g, e=e)
+            tiles.append(f"{head}g{g} {dp.bm}x{dp.bn} s{dp.splits} k{dp.kstep}")
+    return tiles
+
+
 def ternary_matmul(pw: PackedWeight, x: torch.Tensor, impl: str | None = None,
                    fusion: str | None = None) -> torch.Tensor:
     """Model-facing packed linear: y (..., M) = x (..., K) · Wᵀ.
@@ -225,17 +261,25 @@ def ternary_matmul(pw: PackedWeight, x: torch.Tensor, impl: str | None = None,
     token-major: the two transposes of the TPU path do not exist there. The
     unfused pipeline keeps the JAX layout, (K, N) in and (M, N) out, around
     its passes. Routing comes from the process DispatchConfig unless `impl`
-    or `fusion` is given."""
+    or `fusion` is given. An installed `Obs` gets one dispatch span per
+    call (module docstring)."""
     impl = impl if impl is not None else _dispatch.impl
     fusion = fusion if fusion is not None else _dispatch.fusion
     _check_fusion(fusion)
-    lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    o = obs_mod.current()
+    if o is None:
+        return _ternary_matmul(pw, x2, impl, fusion).reshape(*x.shape[:-1], pw.M)
+    with o.mpgemm_span(m_tokens=x2.shape[0], k=pw.K, n_out=pw.M, impl=impl, fusion=fusion,
+                       tiles=launch_tiles(pw, x2.shape[0], impl)):
+        return _ternary_matmul(pw, x2, impl, fusion).reshape(*x.shape[:-1], pw.M)
+
+
+def _ternary_matmul(pw: PackedWeight, x2: torch.Tensor, impl: str, fusion: str) -> torch.Tensor:
+    """`ternary_matmul` on flattened tokens: x2 (N, K) → (N, M)."""
     if fusion == "unfused":
-        out = _mpgemm_unfused(pw, x2.T, impl, x.dtype).T
-    else:
-        out = _mpgemm_tokens(pw, x2, impl, x.dtype)
-    return out.reshape(*lead, pw.M)
+        return _mpgemm_unfused(pw, x2.T, impl, x2.dtype).T
+    return _mpgemm_tokens(pw, x2, impl, x2.dtype)
 
 
 def ternary_matmul_batched(pw: PackedWeight, x: torch.Tensor, impl: str | None = None,
@@ -251,11 +295,25 @@ def ternary_matmul_batched(pw: PackedWeight, x: torch.Tensor, impl: str | None =
     cast. The unfused pipeline keeps `_mpgemm_unfused`'s passes, each
     batched over the experts: one quantize over all E*C rows, one
     de-interleave copy and one dequant. Either way each segment is ONE
-    grouped launch over all E experts."""
+    grouped launch over all E experts, and an installed `Obs` gets one
+    dispatch span per call with M = C, the rows per expert (JAX's vmap
+    traces its hook once, with the per-expert rows)."""
     impl = impl if impl is not None else _dispatch.impl
     fusion = fusion if fusion is not None else _dispatch.fusion
     _check_fusion(fusion)
     _check_impl(impl)
+    o = obs_mod.current()
+    if o is None:
+        return _ternary_matmul_batched(pw, x, impl, fusion)
+    e, c, _ = x.shape
+    with o.mpgemm_span(m_tokens=c, k=pw.K, n_out=pw.M, impl=impl, fusion=fusion,
+                       tiles=launch_tiles(pw, c, impl, e)):
+        return _ternary_matmul_batched(pw, x, impl, fusion)
+
+
+def _ternary_matmul_batched(pw: PackedWeight, x: torch.Tensor, impl: str,
+                            fusion: str) -> torch.Tensor:
+    """`ternary_matmul_batched` after routing: x (E, C, K) → (E, C, M)."""
     e, c, k = x.shape
     if fusion == "unfused":
         return _mpgemm_unfused(pw, x.reshape(e * c, k).T, impl, x.dtype, e=e).transpose(1, 2)

@@ -4,7 +4,8 @@
       [--smoke] [--device cuda|cpu] [--mpgemm-impl decode|lookup] \
       [--spec-k N [--spec-adaptive | --spec-tree B1,B2,...]] \
       [--prefill-chunk N [--token-budget T]] \
-      [--page-size P [--kv-pages N] [--offload-pages H]]
+      [--page-size P [--kv-pages N] [--offload-pages H]] \
+      [--no-obs | [--stats-interval S] [--metrics-out M.json] [--trace-out T.json]]
 
 --spec-k N turns on speculative decoding with the n-gram drafter (N draft
 tokens per batched verify step); --spec-adaptive adapts each slot's draft
@@ -15,6 +16,14 @@ prefill/decode step; --token-budget caps the real tokens per tick.
 --page-size P serves from a paged KV cache of P-token pages with radix
 prompt-prefix sharing; --kv-pages sizes its pool and --offload-pages its
 host-RAM tier for cold prefix pages.
+
+Observability (`repro_torch.obs`) is on by default (--no-obs turns it off):
+the periodic stats line (--stats-interval S) and the summary's latency
+columns read from the metrics registry, and --metrics-out / --trace-out
+write the JSON metrics snapshot and a Perfetto-loadable trace at exit. The
+trace holds one `mpgemm_dispatch` span per mpGeMM call (the steps run
+eagerly); its duration is the host's cost of issuing the launches, not
+their device time.
 
 ARCH is any decoder-only architecture of `repro_torch.configs`:
 smollm-360m, gemma3-1b, internlm2-1.8b, command-r-35b, chameleon-34b,
@@ -28,6 +37,7 @@ weights would not fit the card). Prints one summary line (with the
 speculative stats when --spec-k is given).
 """
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -35,6 +45,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import init_lm
+from repro_torch.obs import ObsConfig, install
 from repro_torch.serve import ContinuousBatchingScheduler, Engine, PagedKVConfig, Request
 from repro_torch.spec import SpecConfig
 
@@ -78,6 +89,15 @@ def main(argv=None):
     ap.add_argument("--offload-pages", type=int, default=0,
                     help="host-RAM offload tier capacity in pages for cold "
                          "prefix pages (0 = drop instead; needs --page-size)")
+    ap.add_argument("--no-obs", action="store_true",
+                    help="disable the observability layer (metrics + trace)")
+    ap.add_argument("--stats-interval", type=float, default=0.0,
+                    help="print a registry-backed stats line every S seconds "
+                         "while serving (0 = off)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the JSON metrics snapshot here on exit")
+    ap.add_argument("--trace-out", default="",
+                    help="write the Perfetto trace_event JSON here on exit")
     args = ap.parse_args(argv)
     if (args.spec_adaptive or args.spec_tree) and not args.spec_k:
         ap.error("--spec-adaptive/--spec-tree require --spec-k N (N >= 1)")
@@ -87,6 +107,8 @@ def main(argv=None):
         ap.error("--kv-pages/--offload-pages require --page-size N (N >= 1)")
     if args.spec_adaptive and args.spec_tree:
         ap.error("--spec-tree and --spec-adaptive are mutually exclusive")
+    if args.no_obs and (args.stats_interval or args.metrics_out or args.trace_out):
+        ap.error("--no-obs conflicts with --stats-interval/--metrics-out/--trace-out")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -103,7 +125,9 @@ def main(argv=None):
                  temperature=args.temperature, seed=args.seed,
                  mpgemm_impl=args.mpgemm_impl, spec=spec,
                  prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-                 paged_kv=paged, device=device)
+                 paged_kv=paged, device=device,
+                 obs=None if args.no_obs else ObsConfig(metrics_out=args.metrics_out or None,
+                                                        trace_out=args.trace_out or None))
     sched = ContinuousBatchingScheduler(eng)
     rng = np.random.default_rng(args.seed)
     sched.submit(
@@ -111,13 +135,38 @@ def main(argv=None):
                 max_new_tokens=args.max_new)
         for i in range(args.requests)
     )
+    obs = eng.obs
+    t_serve = time.perf_counter()
+    if args.stats_interval:
+        # registry-backed periodic logging: tick by hand, report from the
+        # metric objects (the gauges and counters on_tick syncs each tick)
+        next_at = time.perf_counter() + args.stats_interval
+        while sched.queue or eng.has_work:
+            sched.tick()
+            if time.perf_counter() >= next_at:
+                print(f"[obs] {obs.stats_line()}", flush=True)
+                next_at = time.perf_counter() + args.stats_interval
     stats = sched.run_to_completion()
-    ttft = np.median(stats.ttft_s) * 1e3 if stats.ttft_s else float("nan")
+    # the hand-ticked loop's work lands in this run's token counters, so its
+    # wall time must land in the run's clock too
+    stats.wall_s = time.perf_counter() - t_serve
+    # latency columns from the registry's histograms when obs is on (p50 and
+    # p95 interpolated from the bucket counts); without obs the median over
+    # ServeStats' TTFTs. No TTFT at all: no column
+    if obs.enabled and obs.h_ttft.count:
+        lat = (f" ttft_p50_ms={1e3 * obs.h_ttft.percentile(0.5):.2f}"
+               f" ttft_p95_ms={1e3 * obs.h_ttft.percentile(0.95):.2f}")
+        if obs.h_tpot.count:
+            lat += f" tpot_p50_ms={1e3 * obs.h_tpot.percentile(0.5):.2f}"
+        if obs.s_eff_m.count:
+            lat += f" eff_m={obs.s_eff_m.mean:.1f}"
+    else:
+        lat = f" ttft_median_ms={np.median(stats.ttft_s) * 1e3:.2f}" if stats.ttft_s else ""
     print(f"arch={cfg.name} device={device} impl={args.mpgemm_impl} "
           f"completed={stats.completed}/{args.requests} rejected={stats.rejected} "
           f"prefill_tok={stats.prefill_tokens} decode_tok={stats.decode_tokens} "
-          f"wall_s={stats.wall_s:.3f} throughput_tok_s={stats.throughput_tok_s:.1f} "
-          f"ttft_p50_ms={ttft:.2f} chunk_steps={stats.chunk_steps}")
+          f"wall_s={stats.wall_s:.3f} throughput_tok_s={stats.throughput_tok_s:.1f}"
+          f"{lat} chunk_steps={stats.chunk_steps}")
     if paged is not None:
         pager = eng.pager
         print(f"paged: page_size={paged.page_size} pages={pager.total_pages} "
@@ -132,6 +181,9 @@ def main(argv=None):
               f"tok_per_step={stats.decode_tokens_per_step:.3f} "
               f"nodes_per_step={stats.nodes_per_step:.2f} mean_k={stats.mean_draft_k:.2f} "
               f"skip_rate={stats.skip_rate:.3f}")
+    for path in obs.finalize():
+        print(f"wrote {path}")
+    install(None)      # detach the kernel hook: main() may be called again
     return stats
 
 

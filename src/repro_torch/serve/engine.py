@@ -47,7 +47,12 @@ The cache is updated in place: each step writes the slots' new K/V into the
 batched cache tensors, and `rollback_cache` resets the write positions.
 Greedy output of every mode is token for token that of plain decode.
 
-Not ported yet: observability (`obs`); asking for it raises.
+With `obs=ObsConfig(...)` (or an `Obs`) the engine records TTFT and TPOT
+histograms and, for every batched step, its wall time by kind and the real
+parallel tokens it carried (`repro_torch.obs`); the enabled `Obs` is
+installed for the mpGeMM dispatch spans. `obs=None` costs one `enabled`
+check per step. Every figure comes from host state the step already holds:
+observability adds no host sync.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
@@ -131,10 +137,8 @@ class Engine:
                  max_len: int = 512, temperature: float = 0.0, seed: int = 0,
                  mpgemm_impl: str | None = None, mpgemm_fusion: str | None = None,
                  spec: SpecConfig | None = None, prefill_chunk: int = 0,
-                 token_budget: int = 0, paged_kv: PagedKVConfig | None = None, obs=None,
-                 device="cuda"):
-        if obs is not None:
-            raise NotImplementedError("Engine option ['obs'] is not ported yet")
+                 token_budget: int = 0, paged_kv: PagedKVConfig | None = None,
+                 obs: obs_mod.ObsConfig | obs_mod.Obs | None = None, device="cuda"):
         specs = cfg.layer_specs()
         if paged_kv is not None:
             if any(s.mixer == "ssm" for s in specs):
@@ -260,6 +264,17 @@ class Engine:
         self.drafted_tokens = 0
         self.accepted_tokens = 0
         self.verified_nodes = 0      # candidate tokens verified (Σ per slot)
+        # observability: the null instance is free (every method returns at
+        # once); an enabled Obs also installs itself for the mpGeMM dispatch
+        # hook (ops.ternary_matmul / ternary_matmul_batched)
+        if obs is None:
+            self.obs = obs_mod.NULL_OBS
+        elif isinstance(obs, obs_mod.Obs):
+            self.obs = obs
+        else:
+            self.obs = obs_mod.Obs(obs)
+        if self.obs.enabled:
+            obs_mod.install(self.obs)
 
     # ------------------------------------------------------------------
     @property
@@ -390,6 +405,8 @@ class Engine:
         max_new_tokens=1."""
         req.generated.append(first_tok)
         req.t_first_token = now
+        if req.t_submit:
+            self.obs.observe_ttft(now - req.t_submit)
         self.last_token[slot, 0] = first_tok
         if len(req.generated) >= req.max_new_tokens:
             req.done = True
@@ -450,6 +467,10 @@ class Engine:
     def _finish_slot(self, slot: int, req: Request, now: float) -> None:
         req.done = True
         req.t_done = now
+        # TPOT = mean inter-token gap after the first token (single-token
+        # requests finish in _start_decoding)
+        if len(req.generated) > 1 and req.t_first_token:
+            self.obs.observe_tpot((now - req.t_first_token) / (len(req.generated) - 1))
         self.active[slot] = False
         self.slot_free[slot] = True
         del self.slot_req[slot]
@@ -505,6 +526,7 @@ class Engine:
         column 0; other rows are padding. One `verify_step` writes them all.
         `token_budget` caps the real tokens: decode rows first, then chunks
         FCFS, at least one chunk per step."""
+        _t0 = time.perf_counter() if self.obs.enabled else 0.0
         chunk = self.prefill_chunk
         include_decode = self._decode_rides and bool(self.active.any())
         used = int(self.active.sum()) if include_decode else 0
@@ -556,6 +578,11 @@ class Engine:
             if len(req.generated) >= req.max_new_tokens or self._slot_exhausted(req):
                 self._finish_slot(slot, req, now)
         self.cache = rollback_cache(cache, self._dev(new_idx))
+        if self.obs.enabled:
+            # used = real tokens this step carried (chunk tokens + decode
+            # rows): the effective M of the step's mpGeMM launches
+            self.obs.step_event("chunk", _t0, m_real=used, m_padded=self.max_slots * chunk,
+                                prefills=len(chosen), decodes=len(decode_slots))
 
     @torch.no_grad()
     def decode_once(self) -> None:
@@ -569,6 +596,9 @@ class Engine:
         if self.spec is not None:
             return self._decode_spec()
         self.decode_steps += 1
+        _t0 = time.perf_counter() if self.obs.enabled else 0.0
+        # rows finishing mid-loop still count
+        _m_active = int(self.active.sum()) if self.obs.enabled else 0
         # the decode step advances EVERY slot's idx by 1 and writes a token
         # at every slot's frontier; a slot mid-chunked-prefill gets its idx
         # back (its next chunk rewrites that frontier before it is read)
@@ -591,6 +621,8 @@ class Engine:
                 self._finish_slot(slot, req, now)
         if restore:
             self.cache = rollback_cache(self.cache, self._dev(new_idx))
+        if self.obs.enabled:
+            self.obs.step_event("decode", _t0, m_real=_m_active, m_padded=self.max_slots)
 
     def _choose_k_eff(self) -> np.ndarray:
         """Per-slot effective draft length for this step: spec.k everywhere
@@ -640,6 +672,9 @@ class Engine:
         prefix, and the cache rolled back to the last kept position. A slot
         drafting k_eff < k real tokens pads the rest of its row, and the
         draft_mask stops acceptance at k_eff (k_eff=0 is a plain decode row)."""
+        _t0 = time.perf_counter() if self.obs.enabled else 0.0
+        # slots finishing mid-loop flip self.active
+        active0 = self.active.copy() if self.obs.enabled else None
         k = self.spec.k
         contexts, pos = self._gather_contexts()
         k_eff = self._choose_k_eff()
@@ -688,6 +723,10 @@ class Engine:
         self.decode_steps += 1
         self.last_token = new_last
         self.cache = rollback_cache(cache, self._dev(new_idx))
+        if self.obs.enabled:
+            # every verify row carries k_eff + 1 real candidate tokens
+            self.obs.step_event("verify", _t0, m_real=int(np.sum(k_eff[active0] + 1)),
+                                m_padded=self.max_slots * (k + 1), k=k)
 
     @torch.no_grad()
     def _decode_spec_tree(self) -> None:
@@ -697,6 +736,8 @@ class Engine:
         longest accepted root-to-leaf path, the path's cache entries move
         onto contiguous slots (`compact_tree_cache`), and the idx rolls back
         to the accepted depth."""
+        _t0 = time.perf_counter() if self.obs.enabled else 0.0
+        _m_active = int(self.active.sum()) if self.obs.enabled else 0
         tree = self._tree
         n_nodes = tree.n_nodes
         contexts, pos = self._gather_contexts()
@@ -752,6 +793,9 @@ class Engine:
             sel[:, 1:tree.k + 1])
         compact_tree_cache(cache, self._dev(base), self._dev(sel), self._dev(take_arr))
         self.cache = rollback_cache(cache, self._dev(new_idx))
+        if self.obs.enabled:
+            self.obs.step_event("tree_verify", _t0, m_real=_m_active * n_nodes,
+                                m_padded=self.max_slots * n_nodes, n_nodes=n_nodes)
 
     def reset_stats(self) -> None:
         """Zero the token and acceptance counters (e.g. after a warmup run).

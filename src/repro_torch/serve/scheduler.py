@@ -6,7 +6,10 @@ a blocking B=1 prefill) before the batched step. Chunked engines admit every
 queued request that gets a slot (admission only claims it) and the engine's
 token budget paces the chunks; TTFT is then taken when a request's last
 chunk lands. Ticks with nothing prefilling or decoding skip the step.
-Per-request latency and throughput accounting is built in.
+Per-request latency and throughput accounting is built in. With the
+engine's `obs` enabled, every tick ends in the registry's sync of queue,
+slot and page-pool gauges and counter mirrors (`Obs.on_tick`) and one
+`scheduler_tick` span; all of it reads host state.
 """
 from __future__ import annotations
 
@@ -123,6 +126,8 @@ class ContinuousBatchingScheduler:
         request that can never fit is rejected in place (`error` set, see
         `self.rejected`) and the next queued request is tried in the same
         tick."""
+        obs = self.engine.obs
+        _t0 = time.perf_counter() if obs.enabled else 0.0
         multi = bool(self.engine.prefill_chunk)
         while self.queue:
             head = self.queue[0]
@@ -144,6 +149,15 @@ class ContinuousBatchingScheduler:
         for r in before:
             if r.done:
                 self.completed.append(r)
+        if obs.enabled:
+            # end-of-tick sync: the registry reads engine state, never
+            # double-counts it
+            obs.on_tick(self.engine, queue_depth=len(self.queue),
+                        completed=len(self.completed), rejected=len(self.rejected))
+            obs.tracer.complete(
+                "scheduler_tick", _t0,
+                args=dict(queue=len(self.queue), running=int(self.engine.active.sum()),
+                          prefilling=len(self.engine.prefilling)))
 
     def run_to_completion(self, max_ticks: int = 100_000) -> ServeStats:
         """Drain the queue (<= max_ticks); → ServeStats for this run (deltas

@@ -42,6 +42,12 @@ def test_walk_covers_the_mla_slice():
             "src/repro_torch/kernels/ternary_decode_gemm.py"} <= rels
 
 
+def test_walk_covers_the_observability_slice():
+    rels = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"src/repro_torch/obs/__init__.py", "src/repro_torch/obs/metrics.py",
+            "src/repro_torch/obs/trace.py", "src/repro_torch/roofline/analysis.py"} <= rels
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))

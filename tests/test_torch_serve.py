@@ -13,6 +13,7 @@ from repro import models as jm  # noqa: E402
 from repro import serve as js  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch import obs as tobs  # noqa: E402
 from repro_torch import serve as ts  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
 
@@ -63,8 +64,15 @@ def test_greedy_serving_token_identical(served):
 def test_engine_refuses_unported_options(served):
     jcfg, tcfg, params, _ = served
     model = bridge.lm_from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ts.Engine(model, tcfg, max_slots=2, max_len=32, device="cpu", obs=object())
+    # observability is ported: obs=ObsConfig() builds an enabled Obs and
+    # installs it for the mpGeMM dispatch hook until detached
+    eng = ts.Engine(model, tcfg, max_slots=2, max_len=32, device="cpu", obs=tobs.ObsConfig())
+    try:
+        assert isinstance(eng.obs, tobs.Obs) and eng.obs.enabled
+        assert tobs.current() is eng.obs
+    finally:
+        tobs.install(None)
+    assert tobs.current() is None
     # the paged KV cache is ported: it builds a pager instead of raising
     eng = ts.Engine(model, tcfg, max_slots=2, max_len=32, device="cpu",
                     paged_kv=ts.PagedKVConfig(page_size=8))
