@@ -7,7 +7,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: compile every CUDA kernel from `csrc/` (one nvcc per source, in
-   parallel).
+   parallel); each grouped vector-LUT instantiation's registers, spills
+   (must be 0) and blocks an SM at the main path's shared bytes (the CUDA
+   runtime's occupancy, at least the plan's one) are logged.
 3. kernels: each fused mpGeMM kernel against its plain PyTorch version on
    the card, at the BitLinear shapes of smollm-360m (M, K) in {(960, 960),
    (320, 960), (2560, 960), (960, 2560)} plus a mixed g=5/g=4 shape
@@ -176,7 +178,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    C and padding rows (the rows quantized and de-interleaved as the
    pipeline does) against their plain versions and 16 single integer
    launches, and at the same split-K traps (launched twice, 3 graph
-   replays): expected difference 0.
+   replays): expected difference 0; and both grouped vector-LUT kernels at
+   their plan's geometry traps (LUT_GEOMETRY_TRAPS: E x tiles just over a
+   wave, several experts a block, M 70 and 1000, KG 1-77, C 1-64, g 4 and
+   5), each at E and E - 1 experts, launched twice back to back and
+   replayed 3 times in a CUDA graph, against their plain versions and E
+   single launches (`lut_geometry_traps`). Phase 10 (b) also times the
+   grouped integer kernels per linear beside 16 single launches and logs
+   every grouped launch's plan (lookup: BM, K-splits, experts a block).
 11. mla: the MLA mixer on `deepseek-v3-671b` at its published widths (d
    7168, 128 heads, q/kv latent ranks 1536/512, rope 64, 256 experts top-8
    + 1 shared, d_ff 2048 and 18432 dense, vocab 129280, bf16), depth cut
@@ -187,8 +196,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    and integer, both impls) at the first MoE layer's expert weights (E
    256; w1 M 2048, K 7168 = 1432 g=5 + 2 g=4 groups; w2 M 7168, K 2048 =
    408 + 2), C 16, bf16, a zero padding row, against their plain versions
-   (16 experts at a time): expected difference 0. (b) Device ms per
-   linear's grouped launches and per layer's 6, beside the bound (bytes /
+   (16 experts at a time): expected difference 0; the grouped vector-LUT
+   geometry traps at 256 experts (LUT_GEOMETRY_TRAPS_E256), as phase 10's.
+   (b) Device ms per linear's grouped launches (their plans logged) and
+   per layer's 6, beside the bound (bytes /
    3.35 TB/s), 256 single launches, the plain version (eager), a decode
    step's rows (32 real, the rest 0) and a bf16 `torch.bmm` yardstick.
    The batched unfused pipeline against the fused one on the same rows
@@ -427,6 +438,22 @@ MOE_TIME_TOKENS = (4, 16)
 # grouped split-K traps (E, M, KG, g, C): odd E, M off the tiles, C 5 and
 # 17, KG not divisible by the splits, a one-K-group g=4 segment
 MOE_RAGGED = ((3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (3, 1000, 191, 5, 5), (7, 70, 1, 4, 3))
+# the grouped vector-LUT plan's geometry traps (E, M, KG, g, C): E x tiles
+# just over a wave (133 and 134 tiles), one-chunk segments with several
+# experts a block (140 experts of KG 2), M off the row tile (70, 1000), KG
+# 1, 2, 3, 13 and 77, C 1, 5, 17 and 64, g 4 and 5; each launched at E and
+# again at E - 1 experts (phase 10 (a))
+LUT_GEOMETRY_TRAPS = (
+    [(134, 1000, 64, 5, 16), (133, 70, 40, 4, 4), (140, 70, 2, 4, 1)]
+    + [(3, m, kg, 4 + (i % 2), c)
+       for i, (m, kg, c) in enumerate((m, kg, c) for m in (70, 1000) for kg in (1, 2, 3, 13, 77)
+                                      for c in (1, 5, 17, 64))]
+)
+# the same at deepseek-v3's 256 experts (phase 11 (a)): several experts a
+# block (KG 13), two token tiles (C 17), 255 experts, a wave of 129 tiles
+# and one of 133 that splits K
+LUT_GEOMETRY_TRAPS_E256 = ((256, 70, 13, 5, 16), (256, 1000, 77, 4, 17), (256, 2048, 40, 5, 16),
+                           (129, 1000, 64, 5, 16), (133, 1000, 64, 4, 4))
 # one prefill through the kernels against the same prefill through their
 # plain versions on the card: the kernels are bit-equal to the plain
 # versions and every other op is the same call on the same device, so the
@@ -557,7 +584,7 @@ def plan_row(p) -> dict:
     """A launch plan (`LutPlan` or `DecodePlan`) as a JSON row."""
     row = {"shape": [p.m, p.kg, p.n, p.g], "splits": p.splits, "blocks": p.blocks,
            "smem": p.smem, "kg_divisible_by_splits": p.kg % p.splits == 0}
-    for key in ("e", "bm", "bn", "chunk", "kstep", "codes_aligned", "acts_aligned"):
+    for key in ("e", "ex", "bm", "bn", "chunk", "kstep", "codes_aligned", "acts_aligned"):
         if hasattr(p, key):
             row[key] = getattr(p, key)
     return row
@@ -608,6 +635,88 @@ def splitk_traps(torch, name, kern, plain, cases) -> dict:
                                  f"{tuple(a[0].shape)} x {tuple(a[1].shape)} differs from the plain version")
     del graph
     return {"cases": len(cases), "repeat_launches": 2, "graph_replays": LUT_REPLAYS, "max_abs_err": 0}
+
+
+def lut_geometry_traps(torch, gen, traps, label: str) -> dict:
+    """The grouped vector-LUT kernels (fused, f32 and bf16, and integer) at
+    the plan's geometry traps: each trap at E experts and again at E - 1
+    (the first E - 1 experts' operands), launched twice back to back with
+    the other cases and in a CUDA graph replayed LUT_REPLAYS times
+    (`splitk_traps`), all against the plain version, and the plain version
+    against E single launches: expected difference 0."""
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+
+    dev = torch.device("cuda")
+    fused, ints = [], []
+    for e, m, kg, g, c in traps:
+        packed = torch.randint(0, 3 ** g, (e, m, kg), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.uint8)
+        x = torch.randn((e, c, kg * g), generator=gen, device=dev) * 3.0
+        x[:, -1] = 0                               # a padding row of every expert
+        w_scale = torch.rand((e, m), generator=gen, device=dev)
+        a_r = torch.randint(-128, 128, (e, g, kg, c), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.int8)
+        a_r[..., -1] = 0                           # its padding token
+        for ne in (e, e - 1) if e > 1 else (e,):
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x[:ne].to(dt)
+                fused.append(((packed[:ne], xd, act_scales(torch, xd), w_scale[:ne]),
+                              dict(g=g, out_dtype=dt)))
+            ints.append(((packed[:ne], a_r[:ne]), dict(g=g)))
+    out = {"traps": len(traps), "plans": [plan_row(vlg.grouped_lut_plan(m, kg, c, g, e))
+                                          for e, m, kg, g, c in traps]}
+    for name, kern, plain, single, cases in (
+            ("vlut_lookup_gemm_fused_grouped", vlg.vlut_lookup_gemm_fused_grouped,
+             vlg.vlut_lookup_gemm_fused_plain, vlg.vlut_lookup_gemm_fused, fused),
+            ("vlut_lookup_gemm_grouped", vlg.vlut_lookup_gemm_grouped,
+             vlg.vlut_lookup_gemm_plain, vlg.vlut_lookup_gemm, ints)):
+        out[name] = splitk_traps(torch, name, kern, plain, cases)
+        for a, kw in cases:
+            want = plain(*a, **kw)
+            each = torch.stack([single(*(t[i] for t in a), **kw) for i in range(a[0].shape[0])])
+            pad = want[:, -1] if name.endswith("fused_grouped") else want[..., -1]
+            if not torch.equal(each, want) or pad.any():
+                raise AssertionError(f"{label}: {name} at {tuple(a[0].shape)} x {tuple(a[1].shape)}: "
+                                     "single launches differ from the plain version, or a padding "
+                                     "row's output is not 0")
+        out[name]["single_launch_checks"] = len(cases)
+    if not any(r["ex"] > 1 for r in out["plans"]) or not any(r["splits"] > 1 for r in out["plans"]):
+        raise AssertionError(f"{label}: the geometry traps reach no plan with several experts "
+                             "a block, or none that splits K")
+    log(f"{label}: grouped vector-LUT geometry traps: {len(traps)} shapes at E and E - 1, "
+        f"{len(fused)} fused and {len(ints)} integer cases, each launched twice back to back and "
+        f"in a CUDA graph replayed {LUT_REPLAYS} times, against the plain version and E single "
+        "launches: max |diff| 0; plans "
+        + "; ".join(f"E {r['e']} {tuple(r['shape'])} bm {r['bm']} S {r['splits']} x{r['ex']} "
+                    f"blocks {r['blocks']}" for r in out["plans"]))
+    return out
+
+
+def lut_grouped_build(torch, _build) -> dict:
+    """Registers, spill bytes and blocks per SM (the CUDA runtime's
+    occupancy at the main path's shared bytes) of every grouped vector-LUT
+    instantiation; raises on a spill, or where fewer than the plan's
+    blocks fit on an SM."""
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+
+    regs = kernel_registers(_build, "vlut_grouped_kernel")
+    types = {"aiE": (True, False, False), "EffE": (False, False, False),
+             "Ef13__nv_bfloat16E": (False, False, True), "E13__nv_bfloat16fE": (False, True, False),
+             "E13__nv_bfloat16S1_E": (False, True, True)}
+    for entry, r in regs.items():
+        g = 5 if "ILi5E" in entry else 4
+        int_kernel, a_bf16, out_bf16 = next(v for k, v in types.items() if entry.endswith(k + "EvNS_10GLutParamsE"))
+        smem = max(vlg.grouped_lut_plan(m, 1432, n, g, 256).smem for m in (2048, 7168) for n in (4, 16))
+        r["smem"] = smem
+        r["blocks_per_sm"] = _build.grouped_blocks_per_sm(g, int_kernel, a_bf16, out_bf16, smem)
+        log(f"build: grouped vector-LUT instantiation {entry}: {r.get('registers')} registers, "
+            f"{r.get('spill_bytes')} spill bytes, {r['blocks_per_sm']} block(s) an SM at {smem} "
+            "shared bytes")
+        if r.get("spill_bytes") or r["blocks_per_sm"] < vlg.GROUP_BLOCKS_PER_SM:
+            raise AssertionError(f"{entry}: spills or fits fewer blocks than the plan counts: {r}")
+    if len(regs) != 10:
+        raise AssertionError(f"expected 10 grouped vector-LUT instantiations, found {sorted(regs)}")
+    return regs
 
 
 def largest_split(plan) -> tuple:
@@ -1913,7 +2022,7 @@ def moe_kernel_checks(torch, model, gen) -> dict:
     dev = torch.device("cuda")
     kernels = grouped_kernels()
     plans = {"decode": lambda e, m, kg, g, c: decode_plan_for(tdg, m, kg, c, g, e=e),
-             "lookup": lambda e, m, kg, g, c: vlg.lut_plan(m, kg, c, g, e=e)}
+             "lookup": lambda e, m, kg, g, c: vlg.grouped_lut_plan(m, kg, c, g, e)}
     ffn = model.layers[0].ffn
     lins = {"w1": ffn.experts.w1.pw, "w3": ffn.experts.w3.pw, "w2": ffn.experts.w2.pw}
     e = lins["w1"].packed5.shape[0]
@@ -2001,6 +2110,8 @@ def moe_kernel_checks(torch, model, gen) -> dict:
             + "; ".join(f"{tuple(r['shape'])} E {r['e']} S {r['splits']} blocks {r['blocks']}"
                         for r in traps[name]["plans"]))
 
+    geometry = lut_geometry_traps(torch, gen, LUT_GEOMETRY_TRAPS, "moe")
+
     # (b) device times
     per_c = {}
     deq = {ln: (pw.unpack().to(torch.bfloat16) * pw.scale[..., None].to(torch.bfloat16))
@@ -2038,6 +2149,18 @@ def moe_kernel_checks(torch, model, gen) -> dict:
                                "plain_ms": device_ms(torch, lambda p=plain, l=launches: grouped(p, l),
                                                      reps=1),
                                "zero_rows_ms": device_ms(torch, lambda: grouped(kern, zero_launches))}
+            # the grouped integer kernels on the same rows, as the unfused
+            # pipeline launches them
+            int_ls = grouped_int_launches(torch, pw, xs[pw.K])
+            for name, (kern, _, single) in grouped_int_kernels().items():
+                entry[name] = {"ms": device_ms(torch, lambda k=kern: call_launches("int", k, int_ls)),
+                               "singles_ms": device_ms(torch, lambda k=single: single_launches(
+                                   "int", k, int_ls))}
+            entry["plans"] = {
+                "lookup": [plan_row(vlg.grouped_lut_plan(pk.shape[1], pk.shape[2], c, g, e))
+                           for pk, _, _, _, g, _ in launches],
+                "decode": [plan_row(decode_plan_for(tdg, pk.shape[1], pk.shape[2], c, g, e=e))
+                           for pk, _, _, _, g, _ in launches]}
             row[ln] = entry
             log(f"moe: {ln} (E {e}, M {pw.M}, K {pw.K}, {len(launches)} launch(es)) at C={c}: "
                 f"bound {entry['bound_ms']:.4f} ms (bytes), "
@@ -2045,7 +2168,11 @@ def moe_kernel_checks(torch, model, gen) -> dict:
                             f"{entry[nm]['singles_ms']:.4f}, plain {entry[nm]['plain_ms']:.4f}, "
                             f"on zero rows but 4 {entry[nm]['zero_rows_ms']:.4f})"
                             for nm in kernels)
-                + f", bf16 bmm yardstick {entry['bmm_ms']:.4f} ms")
+                + ", " + ", ".join(f"{nm} {entry[nm]['ms']:.4f} ms ({e} single launches "
+                                   f"{entry[nm]['singles_ms']:.4f})" for nm in grouped_int_kernels())
+                + f", bf16 bmm yardstick {entry['bmm_ms']:.4f} ms; lookup plans "
+                + "; ".join(f"bm {r['bm']} S {r['splits']} x{r['ex']} c{r['chunk']} blocks {r['blocks']}"
+                            for r in entry["plans"]["lookup"]))
         # one MoE layer's four grouped launches (the kernels line's unit)
         nbytes = launch_bytes(torch, layer_launches)
         nops = sum(2 * e * c * pk.shape[1] * xsl.shape[-1] for pk, xsl, *_ in layer_launches)
@@ -2069,7 +2196,8 @@ def moe_kernel_checks(torch, model, gen) -> dict:
             + f", bf16 bmm yardstick {layer['library_ms']:.4f} ms")
         per_c[c] = row
     del deq
-    return {"max_abs_err": max_err, "checks": n_checks, "splitk_traps": traps, "per_tokens": per_c}
+    return {"max_abs_err": max_err, "checks": n_checks, "splitk_traps": traps,
+            "lut_geometry_traps": geometry, "per_tokens": per_c}
 
 
 def act_scales(torch, x):
@@ -2360,8 +2488,11 @@ def mla_kernel_checks(torch, model, cfg, gen) -> dict:
     version (eager: 256 experts' plain version does not fit one graph), a
     decode step's rows (MLA_DECODE_ROWS real, the rest 0) and a bf16
     `torch.bmm` against the dequantized experts (a yardstick only). Also
-    the batched unfused pipeline against the fused one on the same rows."""
+    the batched unfused pipeline against the fused one on the same rows,
+    and the grouped vector-LUT plan's geometry traps at 256 experts."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
 
     dev = torch.device("cuda")
     layer = next(i for i, sp in enumerate(cfg.layer_specs()) if sp.ffn == "moe")
@@ -2418,6 +2549,7 @@ def mla_kernel_checks(torch, model, cfg, gen) -> dict:
                                  "the largest output")
     log(f"mla: ternary_matmul_batched unfused vs fused at E {e}, C {c}: max |diff| / max |out| "
         f"{fusion_err} (bound 2^-7); unfused equal between impls")
+    geometry = lut_geometry_traps(torch, gen, LUT_GEOMETRY_TRAPS_E256, "mla")
 
     # (b) device times
     deq = {ln: dequantized(torch, lins[ln]) for ln in ("w1", "w2")}
@@ -2442,7 +2574,15 @@ def mla_kernel_checks(torch, model, cfg, gen) -> dict:
                         kind, experts_chunked(torch, plain), ls), reps=1),
                     "zero_rows_ms": device_ms(torch, lambda: call_launches(kind, kern, zero_ls)),
                 }
+        entry["plans"] = {
+            "lookup": [plan_row(vlg.grouped_lut_plan(pk.shape[1], pk.shape[2], c, g, e))
+                       for pk, _, _, _, g, _ in launches[("fused", ln)]],
+            "decode": [plan_row(decode_plan_for(tdg, pk.shape[1], pk.shape[2], c, g, e=e))
+                       for pk, _, _, _, g, _ in launches[("fused", ln)]]}
         rows[ln] = entry
+        log(f"mla: {ln} lookup plans: " + "; ".join(
+            f"bm {r['bm']} S {r['splits']} x{r['ex']} c{r['chunk']} blocks {r['blocks']}"
+            for r in entry["plans"]["lookup"]))
         log(f"mla: {ln} (E {e}, M {pw.M}, K {pw.K}, {entry['launches']} launches) at C={c}: bound "
             f"{entry['fused_bound_ms']:.4f} ms fused, {entry['int_bound_ms']:.4f} integer (bytes); "
             + ", ".join(f"{nm} {entry[nm]['ms']:.4f} ms ({e} single launches "
@@ -2475,7 +2615,8 @@ def mla_kernel_checks(torch, model, cfg, gen) -> dict:
             + f", bf16 bmm yardstick (3 bmm) {library_ms:.4f} ms")
     del deq
     return {"layer": layer, "experts": e, "rows_per_expert": c, "max_abs_err": max_err,
-            "unfused_vs_fused_rel": fusion_err, "per_linear": rows, "per_layer": layer_row}
+            "unfused_vs_fused_rel": fusion_err, "lut_geometry_traps": geometry,
+            "per_linear": rows, "per_layer": layer_row}
 
 
 def mla_wkv_b_unpack_ms(torch, model, cfg) -> dict:
@@ -3478,6 +3619,7 @@ def main() -> int:
     for entry, r in flash_registers(_build).items():
         log(f"build: flash instantiation {entry}: {r.get('registers')} registers, "
             f"{r.get('spill_bytes')} spill bytes, {r.get('smem_static')} static shared bytes")
+    lut_grouped = lut_grouped_build(torch, _build)
 
     # model for phases 3 to 5
     cfg = get_config("smollm-360m")
@@ -3637,7 +3779,7 @@ def main() -> int:
         "per_tokens": per_n, "splitk_fused_traps": fused_traps,
         "decode_plans": {n: [plan_row(decode_plan_for(tdg, m, k // 5, n, 5)) for m, k in SHAPES]
                          for n in TOKENS},
-        "lut_registers": kernel_registers(_build, "vlut_kernel"),
+        "lut_registers": {**kernel_registers(_build, "vlut_kernel"), **lut_grouped},
         "decode_registers": kernel_registers(_build, "decode_kernel"),
         "flash_registers": flash_registers(_build),
         "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}

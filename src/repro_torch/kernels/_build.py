@@ -72,13 +72,18 @@ _LUT_ARGTYPES = (                    # VLUT_LUT_ENTRY_ARGS (vlut_lookup_gemm.cu)
     + [ctypes.c_int] * 3             # ws_stride, a_bf16, out_bf16
     + _PLAN_ARGTYPES
 )
+_GROUPED_PLAN_ARGTYPES = (           # the grouped launch plan (vlut_lookup_gemm.cu)
+    [ctypes.c_int] * 4               # bm, splits, chunk, experts per block
+    + [ctypes.c_longlong]            # dynamic shared bytes
+    + [ctypes.c_void_p]              # stream
+)
 _LUT_GROUPED_ARGTYPES = (            # VLUT_LUT_GROUPED_ENTRY_ARGS (vlut_lookup_gemm.cu)
     [ctypes.c_void_p] * 7            # packed, a, a_scale, w_scale, out, ws, counters
     + [ctypes.c_int] * 4             # M, KG, N, g
     + [ctypes.c_longlong] * 2        # lda, ldo
     + [ctypes.c_int] * 4             # ws_stride, a_bf16, out_bf16, E
     + [ctypes.c_longlong] * 5        # expert strides of packed, a, a_scale, w_scale, out
-    + _PLAN_ARGTYPES
+    + _GROUPED_PLAN_ARGTYPES
 )
 _LUT_INT_ARGTYPES = (                # VLUT_LUT_INT_ENTRY_ARGS (vlut_lookup_gemm.cu)
     [ctypes.c_void_p] * 5            # packed, a_r, out, ws, counters
@@ -89,7 +94,7 @@ _LUT_INT_GROUPED_ARGTYPES = (        # VLUT_LUT_INT_GROUPED_ENTRY_ARGS (vlut_loo
     [ctypes.c_void_p] * 5            # packed, a_r, out, ws, counters
     + [ctypes.c_int] * 5             # M, KG, N, g, E
     + [ctypes.c_longlong] * 3        # expert strides of packed, a_r, out
-    + _PLAN_ARGTYPES
+    + _GROUPED_PLAN_ARGTYPES
 )
 _FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
     [ctypes.c_void_p] * 4            # q, k, v, o
@@ -102,11 +107,12 @@ _FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
     + [ctypes.c_longlong]            # the plan's dynamic shared bytes
     + [ctypes.c_void_p]              # stream
 )
-#: the library's C entries; each returns a cudaError_t
+#: the library's C entries; each returns a cudaError_t (the occupancy
+#: query: blocks per SM, or -1)
 ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused",
            "ternary_decode_gemm_fused_grouped", "vlut_lookup_gemm_fused_grouped",
            "ternary_decode_gemm", "vlut_lookup_gemm", "ternary_decode_gemm_grouped",
-           "vlut_lookup_gemm_grouped", "flash_attention_fwd")
+           "vlut_lookup_gemm_grouped", "vlut_grouped_blocks_per_sm", "flash_attention_fwd")
 #: the ctypes signature of every entry
 _ARGTYPES = {
     "ternary_decode_gemm_fused": _DECODE_ARGTYPES,
@@ -117,6 +123,8 @@ _ARGTYPES = {
     "vlut_lookup_gemm": _LUT_INT_ARGTYPES,
     "ternary_decode_gemm_grouped": _DECODE_INT_GROUPED_ARGTYPES,
     "vlut_lookup_gemm_grouped": _LUT_INT_GROUPED_ARGTYPES,
+    # g, integer kernel, a_bf16, out_bf16, dynamic shared bytes
+    "vlut_grouped_blocks_per_sm": [ctypes.c_int] * 4 + [ctypes.c_longlong],
     "flash_attention_fwd": _FLASH_ARGTYPES,
 }
 
@@ -324,11 +332,11 @@ def launch_lut_grouped(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Ten
                        counters) -> None:
     """Call `vlut_lookup_gemm_fused_grouped` (E experts in one launch:
     packed (E, M, KG) u8, x (E, C, K) → out (E, C, M)) as `launch_lut`
-    calls the single entry; `plan` counts the E experts."""
+    calls the single entry, with its `GroupedLutPlan`."""
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = load().vlut_lookup_gemm_fused_grouped(
         *_grouped_args(packed, x, a_scale, w_scale, g, out, ws, counters),
-        plan.bm, plan.splits, plan.chunk, plan.smem, stream,
+        plan.bm, plan.splits, plan.chunk, plan.ex, plan.smem, stream,
     )
     if rc != 0:
         raise RuntimeError(f"vlut_lookup_gemm_fused_grouped: CUDA error {rc} at launch ({plan})")
@@ -352,14 +360,25 @@ def launch_lut_int_grouped(packed: torch.Tensor, a_r: torch.Tensor, g: int, out:
                            plan, ws, counters) -> None:
     """Call `vlut_lookup_gemm_grouped` (E experts in one launch: packed
     (E, M, KG) u8, a_r (E, g, KG, N) i8 → out (E, M, N) i32) as
-    `launch_lut` calls the fused entry; `plan` counts the E experts."""
+    `launch_lut` calls the fused entry, with its `GroupedLutPlan`."""
     stream = torch.cuda.current_stream(a_r.device).cuda_stream
     rc = load().vlut_lookup_gemm_grouped(
         *_int_grouped_args(packed, a_r, out, g, ws, counters),
-        plan.bm, plan.splits, plan.chunk, plan.smem, stream,
+        plan.bm, plan.splits, plan.chunk, plan.ex, plan.smem, stream,
     )
     if rc != 0:
         raise RuntimeError(f"vlut_lookup_gemm_grouped: CUDA error {rc} at launch ({plan})")
+
+
+def grouped_blocks_per_sm(g: int, int_kernel: bool, a_bf16: bool, out_bf16: bool,
+                          smem: int) -> int:
+    """Blocks of the grouped vector-LUT kernel (that instantiation) that
+    fit on one SM with `smem` dynamic shared bytes, as the CUDA runtime
+    reports it: the occupancy `grouped_lut_plan` counts waves at."""
+    n = load().vlut_grouped_blocks_per_sm(g, int(int_kernel), int(a_bf16), int(out_bf16), smem)
+    if n < 0:
+        raise RuntimeError(f"vlut_grouped_blocks_per_sm: CUDA error at smem {smem}")
+    return n
 
 
 def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,

@@ -22,13 +22,14 @@ _RETIRED: list = []
 def launch_args(plan, device: torch.device):
     """(workspace, counters) of a launch whose plan splits K, else (None,
     None): zeroed int32, at least E*N*M entries and one counter per output
-    tile of each of the E experts (`plan` has e, m, n, splits, m_tiles and
-    n_tiles; e = 1 for a single product). Grown only by an eager call: a
+    tile of each of the E experts (`plan` has m, n, splits, m_tiles and
+    n_tiles, and e where it is a grouped launch's). Grown only by an eager call: a
     first allocation inside a CUDA-graph capture would come from the
     graph's private pool, so it raises there instead."""
     if plan.splits == 1:
         return None, None
-    entries, counters = plan.e * plan.m * plan.n, plan.e * plan.m_tiles * plan.n_tiles
+    e = getattr(plan, "e", 1)
+    entries, counters = e * plan.m * plan.n, e * plan.m_tiles * plan.n_tiles
     cur = _WORKSPACE.get(device)
     if cur is None or cur[0].numel() < entries or cur[1].numel() < counters:
         if torch.cuda.is_current_stream_capturing():

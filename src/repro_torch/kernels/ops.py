@@ -51,6 +51,7 @@ from .ternary_decode_gemm import (
     ternary_decode_gemm_grouped,
 )
 from .vlut_lookup_gemm import (
+    grouped_lut_plan,
     lut_plan,
     vlut_lookup_gemm,
     vlut_lookup_gemm_fused,
@@ -229,26 +230,30 @@ def segment_mpgemm(packed: torch.Tensor, a: torch.Tensor, g: int, impl: str, *,
     return (out.to(torch.float32) * a_scale[None, :]).to(out_dtype)
 
 
-def launch_tiles(pw: PackedWeight, n: int, impl: str, e: int = 1) -> list[str]:
+def launch_tiles(pw: PackedWeight, n: int, impl: str, e: int | None = None) -> list[str]:
     """The launch plan of each packed segment of one call at N tokens (per
-    expert, over `e` experts in one grouped launch), one entry per kernel
-    launch: the dispatch span's `tile`, the counterpart of the JAX
-    package's autotuned TPU tiles. Decode: "g5 64x16 s2 k32" (BM x BN,
-    K-splits, K-groups per step); lookup: "g5 bm128 s2 c64" (BM, K-splits,
-    table chunk); "e16 " in front of a grouped launch's. No tokens: no
-    launch."""
+    expert, over `e` experts in one grouped launch; None: a single
+    launch), one entry per kernel launch: the dispatch span's `tile`, the
+    counterpart of the JAX package's autotuned TPU tiles. Decode: "g5
+    64x16 s2 k32" (BM x BN, K-splits, K-groups per step); lookup: "g5
+    bm128 s2 c64" (BM, K-splits, table chunk), a grouped one's with " x4"
+    (experts per block) after it; "e16 " in front of a grouped launch's.
+    No tokens: no launch."""
     _check_impl(impl)
     if n == 0:
         return []
-    head = f"e{e} " if e > 1 else ""
+    head = f"e{e} " if e is not None and e > 1 else ""
     tiles = []
     for packed, _, _, g in _segments(pw):
         kg = packed.shape[-1]
-        if impl == "lookup":
-            lp = lut_plan(pw.M, kg, n, g, e=e)
+        if impl == "lookup" and e is not None:
+            lp = grouped_lut_plan(pw.M, kg, n, g, e)
+            tiles.append(f"{head}g{g} bm{lp.bm} s{lp.splits} c{lp.chunk} x{lp.ex}")
+        elif impl == "lookup":
+            lp = lut_plan(pw.M, kg, n, g)
             tiles.append(f"{head}g{g} bm{lp.bm} s{lp.splits} c{lp.chunk}")
         else:
-            dp = decode_plan(pw.M, kg, n, g, e=e)
+            dp = decode_plan(pw.M, kg, n, g, e=e or 1)
             tiles.append(f"{head}g{g} {dp.bm}x{dp.bn} s{dp.splits} k{dp.kstep}")
     return tiles
 

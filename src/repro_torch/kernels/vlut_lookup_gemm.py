@@ -15,7 +15,12 @@ select with equal integers; the port has one, the gather.
 K-groups of each shared-memory chunk, chosen on the host from (M, KG, N, g)
 so that the grid fills the card; the split-K sums meet in a zeroed int32
 workspace that the wrappers own (`_splitk.launch_args`, shared with the
-decode kernels).
+decode kernels). The grouped launches have their own plan
+(`grouped_lut_plan`) for their own kernel: 512 threads, a row tile of up
+to 8 rows a thread (1,024 rows at 16 tokens, 4,096 at 4) over which one
+table build is shared, chunks of 16 K-groups staged ahead, K-splits or
+experts per block chosen so the grid is a whole number of waves within
+5%.
 """
 from __future__ import annotations
 
@@ -72,10 +77,10 @@ def lut_smem_bytes(g: int, bm: int, chunk: int, bnt: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LutPlan:
-    """The launch of one vector-LUT kernel call: block (x, y, z) owns rows
-    `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z % splits)` of
-    expert z // splits (a grouped launch runs `e` experts of one shape),
-    and builds its table `chunk` K-groups at a time."""
+    """The launch of one single vector-LUT kernel call: block (x, y, z)
+    owns rows `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z)`, and
+    builds its table `chunk` K-groups at a time (grouped launches take a
+    `GroupedLutPlan`)."""
     m: int
     kg: int
     n: int
@@ -84,7 +89,6 @@ class LutPlan:
     splits: int
     chunk: int
     smem: int
-    e: int = 1              # experts of a grouped launch
 
     @property
     def m_tiles(self) -> int:
@@ -96,7 +100,7 @@ class LutPlan:
 
     @property
     def blocks(self) -> int:
-        return self.e * self.m_tiles * self.n_tiles * self.splits
+        return self.m_tiles * self.n_tiles * self.splits
 
     def rows(self, x: int) -> tuple[int, int]:
         return x * self.bm, min(self.m, (x + 1) * self.bm)
@@ -117,13 +121,12 @@ def _split_bound(z: int, kg: int, splits: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def lut_plan(m: int, kg: int, n: int, g: int, *, e: int = 1) -> LutPlan:
-    """The launch of one call of `e` experts (1: a single product), from
-    its shape (cached: the serving path asks for the same few shapes at
-    every step):
+def lut_plan(m: int, kg: int, n: int, g: int) -> LutPlan:
+    """The launch of one single call, from its shape (cached: the serving
+    path asks for the same few shapes at every step):
 
     - BM: `BM_MAX` for this many tokens, or M rounded up to 128 rows;
-    - S = 1 where experts × M-tiles × token tiles fill a wave (132
+    - S = 1 where M-tiles × token tiles fill a wave (132
       blocks); else the most splits that keep the grid within two waves
       (S ≤ KG);
     - chunk: the K-groups one block's shared memory holds within
@@ -134,7 +137,7 @@ def lut_plan(m: int, kg: int, n: int, g: int, *, e: int = 1) -> LutPlan:
     bnt = 4 * tok_lanes(min(n, BN))
     cap = next(bm for most, bm in BM_MAX if most is None or n <= most)
     bm = min(cap, -(-m // BM_UNIT) * BM_UNIT)
-    tiles = e * -(-m // bm) * -(-n // BN)
+    tiles = -(-m // bm) * -(-n // BN)
     fit = max(1, (SMEM_BUDGET - 48) // (3 ** g * bnt * 2 + g * bnt + bm))
     splits = 1 if tiles >= WAVE else min(kg, 2 * WAVE // tiles)
     longest = max(_split_bound(z + 1, kg, splits) - _split_bound(z, kg, splits)
@@ -144,10 +147,113 @@ def lut_plan(m: int, kg: int, n: int, g: int, *, e: int = 1) -> LutPlan:
         chunk -= chunk % 4
     while chunk > 1 and lut_smem_bytes(g, bm, chunk, bnt) > SMEM_BUDGET:
         chunk -= 1
-    return LutPlan(m, kg, n, g, bm, splits, chunk, lut_smem_bytes(g, bm, chunk, bnt), e)
+    return LutPlan(m, kg, n, g, bm, splits, chunk, lut_smem_bytes(g, bm, chunk, bnt))
 
 
-def _launch_args(plan: LutPlan, device: torch.device):
+# The grouped plan's constants (`vlut_grouped_kernel` in the kernel's source)
+GROUP_THREADS = 512         # threads of a grouped block
+GROUP_ROWS = 8              # most rows a thread sums (4 tokens each)
+GROUP_CHUNK = 16            # K-groups a block stages and builds at a time
+GROUP_FLUSH = 3             # chunks summed in 16-bit lanes between flushes
+GROUP_BLOCKS_PER_SM = 1     # one 512-thread block per SM (registers, shared memory)
+#: the grid's share of its last wave a grouped plan aims for
+WAVE_EFFICIENCY = 0.95
+
+
+def grouped_smem_bytes(g: int, bm: int, chunk: int, bnt: int) -> int:
+    """Dynamic shared memory of one grouped block (`glut_layout` in the
+    kernel): the table [chunk][3^g][bnt] int16, two stages of codes
+    [bm][16], two stages of activations [bnt][16*g] (4 bytes each: f32 or
+    bf16 rows, or the integer kernel's [g][16][bnt] bytes) and the int8
+    activations [16*g][bnt]."""
+    return (_round16(chunk * 3 ** g * bnt * 2) + 2 * bm * GROUP_CHUNK
+            + 2 * bnt * _round16(GROUP_CHUNK * g * 4) + _round16(GROUP_CHUNK * g * bnt))
+
+
+def wave_efficiency(blocks: int) -> float:
+    """The grid's blocks over the slots of the waves it takes."""
+    slots = WAVE * GROUP_BLOCKS_PER_SM
+    return blocks / (-(-blocks // slots) * slots)
+
+
+def _group_split_bound(z: int, kg: int, splits: int) -> int:
+    """First K-group of split z of a grouped plan: z*KG/S rounded down to
+    a multiple of 16 (S <= KG/16), so every chunk starts 16 K-groups apart
+    from the row's start; split S ends at KG (`gsplit_bound` in the
+    kernel)."""
+    return kg if z >= splits else z * kg // splits & ~(GROUP_CHUNK - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedLutPlan:
+    """The launch of one grouped vector-LUT call: block (x, y, z) owns rows
+    `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z % splits)` of
+    the experts `experts(z // splits)`, one after another, and stages and
+    builds its table `chunk` K-groups at a time."""
+    m: int
+    kg: int
+    n: int
+    g: int
+    bm: int
+    splits: int
+    chunk: int
+    smem: int
+    e: int
+    ex: int = 1             # experts per block
+
+    m_tiles = LutPlan.m_tiles
+    n_tiles = LutPlan.n_tiles
+    rows = LutPlan.rows
+    tokens = LutPlan.tokens
+
+    @property
+    def e_groups(self) -> int:
+        return -(-self.e // self.ex)
+
+    @property
+    def blocks(self) -> int:
+        return self.e_groups * self.m_tiles * self.n_tiles * self.splits
+
+    def experts(self, zg: int) -> tuple[int, int]:
+        return zg * self.ex, min(self.e, (zg + 1) * self.ex)
+
+    def kgroups(self, z: int) -> tuple[int, int]:
+        return _group_split_bound(z, self.kg, self.splits), _group_split_bound(z + 1, self.kg, self.splits)
+
+
+@functools.lru_cache(maxsize=4096)
+def grouped_lut_plan(m: int, kg: int, n: int, g: int, e: int) -> GroupedLutPlan:
+    """The launch of one grouped call of `e` experts (the grouped kernels
+    take it at any E, 1 included), from its shape:
+
+    - BM: the fewest M-tiles of at most 8 rows a thread (512 × 8 × 4 /
+      token lanes' tokens: 1,024 rows at 16 tokens, 4,096 at 4), the rows
+      shared evenly between them, rounded up to 128;
+    - a segment of one chunk (KG ≤ 16): no split; `ex` experts a block,
+      the fewest waves times experts a block, then the fewest blocks (so
+      E × M-tiles blocks of one tiny chunk each do not fill many waves);
+    - else: the fewest K-splits (S ≤ KG/16) whose grid fills its last
+      wave to `WAVE_EFFICIENCY`, or the best filled where none does;
+    - chunk: 16 K-groups, or the whole K-slice where it is shorter."""
+    bnt = 4 * tok_lanes(min(n, BN))
+    cap = GROUP_THREADS * GROUP_ROWS * 4 // bnt
+    mt = -(-m // cap)
+    bm = -(-(-(-m // mt)) // BM_UNIT) * BM_UNIT
+    tiles = -(-m // bm) * -(-n // BN)
+    splits, ex = 1, 1
+    if kg <= GROUP_CHUNK:
+        slots = WAVE * GROUP_BLOCKS_PER_SM
+        ex = min(range(1, e + 1), key=lambda x: (-(-(-(-e // x) * tiles) // slots) * x, -x))
+    else:
+        fill = [(wave_efficiency(e * tiles * s), s) for s in range(1, kg // GROUP_CHUNK + 1)]
+        splits = next((s for eff, s in fill if eff >= WAVE_EFFICIENCY),
+                      max(fill, key=lambda f: (f[0], -f[1]))[1])
+    chunk = min(GROUP_CHUNK, max(_group_split_bound(z + 1, kg, splits) - _group_split_bound(z, kg, splits)
+                                 for z in range(splits)))
+    return GroupedLutPlan(m, kg, n, g, bm, splits, chunk, grouped_smem_bytes(g, bm, chunk, bnt), e, ex)
+
+
+def _launch_args(plan, device: torch.device):
     return _splitk.launch_args(plan, device)
 
 
@@ -236,7 +342,7 @@ def vlut_lookup_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
     out = torch.empty((e, x.shape[1], m), dtype=out_dtype, device=x.device)
     if out.numel() == 0 or kg == 0:
         return out.zero_()
-    plan = lut_plan(m, kg, x.shape[1], g, e=e)
+    plan = grouped_lut_plan(m, kg, x.shape[1], g, e)
     _build.launch_lut_grouped(packed, x, a_scale, w_scale, g, out, plan,
                               *_launch_args(plan, x.device))
     vlut_lookup_gemm_fused_grouped.launches += 1
@@ -297,7 +403,7 @@ def vlut_lookup_gemm_grouped(packed, a_r, *, g: int) -> torch.Tensor:
     out = torch.empty((e, m, a_r.shape[3]), dtype=torch.int32, device=a_r.device)
     if out.numel() == 0 or kg == 0:
         return out.zero_()
-    plan = lut_plan(m, kg, a_r.shape[3], g, e=e)
+    plan = grouped_lut_plan(m, kg, a_r.shape[3], g, e)
     _build.launch_lut_int_grouped(packed, a_r, g, out, plan, *_launch_args(plan, a_r.device))
     vlut_lookup_gemm_grouped.launches += 1
     return out
