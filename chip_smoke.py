@@ -7,9 +7,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: compile every CUDA kernel from `csrc/` (one nvcc per source, in
-   parallel); each grouped vector-LUT instantiation's registers, spills
-   (must be 0) and blocks an SM at the main path's shared bytes (the CUDA
-   runtime's occupancy, at least the plan's one) are logged.
+   parallel); each grouped vector-LUT and grouped decode instantiation's
+   registers, spills (must be 0) and blocks an SM at the main path's
+   largest shared bytes (the CUDA runtime's occupancy, at least the plan's
+   one) are logged.
 3. kernels: each fused mpGeMM kernel against its plain PyTorch version on
    the card, at the BitLinear shapes of smollm-360m (M, K) in {(960, 960),
    (320, 960), (2560, 960), (960, 2560)} plus a mixed g=5/g=4 shape
@@ -183,9 +184,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    wave, several experts a block, M 70 and 1000, KG 1-77, C 1-64, g 4 and
    5), each at E and E - 1 experts, launched twice back to back and
    replayed 3 times in a CUDA graph, against their plain versions and E
-   single launches (`lut_geometry_traps`). Phase 10 (b) also times the
-   grouped integer kernels per linear beside 16 single launches and logs
-   every grouped launch's plan (lookup: BM, K-splits, experts a block).
+   single launches (`geometry_traps`); the same for both grouped decode
+   kernels at DECODE_GEOMETRY_TRAPS (16 experts: K split 2 and 8 ways with
+   a zero K-slice beside nonzero ones, an all-zero expert). Phase 10 (b)
+   also times the grouped integer kernels per linear beside 16 single
+   launches and logs every grouped launch's plan (lookup: BM, K-splits,
+   experts a block; decode: BM, K-splits, experts a block, stagings).
 11. mla: the MLA mixer on `deepseek-v3-671b` at its published widths (d
    7168, 128 heads, q/kv latent ranks 1536/512, rope 64, 256 experts top-8
    + 1 shared, d_ff 2048 and 18432 dense, vocab 129280, bf16), depth cut
@@ -197,13 +201,19 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    256; w1 M 2048, K 7168 = 1432 g=5 + 2 g=4 groups; w2 M 7168, K 2048 =
    408 + 2), C 16, bf16, a zero padding row, against their plain versions
    (16 experts at a time): expected difference 0; the grouped vector-LUT
-   geometry traps at 256 experts (LUT_GEOMETRY_TRAPS_E256), as phase 10's.
+   geometry traps at 256 experts (LUT_GEOMETRY_TRAPS_E256) and the grouped
+   decode ones (DECODE_GEOMETRY_TRAPS_E256: several experts a block, 133
+   experts just over a wave), as phase 10's.
    (b) Device ms per linear's grouped launches (their plans logged) and
    per layer's 6, beside the bound (bytes /
    3.35 TB/s), 256 single launches, the plain version (eager), a decode
    step's rows (32 real, the rest 0) and a bf16 `torch.bmm` yardstick.
    The batched unfused pipeline against the fused one on the same rows
-   (one bf16 ulp: fused sums each segment in f32, unfused in int32).
+   (one bf16 ulp: fused sums each segment in f32, unfused in int32). For
+   both grouped decode kernels (`decode_levers`): each of the layer's 6
+   launches timed apart, the layer on a decode step's rows beside the
+   bound of the codes of the experts that hold a row, and the layer with
+   each of DECODE_LEVERS changed alone, on both kinds of rows.
    (c) Serving 8 greedy requests (prompts 16-64, 16 new tokens, 4 slots):
    impl="decode" and "lookup" (identical tokens), unfused with both impls
    (identical tokens; where they leave the fused run's, the divergence is
@@ -303,6 +313,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -436,8 +447,10 @@ MOE_ARCH = "llama4-scout-17b-a16e"
 MOE_TOKENS = (4, 16, 64)
 MOE_TIME_TOKENS = (4, 16)
 # grouped split-K traps (E, M, KG, g, C): odd E, M off the tiles, C 5 and
-# 17, KG not divisible by the splits, a one-K-group g=4 segment
-MOE_RAGGED = ((3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (3, 1000, 191, 5, 5), (7, 70, 1, 4, 3))
+# 17, KG not divisible by the splits, a one-K-group g=4 segment, and KG 300
+# (the grouped decode plan splits K only on 128-K-group steps)
+MOE_RAGGED = ((3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (3, 1000, 191, 5, 5), (7, 70, 1, 4, 3),
+              (3, 1000, 300, 5, 5))
 # the grouped vector-LUT plan's geometry traps (E, M, KG, g, C): E x tiles
 # just over a wave (133 and 134 tiles), one-chunk segments with several
 # experts a block (140 experts of KG 2), M off the row tile (70, 1000), KG
@@ -454,6 +467,19 @@ LUT_GEOMETRY_TRAPS = (
 # and one of 133 that splits K
 LUT_GEOMETRY_TRAPS_E256 = ((256, 70, 13, 5, 16), (256, 1000, 77, 4, 17), (256, 2048, 40, 5, 16),
                            (129, 1000, 64, 5, 16), (133, 1000, 64, 4, 4))
+# the grouped decode plan's geometry traps (E, M, KG, g, C), phase 10 (a)
+# at 16 experts: K split 4 and 2 ways (a zero K-slice beside nonzero ones
+# in expert 0), M 70 and 1000 off the 512-row unit, KG 1, 2, 3, 13 and 77
+# (packed-row tails) and 300 and 520 (several steps), C 1, 4, 5, 17 and 64, g
+# 4 and 5; expert 1 all zero; each launched at E and again at E - 1
+DECODE_GEOMETRY_TRAPS = ((16, 70, 520, 5, 4), (16, 1000, 300, 5, 5), (16, 1000, 77, 4, 17),
+                         (16, 1000, 13, 5, 64), (16, 70, 1, 4, 5), (16, 1000, 2, 4, 1),
+                         (16, 70, 3, 5, 64))
+# the same at deepseek-v3's 256 experts (phase 11 (a)): 2 and 8 experts a
+# block (KG 1-40), two token tiles (C 17), and 133 experts of one block
+# each just over a wave, which splits K (132 at E - 1: one full wave)
+DECODE_GEOMETRY_TRAPS_E256 = ((256, 70, 13, 5, 16), (256, 1000, 77, 4, 17), (256, 2048, 40, 5, 16),
+                              (256, 70, 2, 4, 1), (256, 1000, 1, 5, 64), (133, 1000, 300, 5, 16))
 # one prefill through the kernels against the same prefill through their
 # plain versions on the card: the kernels are bit-equal to the plain
 # versions and every other op is the same call on the same device, so the
@@ -470,6 +496,12 @@ MLA_ARCH = "deepseek-v3-671b"
 MLA_LAYERS = 16
 MLA_TOKENS = 16
 MLA_DECODE_ROWS = 32
+# decode tok/s of phase 11's whole-prompt runs with the grouped decode
+# launches' earlier kernel (decode_kernel's 64-row tiles): logged beside
+# this run's (PERF.md section 6, the last run before the grouped decode
+# kernel, NVIDIA H100 80GB HBM3, 700.00 W)
+MLA_DECODE_TOK_S_BEFORE = {"decode": 13.9, "lookup": 15.0, "unfused_decode": 18.0,
+                           "unfused_lookup": 14.3}
 # ops of the MoE dispatch whose device time phase 10's profile logs (the
 # indexing ops also serve the attention cache)
 MOE_DISPATCH_OPS = ("aten::sort", "aten::cumsum", "aten::one_hot", "aten::index_put_",
@@ -581,10 +613,12 @@ def bitlinear_weights(torch, model, gen) -> dict:
 
 
 def plan_row(p) -> dict:
-    """A launch plan (`LutPlan` or `DecodePlan`) as a JSON row."""
+    """A launch plan (`LutPlan`, `GroupedLutPlan`, `DecodePlan` or
+    `GroupedDecodePlan`) as a JSON row."""
     row = {"shape": [p.m, p.kg, p.n, p.g], "splits": p.splits, "blocks": p.blocks,
            "smem": p.smem, "kg_divisible_by_splits": p.kg % p.splits == 0}
-    for key in ("e", "ex", "bm", "bn", "chunk", "kstep", "codes_aligned", "acts_aligned"):
+    for key in ("e", "ex", "bm", "bn", "chunk", "kstep", "codes_aligned", "acts_aligned",
+                "stagings"):
         if hasattr(p, key):
             row[key] = getattr(p, key)
     return row
@@ -637,15 +671,22 @@ def splitk_traps(torch, name, kern, plain, cases) -> dict:
     return {"cases": len(cases), "repeat_launches": 2, "graph_replays": LUT_REPLAYS, "max_abs_err": 0}
 
 
-def lut_geometry_traps(torch, gen, traps, label: str) -> dict:
-    """The grouped vector-LUT kernels (fused, f32 and bf16, and integer) at
-    the plan's geometry traps: each trap at E experts and again at E - 1
-    (the first E - 1 experts' operands), launched twice back to back with
-    the other cases and in a CUDA graph replayed LUT_REPLAYS times
-    (`splitk_traps`), all against the plain version, and the plain version
-    against E single launches: expected difference 0."""
+def geometry_traps(torch, gen, traps, label: str, impl: str, reach=("ex", "splits")) -> dict:
+    """The grouped kernels of `impl` ("lookup": vector-LUT, "decode":
+    ternary-decode; fused, f32 and bf16, and integer) at their plan's
+    geometry traps: each trap at E experts and again at E - 1 (the first
+    E - 1 experts' operands), launched twice back to back with the other
+    cases and in a CUDA graph replayed LUT_REPLAYS times (`splitk_traps`),
+    all against the plain version, and the plain version against E single
+    launches: expected difference 0. For the decode kernels expert 1 is
+    all zero and, where the plan splits K, expert 0's first K-slice too
+    (a split whose staged slice is zero beside one whose is not). Raises
+    unless some plan reaches each of `reach` ("ex": several experts a
+    block, "splits": split K)."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
     from repro_torch.kernels import vlut_lookup_gemm as vlg
 
+    plan = vlg.grouped_lut_plan if impl == "lookup" else tdg.grouped_decode_plan
     dev = torch.device("cuda")
     fused, ints = [], []
     for e, m, kg, g, c in traps:
@@ -657,19 +698,27 @@ def lut_geometry_traps(torch, gen, traps, label: str) -> dict:
         a_r = torch.randint(-128, 128, (e, g, kg, c), generator=gen, device=dev,
                             dtype=torch.int32).to(torch.int8)
         a_r[..., -1] = 0                           # its padding token
+        if impl == "decode":
+            x[1:2], a_r[1:2] = 0, 0                # an expert with no real row
+            p = plan(m, kg, c, g, e)
+            if p.splits > 1:                       # a zero K-slice beside nonzero ones
+                b = p.kgroups(1)[0]
+                x[0, :, :b * g], a_r[0, :, :b] = 0, 0
         for ne in (e, e - 1) if e > 1 else (e,):
             for dt in (torch.float32, torch.bfloat16):
                 xd = x[:ne].to(dt)
                 fused.append(((packed[:ne], xd, act_scales(torch, xd), w_scale[:ne]),
                               dict(g=g, out_dtype=dt)))
             ints.append(((packed[:ne], a_r[:ne]), dict(g=g)))
-    out = {"traps": len(traps), "plans": [plan_row(vlg.grouped_lut_plan(m, kg, c, g, e))
-                                          for e, m, kg, g, c in traps]}
+    out = {"traps": len(traps), "plans": [plan_row(plan(m, kg, c, g, e)) for e, m, kg, g, c in traps]}
+    mod = vlg if impl == "lookup" else tdg
+    prefix = "vlut_lookup_gemm" if impl == "lookup" else "ternary_decode_gemm"
     for name, kern, plain, single, cases in (
-            ("vlut_lookup_gemm_fused_grouped", vlg.vlut_lookup_gemm_fused_grouped,
-             vlg.vlut_lookup_gemm_fused_plain, vlg.vlut_lookup_gemm_fused, fused),
-            ("vlut_lookup_gemm_grouped", vlg.vlut_lookup_gemm_grouped,
-             vlg.vlut_lookup_gemm_plain, vlg.vlut_lookup_gemm, ints)):
+            (f"{prefix}_fused_grouped", getattr(mod, f"{prefix}_fused_grouped"),
+             getattr(mod, f"{prefix}_fused_plain"), getattr(mod, f"{prefix}_fused"), fused),
+            (f"{prefix}_grouped", getattr(mod, f"{prefix}_grouped"),
+             getattr(mod, f"{prefix}_plain"), getattr(mod, prefix), ints)):
+        plain = experts_chunked(torch, plain)
         out[name] = splitk_traps(torch, name, kern, plain, cases)
         for a, kw in cases:
             want = plain(*a, **kw)
@@ -680,10 +729,11 @@ def lut_geometry_traps(torch, gen, traps, label: str) -> dict:
                                      "single launches differ from the plain version, or a padding "
                                      "row's output is not 0")
         out[name]["single_launch_checks"] = len(cases)
-    if not any(r["ex"] > 1 for r in out["plans"]) or not any(r["splits"] > 1 for r in out["plans"]):
-        raise AssertionError(f"{label}: the geometry traps reach no plan with several experts "
-                             "a block, or none that splits K")
-    log(f"{label}: grouped vector-LUT geometry traps: {len(traps)} shapes at E and E - 1, "
+    reached = {"ex": any(r["ex"] > 1 for r in out["plans"]),
+               "splits": any(r["splits"] > 1 for r in out["plans"])}
+    if not all(reached[k] for k in reach):
+        raise AssertionError(f"{label}: the {impl} geometry traps reach {reached}, want {reach}")
+    log(f"{label}: grouped {impl} geometry traps: {len(traps)} shapes at E and E - 1, "
         f"{len(fused)} fused and {len(ints)} integer cases, each launched twice back to back and "
         f"in a CUDA graph replayed {LUT_REPLAYS} times, against the plain version and E single "
         "launches: max |diff| 0; plans "
@@ -692,30 +742,41 @@ def lut_geometry_traps(torch, gen, traps, label: str) -> dict:
     return out
 
 
-def lut_grouped_build(torch, _build) -> dict:
+# (E, M, KG, g) of the main path's grouped segments: llama4-scout's (w1/w3,
+# w2's two) and deepseek-v3's (w1/w3's two, w2's g=5 one), at C 4, 16, 64
+MAIN_GROUPED_SEGMENTS = ((16, 8192, 1024, 5), (16, 5120, 1636, 5), (16, 5120, 3, 4),
+                         (256, 2048, 1432, 5), (256, 2048, 2, 4), (256, 7168, 408, 5))
+
+
+def grouped_build(torch, _build, impl: str) -> dict:
     """Registers, spill bytes and blocks per SM (the CUDA runtime's
-    occupancy at the main path's shared bytes) of every grouped vector-LUT
-    instantiation; raises on a spill, or where fewer than the plan's
-    blocks fit on an SM."""
+    occupancy at the largest shared bytes of the main path's grouped plans)
+    of every grouped instantiation of `impl` ("lookup":
+    `vlut_grouped_kernel`, "decode": `decode_grouped_kernel`); raises on a
+    spill, or where fewer than the plan's blocks fit on an SM."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
     from repro_torch.kernels import vlut_lookup_gemm as vlg
 
-    regs = kernel_registers(_build, "vlut_grouped_kernel")
-    types = {"aiE": (True, False, False), "EffE": (False, False, False),
-             "Ef13__nv_bfloat16E": (False, False, True), "E13__nv_bfloat16fE": (False, True, False),
-             "E13__nv_bfloat16S1_E": (False, True, True)}
+    mod, plan, tag, blocks = (
+        (vlg, vlg.grouped_lut_plan, "vlut_grouped_kernel", _build.grouped_blocks_per_sm)
+        if impl == "lookup" else
+        (tdg, tdg.grouped_decode_plan, "decode_grouped_kernel", _build.decode_grouped_blocks_per_sm))
+    regs = kernel_registers(_build, tag)
+    smem = max(plan(m, kg, c, g, e).smem for e, m, kg, g in MAIN_GROUPED_SEGMENTS for c in (4, 16, 64))
+    types = {"a": "int8", "i": "int32", "f": "float", "13__nv_bfloat16": "bf16"}
     for entry, r in regs.items():
         g = 5 if "ILi5E" in entry else 4
-        int_kernel, a_bf16, out_bf16 = next(v for k, v in types.items() if entry.endswith(k + "EvNS_10GLutParamsE"))
-        smem = max(vlg.grouped_lut_plan(m, 1432, n, g, 256).smem for m in (2048, 7168) for n in (4, 16))
+        names = re.findall(r"(13__nv_bfloat16|S\d*_|[aif])", entry.split(f"ILi{g}E", 1)[1])[:2]
+        ta, to = (types.get(t, "bf16") for t in names)     # a substitution repeats bf16
         r["smem"] = smem
-        r["blocks_per_sm"] = _build.grouped_blocks_per_sm(g, int_kernel, a_bf16, out_bf16, smem)
-        log(f"build: grouped vector-LUT instantiation {entry}: {r.get('registers')} registers, "
-            f"{r.get('spill_bytes')} spill bytes, {r['blocks_per_sm']} block(s) an SM at {smem} "
-            "shared bytes")
-        if r.get("spill_bytes") or r["blocks_per_sm"] < vlg.GROUP_BLOCKS_PER_SM:
+        r["blocks_per_sm"] = blocks(g, ta == "int8", ta == "bf16", to == "bf16", smem)
+        log(f"build: grouped {impl} instantiation {entry} ({ta} -> {to}): {r.get('registers')} "
+            f"registers, {r.get('spill_bytes')} spill bytes, {r['blocks_per_sm']} block(s) an SM "
+            f"at {smem} shared bytes (the plan counts {mod.GROUP_BLOCKS_PER_SM})")
+        if r.get("spill_bytes") or r["blocks_per_sm"] < mod.GROUP_BLOCKS_PER_SM:
             raise AssertionError(f"{entry}: spills or fits fewer blocks than the plan counts: {r}")
     if len(regs) != 10:
-        raise AssertionError(f"expected 10 grouped vector-LUT instantiations, found {sorted(regs)}")
+        raise AssertionError(f"expected 10 grouped {impl} instantiations, found {sorted(regs)}")
     return regs
 
 
@@ -726,10 +787,10 @@ def largest_split(plan) -> tuple:
                key=lambda s: plan(*s, 5).splits)
 
 
-def decode_plan_for(tdg, m, kg, n, g, e=1):
-    """The decode plan the main path launches (of `e` experts): contiguous
-    operands, word loads where KG % 4 == 0."""
-    return tdg.decode_plan(m, kg, n, g, codes_aligned=kg % 4 == 0, acts_aligned=kg % 4 == 0, e=e)
+def decode_plan_for(tdg, m, kg, n, g):
+    """The single decode plan the main path launches: contiguous operands,
+    word loads where KG % 4 == 0."""
+    return tdg.decode_plan(m, kg, n, g, codes_aligned=kg % 4 == 0, acts_aligned=kg % 4 == 0)
 
 
 def fused_kernels() -> dict:
@@ -2021,7 +2082,7 @@ def moe_kernel_checks(torch, model, gen) -> dict:
 
     dev = torch.device("cuda")
     kernels = grouped_kernels()
-    plans = {"decode": lambda e, m, kg, g, c: decode_plan_for(tdg, m, kg, c, g, e=e),
+    plans = {"decode": lambda e, m, kg, g, c: tdg.grouped_decode_plan(m, kg, c, g, e),
              "lookup": lambda e, m, kg, g, c: vlg.grouped_lut_plan(m, kg, c, g, e)}
     ffn = model.layers[0].ffn
     lins = {"w1": ffn.experts.w1.pw, "w3": ffn.experts.w3.pw, "w2": ffn.experts.w2.pw}
@@ -2110,7 +2171,9 @@ def moe_kernel_checks(torch, model, gen) -> dict:
             + "; ".join(f"{tuple(r['shape'])} E {r['e']} S {r['splits']} blocks {r['blocks']}"
                         for r in traps[name]["plans"]))
 
-    geometry = lut_geometry_traps(torch, gen, LUT_GEOMETRY_TRAPS, "moe")
+    geometry = geometry_traps(torch, gen, LUT_GEOMETRY_TRAPS, "moe", "lookup")
+    decode_geometry = geometry_traps(torch, gen, DECODE_GEOMETRY_TRAPS, "moe", "decode",
+                                     reach=("splits",))
 
     # (b) device times
     per_c = {}
@@ -2159,7 +2222,7 @@ def moe_kernel_checks(torch, model, gen) -> dict:
             entry["plans"] = {
                 "lookup": [plan_row(vlg.grouped_lut_plan(pk.shape[1], pk.shape[2], c, g, e))
                            for pk, _, _, _, g, _ in launches],
-                "decode": [plan_row(decode_plan_for(tdg, pk.shape[1], pk.shape[2], c, g, e=e))
+                "decode": [plan_row(tdg.grouped_decode_plan(pk.shape[1], pk.shape[2], c, g, e))
                            for pk, _, _, _, g, _ in launches]}
             row[ln] = entry
             log(f"moe: {ln} (E {e}, M {pw.M}, K {pw.K}, {len(launches)} launch(es)) at C={c}: "
@@ -2172,7 +2235,10 @@ def moe_kernel_checks(torch, model, gen) -> dict:
                                    f"{entry[nm]['singles_ms']:.4f})" for nm in grouped_int_kernels())
                 + f", bf16 bmm yardstick {entry['bmm_ms']:.4f} ms; lookup plans "
                 + "; ".join(f"bm {r['bm']} S {r['splits']} x{r['ex']} c{r['chunk']} blocks {r['blocks']}"
-                            for r in entry["plans"]["lookup"]))
+                            for r in entry["plans"]["lookup"])
+                + "; decode plans " + "; ".join(
+                    f"bm {r['bm']} S {r['splits']} x{r['ex']} blocks {r['blocks']} stagings {r['stagings']}"
+                    for r in entry["plans"]["decode"]))
         # one MoE layer's four grouped launches (the kernels line's unit)
         nbytes = launch_bytes(torch, layer_launches)
         nops = sum(2 * e * c * pk.shape[1] * xsl.shape[-1] for pk, xsl, *_ in layer_launches)
@@ -2197,7 +2263,8 @@ def moe_kernel_checks(torch, model, gen) -> dict:
         per_c[c] = row
     del deq
     return {"max_abs_err": max_err, "checks": n_checks, "splitk_traps": traps,
-            "lut_geometry_traps": geometry, "per_tokens": per_c}
+            "lut_geometry_traps": geometry, "decode_geometry_traps": decode_geometry,
+            "per_tokens": per_c}
 
 
 def act_scales(torch, x):
@@ -2549,7 +2616,8 @@ def mla_kernel_checks(torch, model, cfg, gen) -> dict:
                                  "the largest output")
     log(f"mla: ternary_matmul_batched unfused vs fused at E {e}, C {c}: max |diff| / max |out| "
         f"{fusion_err} (bound 2^-7); unfused equal between impls")
-    geometry = lut_geometry_traps(torch, gen, LUT_GEOMETRY_TRAPS_E256, "mla")
+    geometry = geometry_traps(torch, gen, LUT_GEOMETRY_TRAPS_E256, "mla", "lookup")
+    decode_geometry = geometry_traps(torch, gen, DECODE_GEOMETRY_TRAPS_E256, "mla", "decode")
 
     # (b) device times
     deq = {ln: dequantized(torch, lins[ln]) for ln in ("w1", "w2")}
@@ -2577,12 +2645,14 @@ def mla_kernel_checks(torch, model, cfg, gen) -> dict:
         entry["plans"] = {
             "lookup": [plan_row(vlg.grouped_lut_plan(pk.shape[1], pk.shape[2], c, g, e))
                        for pk, _, _, _, g, _ in launches[("fused", ln)]],
-            "decode": [plan_row(decode_plan_for(tdg, pk.shape[1], pk.shape[2], c, g, e=e))
+            "decode": [plan_row(tdg.grouped_decode_plan(pk.shape[1], pk.shape[2], c, g, e))
                        for pk, _, _, _, g, _ in launches[("fused", ln)]]}
         rows[ln] = entry
         log(f"mla: {ln} lookup plans: " + "; ".join(
             f"bm {r['bm']} S {r['splits']} x{r['ex']} c{r['chunk']} blocks {r['blocks']}"
-            for r in entry["plans"]["lookup"]))
+            for r in entry["plans"]["lookup"]) + "; decode plans: " + "; ".join(
+            f"bm {r['bm']} S {r['splits']} x{r['ex']} blocks {r['blocks']} stagings {r['stagings']}"
+            for r in entry["plans"]["decode"]))
         log(f"mla: {ln} (E {e}, M {pw.M}, K {pw.K}, {entry['launches']} launches) at C={c}: bound "
             f"{entry['fused_bound_ms']:.4f} ms fused, {entry['int_bound_ms']:.4f} integer (bytes); "
             + ", ".join(f"{nm} {entry[nm]['ms']:.4f} ms ({e} single launches "
@@ -2614,9 +2684,97 @@ def mla_kernel_checks(torch, model, cfg, gen) -> dict:
                         for nm in kernels)
             + f", bf16 bmm yardstick (3 bmm) {library_ms:.4f} ms")
     del deq
+    levers = decode_levers(torch, lins, xs, launches, kinds)
     return {"layer": layer, "experts": e, "rows_per_expert": c, "max_abs_err": max_err,
             "unfused_vs_fused_rel": fusion_err, "lut_geometry_traps": geometry,
-            "per_linear": rows, "per_layer": layer_row}
+            "decode_geometry_traps": decode_geometry,
+            "per_linear": rows, "per_layer": layer_row, "decode_levers": levers}
+
+
+# The grouped decode kernels' levers, each changed alone (phase 11 (b)):
+# name -> (what the change restores or tries, the plan change, whether it
+# applies to a segment of KG K-groups). `grouped_decode_plan` takes them
+# all.
+DECODE_LEVERS = {
+    "stage_once": ("a block per 512 rows, each restaging its slice",
+                   dict(bm=512), lambda kg: kg > 128),
+    "tails": ("the g=4 tails as one expert and 512 rows a block", dict(bm=512, ex=1),
+              lambda kg: kg <= 128),
+}
+
+
+def decode_levers(torch, lins, xs, launches, kinds) -> dict:
+    """Phase 11 (b) for the two grouped decode kernels at one deepseek MoE
+    layer's 6 launches (C 16): each launch timed apart, the layer on random
+    rows and on a decode step's rows (MLA_DECODE_ROWS real, the rest 0)
+    beside the bound of the codes of the experts that hold a row, and the
+    layer with each of DECODE_LEVERS taken back alone (a changed plan
+    through the same C entries), on both kinds of rows."""
+    from repro_torch.kernels import _build, _splitk
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+
+    dev = torch.device("cuda")
+    sparse = {}
+    for k, x in xs.items():
+        z = torch.zeros_like(x)
+        z[:MLA_DECODE_ROWS, 0] = x[:MLA_DECODE_ROWS, 0]
+        sparse[k] = z
+    out = {"decode_rows": MLA_DECODE_ROWS}
+    for kind, (_, make) in kinds.items():
+        rows = {"random": [launch for ln in lins for launch in launches[(kind, ln)]],
+                "decode": [launch for ln, pw in lins.items() for launch in make(torch, pw, sparse[pw.K])]}
+
+        def prepared(ls, change=None):
+            """[(launch fn)] for the layer's launches under their plans, each
+            changed by `change` where it applies."""
+            calls = []
+            for launch in ls:
+                pk = launch[0]
+                e, m, kg = pk.shape
+                g = launch[4] if kind == "fused" else launch[2]
+                c = launch[1].shape[1] if kind == "fused" else launch[1].shape[-1]
+                plan = tdg.grouped_decode_plan(m, kg, c, g, e)
+                if change is not None and change[1](kg):
+                    plan = dataclasses.replace(plan, **change[0])
+                ws, cnt = _splitk.launch_args(plan, dev)
+                if kind == "fused":
+                    _, x, sc, w, _, odt = launch
+                    o = torch.empty((e, c, m), dtype=odt, device=dev)
+                    calls.append(lambda pk=pk, x=x, sc=sc, w=w, o=o, p=plan, ws=ws, cnt=cnt, g=g:
+                                 _build.launch_decode_grouped(pk, x, sc, w, g, o, p, ws, cnt))
+                else:
+                    _, a_r, _ = launch
+                    o = torch.empty((e, m, c), dtype=torch.int32, device=dev)
+                    calls.append(lambda pk=pk, a_r=a_r, o=o, p=plan, ws=ws, cnt=cnt, g=g:
+                                 _build.launch_decode_int_grouped(pk, a_r, g, o, p, ws, cnt))
+            return calls
+
+        def layer_ms(calls):
+            return device_ms(torch, lambda: [f() for f in calls])
+
+        base = {r: prepared(ls) for r, ls in rows.items()}
+        row = {"launch_ms": [device_ms(torch, f) for f in base["random"]],
+               "layer_ms": {r: layer_ms(calls) for r, calls in base.items()},
+               "stagings": [tdg.grouped_decode_plan(*l[0].shape[1:], MLA_TOKENS, l[4 if kind == "fused" else 2],
+                                                    l[0].shape[0]).stagings for l in rows["random"]],
+               "levers": {}}
+        # the experts holding a real row are the first MLA_DECODE_ROWS
+        nbytes = sum(l[0][:MLA_DECODE_ROWS].numel() for l in rows["decode"])
+        row["active_codes_bytes"] = nbytes
+        row["active_bound_ms"] = nbytes / HBM_BYTES_S * 1e3
+        for name, (what, change, applies) in DECODE_LEVERS.items():
+            row["levers"][name] = {"restores": what, **{
+                r: layer_ms(prepared(ls, (change, applies))) for r, ls in rows.items()}}
+        out[kind] = row
+        log(f"mla: grouped decode {kind}, one layer's 6 launches (E 256, C 16): "
+            + ", ".join(f"{t:.4f}" for t in row["launch_ms"]) + f" ms apart (stagings {row['stagings']}); "
+            f"the layer {row['layer_ms']['random']:.4f} ms on random rows, "
+            f"{row['layer_ms']['decode']:.4f} on a decode step's {MLA_DECODE_ROWS} rows (the codes of the "
+            f"experts that hold one: bound {row['active_bound_ms']:.4f} ms); levers taken back, "
+            "random / decode rows: "
+            + "; ".join(f"{nm} ({lv['restores']}) {lv['random']:.4f} / {lv['decode']:.4f}"
+                        for nm, lv in row["levers"].items()))
+    return out
 
 
 def mla_wkv_b_unpack_ms(torch, model, cfg) -> dict:
@@ -2722,6 +2880,10 @@ def check_mla(torch, counters) -> dict:
         log(f"mla: {name}: rows per expert by step tokens {row['rows_per_expert']}; "
             f"{row['same_tokens_as_whole_prompt']}/8 requests emit the whole-prompt run's tokens "
             "(padding rows take capacity in a wide step, as in JAX)")
+    log("mla: decode tok/s by run, against the runs before decode_grouped_kernel (PERF.md section "
+        "6, NVIDIA H100 80GB HBM3, 700.00 W): " + ", ".join(
+            f"{name} {runs[name]['decode_tok_s']:.1f} (was {was})"
+            for name, was in MLA_DECODE_TOK_S_BEFORE.items()))
     out["serve"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in runs.items()}
 
     tok = torch.from_numpy(prompts[0][None, :]).cuda()
@@ -3619,7 +3781,8 @@ def main() -> int:
     for entry, r in flash_registers(_build).items():
         log(f"build: flash instantiation {entry}: {r.get('registers')} registers, "
             f"{r.get('spill_bytes')} spill bytes, {r.get('smem_static')} static shared bytes")
-    lut_grouped = lut_grouped_build(torch, _build)
+    lut_grouped = grouped_build(torch, _build, "lookup")
+    decode_grouped = grouped_build(torch, _build, "decode")
 
     # model for phases 3 to 5
     cfg = get_config("smollm-360m")
@@ -3780,7 +3943,7 @@ def main() -> int:
         "decode_plans": {n: [plan_row(decode_plan_for(tdg, m, k // 5, n, 5)) for m, k in SHAPES]
                          for n in TOKENS},
         "lut_registers": {**kernel_registers(_build, "vlut_kernel"), **lut_grouped},
-        "decode_registers": kernel_registers(_build, "decode_kernel"),
+        "decode_registers": {**kernel_registers(_build, "decode_kernel"), **decode_grouped},
         "flash_registers": flash_registers(_build),
         "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
                                        for k, v in runs.items()},

@@ -41,13 +41,18 @@ _DECODE_ARGTYPES = (                 # ternary_decode_gemm_fused (ternary_decode
     + [ctypes.c_int] * 3             # ws_stride, a_bf16, out_bf16
     + _DECODE_PLAN_ARGTYPES
 )
+_DECODE_GROUPED_PLAN_ARGTYPES = (    # the grouped decode plan (ternary_decode_gemm.cu)
+    [ctypes.c_int] * 3               # bm, splits, ex
+    + [ctypes.c_longlong]            # dynamic shared bytes
+    + [ctypes.c_void_p]              # stream
+)
 _DECODE_GROUPED_ARGTYPES = (         # ternary_decode_gemm_fused_grouped (ternary_decode_gemm.cu)
     [ctypes.c_void_p] * 7            # packed, a, a_scale, w_scale, out, ws, counters
     + [ctypes.c_int] * 4             # M, KG, N, g
     + [ctypes.c_longlong] * 2        # lda, ldo
     + [ctypes.c_int] * 4             # ws_stride, a_bf16, out_bf16, E
     + [ctypes.c_longlong] * 5        # expert strides of packed, a, a_scale, w_scale, out
-    + _DECODE_PLAN_ARGTYPES
+    + _DECODE_GROUPED_PLAN_ARGTYPES
 )
 _DECODE_INT_ARGTYPES = (             # ternary_decode_gemm (ternary_decode_gemm.cu)
     [ctypes.c_void_p] * 5            # packed, a_r, out, ws, counters
@@ -58,7 +63,7 @@ _DECODE_INT_GROUPED_ARGTYPES = (     # ternary_decode_gemm_grouped (ternary_deco
     [ctypes.c_void_p] * 5            # packed, a_r, out, ws, counters
     + [ctypes.c_int] * 5             # M, KG, N, g, E
     + [ctypes.c_longlong] * 3        # expert strides of packed, a_r, out
-    + _DECODE_PLAN_ARGTYPES
+    + _DECODE_GROUPED_PLAN_ARGTYPES
 )
 _PLAN_ARGTYPES = (                   # the launch plan (vlut_lookup_gemm.cu)
     [ctypes.c_int] * 3               # bm, splits, chunk
@@ -107,12 +112,13 @@ _FLASH_ARGTYPES = (                  # flash_attention_fwd (flash_attention.cu)
     + [ctypes.c_longlong]            # the plan's dynamic shared bytes
     + [ctypes.c_void_p]              # stream
 )
-#: the library's C entries; each returns a cudaError_t (the occupancy
-#: query: blocks per SM, or -1)
+#: the library's C entries; each returns a cudaError_t (the two occupancy
+#: queries: blocks per SM, or -1)
 ENTRIES = ("ternary_decode_gemm_fused", "vlut_lookup_gemm_fused",
            "ternary_decode_gemm_fused_grouped", "vlut_lookup_gemm_fused_grouped",
            "ternary_decode_gemm", "vlut_lookup_gemm", "ternary_decode_gemm_grouped",
-           "vlut_lookup_gemm_grouped", "vlut_grouped_blocks_per_sm", "flash_attention_fwd")
+           "vlut_lookup_gemm_grouped", "vlut_grouped_blocks_per_sm",
+           "decode_grouped_blocks_per_sm", "flash_attention_fwd")
 #: the ctypes signature of every entry
 _ARGTYPES = {
     "ternary_decode_gemm_fused": _DECODE_ARGTYPES,
@@ -125,6 +131,7 @@ _ARGTYPES = {
     "vlut_lookup_gemm_grouped": _LUT_INT_GROUPED_ARGTYPES,
     # g, integer kernel, a_bf16, out_bf16, dynamic shared bytes
     "vlut_grouped_blocks_per_sm": [ctypes.c_int] * 4 + [ctypes.c_longlong],
+    "decode_grouped_blocks_per_sm": [ctypes.c_int] * 4 + [ctypes.c_longlong],
     "flash_attention_fwd": _FLASH_ARGTYPES,
 }
 
@@ -257,16 +264,20 @@ def _grouped_args(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,
     )
 
 
+def _grouped_decode_plan_args(plan) -> tuple:
+    return plan.bm, plan.splits, plan.ex, plan.smem
+
+
 def launch_decode_grouped(packed: torch.Tensor, x: torch.Tensor, a_scale: torch.Tensor,
                           w_scale: torch.Tensor, g: int, out: torch.Tensor, plan, ws,
                           counters) -> None:
     """Call `ternary_decode_gemm_fused_grouped` (E experts in one launch:
     packed (E, M, KG) u8, x (E, C, K) → out (E, C, M)) as `launch_decode`
-    calls the single entry; `plan` counts the E experts."""
+    calls the single entry, with its `GroupedDecodePlan`."""
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = load().ternary_decode_gemm_fused_grouped(
         *_grouped_args(packed, x, a_scale, w_scale, g, out, ws, counters),
-        *_decode_plan_args(plan), stream,
+        *_grouped_decode_plan_args(plan), stream,
     )
     if rc != 0:
         raise RuntimeError(f"ternary_decode_gemm_fused_grouped: CUDA error {rc} at launch ({plan})")
@@ -299,10 +310,11 @@ def launch_decode_int_grouped(packed: torch.Tensor, a_r: torch.Tensor, g: int,
                               out: torch.Tensor, plan, ws, counters) -> None:
     """Call `ternary_decode_gemm_grouped` (E experts in one launch: packed
     (E, M, KG) u8, a_r (E, g, KG, N) i8 → out (E, M, N) i32) as
-    `launch_decode` calls the fused entry; `plan` counts the E experts."""
+    `launch_decode` calls the fused entry, with its `GroupedDecodePlan`."""
     stream = torch.cuda.current_stream(a_r.device).cuda_stream
     rc = load().ternary_decode_gemm_grouped(
-        *_int_grouped_args(packed, a_r, out, g, ws, counters), *_decode_plan_args(plan), stream,
+        *_int_grouped_args(packed, a_r, out, g, ws, counters), *_grouped_decode_plan_args(plan),
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"ternary_decode_gemm_grouped: CUDA error {rc} at launch ({plan})")
@@ -378,6 +390,17 @@ def grouped_blocks_per_sm(g: int, int_kernel: bool, a_bf16: bool, out_bf16: bool
     n = load().vlut_grouped_blocks_per_sm(g, int(int_kernel), int(a_bf16), int(out_bf16), smem)
     if n < 0:
         raise RuntimeError(f"vlut_grouped_blocks_per_sm: CUDA error at smem {smem}")
+    return n
+
+
+def decode_grouped_blocks_per_sm(g: int, int_kernel: bool, a_bf16: bool, out_bf16: bool,
+                                 smem: int) -> int:
+    """Blocks of the grouped decode kernel (that instantiation) that fit on
+    one SM with `smem` dynamic shared bytes, as the CUDA runtime reports
+    it: the occupancy `grouped_decode_plan` counts waves at."""
+    n = load().decode_grouped_blocks_per_sm(g, int(int_kernel), int(a_bf16), int(out_bf16), smem)
+    if n < 0:
+        raise RuntimeError(f"decode_grouped_blocks_per_sm: CUDA error at smem {smem}")
     return n
 
 

@@ -45,6 +45,7 @@ from repro_torch.core.quantize import act_quant_tokens, act_token_scale
 
 from .ternary_decode_gemm import (
     decode_plan,
+    grouped_decode_plan,
     ternary_decode_gemm,
     ternary_decode_gemm_fused,
     ternary_decode_gemm_fused_grouped,
@@ -235,9 +236,11 @@ def launch_tiles(pw: PackedWeight, n: int, impl: str, e: int | None = None) -> l
     expert, over `e` experts in one grouped launch; None: a single
     launch), one entry per kernel launch: the dispatch span's `tile`, the
     counterpart of the JAX package's autotuned TPU tiles. Decode: "g5
-    64x16 s2 k32" (BM x BN, K-splits, K-groups per step); lookup: "g5
-    bm128 s2 c64" (BM, K-splits, table chunk), a grouped one's with " x4"
-    (experts per block) after it; "e16 " in front of a grouped launch's.
+    64x16 s2 k32" (BM x BN, K-splits, K-groups per step), a grouped one's
+    "g5 bm2048 s1 x1" (rows a block, K-splits, experts a block); lookup:
+    "g5 bm128 s2 c64" (BM, K-splits, table chunk), a grouped one's with
+    " x4" (experts per block) after it; "e16 " in front of a grouped
+    launch's.
     No tokens: no launch."""
     _check_impl(impl)
     if n == 0:
@@ -252,8 +255,11 @@ def launch_tiles(pw: PackedWeight, n: int, impl: str, e: int | None = None) -> l
         elif impl == "lookup":
             lp = lut_plan(pw.M, kg, n, g)
             tiles.append(f"{head}g{g} bm{lp.bm} s{lp.splits} c{lp.chunk}")
+        elif e is not None:
+            gp = grouped_decode_plan(pw.M, kg, n, g, e)
+            tiles.append(f"{head}g{g} bm{gp.bm} s{gp.splits} x{gp.ex}")
         else:
-            dp = decode_plan(pw.M, kg, n, g, e=e or 1)
+            dp = decode_plan(pw.M, kg, n, g)
             tiles.append(f"{head}g{g} {dp.bm}x{dp.bn} s{dp.splits} k{dp.kstep}")
     return tiles
 

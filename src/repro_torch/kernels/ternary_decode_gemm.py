@@ -11,11 +11,13 @@ model produces and writes (N, M): no transposes, no padding. The integer
 one keeps the TPU contract, pre-quantized de-interleaved int8 a_r
 (g, KG, N) → int32 (M, N), and pads nothing either.
 
-`decode_plan` is the kernels' launch plan: the block's rows and tokens,
-the K-splits and the K-groups per step, chosen on the host from
+`decode_plan` is the single kernels' launch plan: the block's rows and
+tokens, the K-splits and the K-groups per step, chosen on the host from
 (M, KG, N, g) so that the grid fills the card, and the alignment claims
-that allow word loads. The split-K sums meet in the zeroed int32 workspace
-both mpGeMM templates share (`_splitk`).
+that allow word loads. The grouped entries have their own kernel and plan
+(`grouped_decode_plan`: rows a block, K-splits, experts a block). The
+split-K sums meet in the zeroed int32 workspace both mpGeMM templates
+share (`_splitk`).
 """
 from __future__ import annotations
 
@@ -68,12 +70,11 @@ def _split_bound(z: int, kg: int, splits: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
-    """The launch of one decode-kernel call: block (x, y, z) owns rows
-    `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z % splits)` of
-    expert z // splits (a grouped launch runs `e` experts of one shape),
-    which it walks `kstep` K-groups at a time. `codes_aligned`: the codes
-    are read as 32-bit words; `acts_aligned`: the activations as 16-byte
-    (f32), 8-byte (bf16) or 4-byte (a_r) vectors."""
+    """The launch of one single decode-kernel call: block (x, y, z) owns
+    rows `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z)`, which it
+    walks `kstep` K-groups at a time. `codes_aligned`: the codes are read
+    as 32-bit words; `acts_aligned`: the activations as 16-byte (f32),
+    8-byte (bf16) or 4-byte (a_r) vectors."""
     m: int
     kg: int
     n: int
@@ -85,7 +86,6 @@ class DecodePlan:
     codes_aligned: bool
     acts_aligned: bool
     smem: int
-    e: int = 1              # experts of a grouped launch
 
     @property
     def m_tiles(self) -> int:
@@ -97,7 +97,7 @@ class DecodePlan:
 
     @property
     def blocks(self) -> int:
-        return self.e * self.m_tiles * self.n_tiles * self.splits
+        return self.m_tiles * self.n_tiles * self.splits
 
     def rows(self, x: int) -> tuple[int, int]:
         return x * self.bm, min(self.m, (x + 1) * self.bm)
@@ -116,29 +116,192 @@ class DecodePlan:
 
 @functools.lru_cache(maxsize=4096)
 def decode_plan(m: int, kg: int, n: int, g: int, *, codes_aligned: bool = False,
-                acts_aligned: bool = False, e: int = 1) -> DecodePlan:
-    """The launch of one call of `e` experts (1: a single product), from
-    its shape and alignment claims (cached: the serving path asks for the
-    same few shapes at every step):
+                acts_aligned: bool = False) -> DecodePlan:
+    """The launch of one single call, from its shape and alignment claims
+    (cached: the serving path asks for the same few shapes at every step):
 
     - BM x BN: `TILES` for this many tokens;
-    - S = 1 where experts × M-tiles × token tiles fill a wave (132
-      blocks); else the most splits that keep the grid within two waves, at
-      most KG (KG/4 where KG % 4 == 0, so that every K-slice starts on a
-      code word);
+    - S = 1 where M-tiles × token tiles fill a wave (132 blocks); else the
+      most splits that keep the grid within two waves, at most KG (KG/4
+      where KG % 4 == 0, so that every K-slice starts on a code word);
     - K-groups per step: 32, or 64 where a K-slice is longer than 32.
 
     The alignment claims come from `fused_aligned` / `int_aligned`; the
     default claims none (byte and element loads)."""
     bm, bn = next((bm, bn) for most, bm, bn in TILES if most is None or n <= most)
-    tiles = e * -(-m // bm) * -(-n // bn)
+    tiles = -(-m // bm) * -(-n // bn)
     cap = kg // 4 if kg % 4 == 0 else kg
     splits = 1 if tiles >= WAVE else max(1, min(cap, 2 * WAVE // tiles))
     longest = max(_split_bound(z + 1, kg, splits) - _split_bound(z, kg, splits)
                   for z in range(splits))
     kstep = SUB if longest <= SUB else MAX_STEP
     return DecodePlan(m, kg, n, g, bm, bn, splits, kstep, codes_aligned, acts_aligned,
-                      decode_smem_bytes(g, bn, kstep), e)
+                      decode_smem_bytes(g, bn, kstep))
+
+
+# The grouped plan's constants (`decode_grouped_kernel` in the kernel's source)
+GROUP_THREADS = 512         # threads of a grouped block: 16 warps
+GROUP_SLAB = 32             # rows of a warp's slot: two m16 tiles
+GROUP_ROWS = 512            # a slab for each warp; a block's rows are a multiple
+GROUP_STEP = 128            # K-groups of a slot
+GROUP_BN = 16               # tokens of a token tile
+GROUP_COPIES = 16           # interleaved copies of the 64-bit trit table
+GROUP_SMEM_MAX = 232448 - 1024     # 227 KB less the static part
+GROUP_BLOCKS_PER_SM = 1     # one grouped block an SM (shared memory)
+#: the grid's share of its last wave a grouped plan aims for
+WAVE_EFFICIENCY = 0.95
+#: row chunks an expert's rows take at least: at a decode step a few
+#: experts hold every real row, and one block an expert would leave each
+#: live expert's rows to one SM
+MIN_CHUNKS = 2
+#: a tail block's set-up (trit table, token scales) and one expert's
+#: staging, in slots of work (the tail plan's cost model)
+TAIL_SETUP = 4
+TAIL_STAGE = 1
+
+
+def grouped_row_bytes(nk: int) -> int:
+    """Shared bytes of one staged (trit, token) row of a K-slice of nk
+    K-groups (`gslice_row_bytes` in the kernel): 32 more than a multiple of
+    64, so that a half-warp's 8-byte B reads fall on distinct bank pairs."""
+    return -(-nk // 64) * 64 + 32
+
+
+def grouped_decode_smem_bytes(g: int, bn: int, nk: int) -> int:
+    """Dynamic shared memory of one grouped block (`gdecode_smem_bytes` in
+    the kernel): the trit table (256 8-byte entries × `GROUP_COPIES`), the
+    staged activations [g][bn][grouped_row_bytes(nk)] of the longest
+    K-slice nk, and each warp's slot of codes [32 rows][GROUP_STEP
+    bytes]."""
+    return (256 * 8 * GROUP_COPIES + g * bn * grouped_row_bytes(nk)
+            + GROUP_ROWS // GROUP_SLAB * GROUP_SLAB * GROUP_STEP)
+
+
+def wave_efficiency(blocks: int) -> float:
+    """The grid's blocks over the slots of the waves it takes."""
+    slots = WAVE * GROUP_BLOCKS_PER_SM
+    return blocks / (-(-blocks // slots) * slots)
+
+
+def _gsplit_bound(z: int, kg: int, splits: int) -> int:
+    """First K-group of split z of a grouped plan: z*KG/S rounded down to
+    a multiple of `GROUP_STEP` (S <= KG/GROUP_STEP), so every step
+    starts a whole number of steps from the row's start; split S ends at
+    KG (`gsplit_bound` in the kernel)."""
+    return kg if z >= splits else z * kg // splits & ~(GROUP_STEP - 1)
+
+
+def _longest_slice(kg: int, splits: int) -> int:
+    return max(_gsplit_bound(z + 1, kg, splits) - _gsplit_bound(z, kg, splits)
+               for z in range(splits))
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedDecodePlan:
+    """The launch of one grouped decode call: block (x, y, z) owns rows
+    `rows(x)`, tokens `tokens(y)` and K-groups `kgroups(z % splits)` of the
+    experts `experts(z // splits)`, one after another. It stages its token
+    tile's K-slice once an expert (`bn` token rows); each of its warps
+    streams the codes of its 32-row slabs through its own slot,
+    `GROUP_STEP` K-groups at a time."""
+    m: int
+    kg: int
+    n: int
+    g: int
+    e: int
+    bm: int                 # rows of a block
+    splits: int
+    ex: int                 # experts of a block
+    bn: int                 # staged token rows: 8 (N <= 8) or 16
+    smem: int
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.m // self.bm)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.n // GROUP_BN)
+
+    @property
+    def e_groups(self) -> int:
+        return -(-self.e // self.ex)
+
+    @property
+    def blocks(self) -> int:
+        return self.e_groups * self.m_tiles * self.n_tiles * self.splits
+
+    @property
+    def stagings(self) -> int:
+        """The times each activation is staged (quantized or transposed
+        into shared memory) a launch: once per row chunk."""
+        return self.m_tiles
+
+    @property
+    def packed_rows(self) -> bool:
+        """A slot holds a slab's codes as one contiguous run: the
+        K-slice is a whole row shorter than a step."""
+        return self.splits == 1 and self.kg < GROUP_STEP
+
+    def rows(self, x: int) -> tuple[int, int]:
+        return x * self.bm, min(self.m, (x + 1) * self.bm)
+
+    def tokens(self, y: int) -> tuple[int, int]:
+        return y * GROUP_BN, min(self.n, (y + 1) * GROUP_BN)
+
+    def kgroups(self, z: int) -> tuple[int, int]:
+        return _gsplit_bound(z, self.kg, self.splits), _gsplit_bound(z + 1, self.kg, self.splits)
+
+    def experts(self, zg: int) -> tuple[int, int]:
+        return zg * self.ex, min(self.e, (zg + 1) * self.ex)
+
+
+@functools.lru_cache(maxsize=4096)
+def grouped_decode_plan(m: int, kg: int, n: int, g: int, e: int) -> GroupedDecodePlan:
+    """The launch of one grouped call of `e` experts (the grouped kernels
+    take it at any E, 1 included), from its shape:
+
+    - a segment of one step (KG <= GROUP_STEP, the g=4 tails): no
+      split; BM and `ex` experts a block such that the busiest SM does the
+      least work, counted in a warp's slots (waves × (`TAIL_SETUP` +
+      experts a block × (`TAIL_STAGE` + BM/512))), then the fewest blocks,
+      the largest BM;
+    - else the fewest blocks an (expert, token tile), row chunks (BM a
+      multiple of 512, at least `MIN_CHUNKS` chunks where M allows) times
+      K-splits (S <= KG/GROUP_STEP, each K-slice's staged rows within the
+      shared memory), whose grid fills its last wave to `WAVE_EFFICIENCY`
+      (rows before splits at a tie), or the best filled where none does."""
+    bn = 8 if n <= 8 else GROUP_BN
+    nt = -(-n // GROUP_BN)
+    rows = -(-m // GROUP_ROWS) * GROUP_ROWS
+    bms = sorted({-(-(-(-m // mt)) // GROUP_ROWS) * GROUP_ROWS
+                  for mt in range(1, rows // GROUP_ROWS + 1)}, reverse=True)
+    if kg <= GROUP_STEP:
+        # the busiest SM's work in a warp's slots: its waves times a
+        # block's set-up and, for each of its ex experts, the staging and
+        # bm / 512 slots
+        slots = WAVE * GROUP_BLOCKS_PER_SM
+        walk = [(-(-(-(-e // ex) * nt * -(-m // bm)) // slots)
+                 * (TAIL_SETUP + ex * (TAIL_STAGE + bm // GROUP_ROWS)),
+                 -(-e // ex) * -(-m // bm), -bm, ex, bm)
+                for ex in range(1, e + 1) for bm in bms]
+        *_, ex, bm = min(walk)
+        return GroupedDecodePlan(m, kg, n, g, e, bm, 1, ex, bn,
+                                 grouped_decode_smem_bytes(g, bn, kg))
+    cands = []
+    for s in range(1, max(1, kg // GROUP_STEP) + 1):
+        smem = grouped_decode_smem_bytes(g, bn, _longest_slice(kg, s))
+        if smem > GROUP_SMEM_MAX:
+            continue
+        for bm in bms:
+            if -(-m // bm) < min(MIN_CHUNKS, len(bms)):
+                continue
+            per = -(-m // bm) * s
+            cands.append((wave_efficiency(e * nt * per), per, s, bm, smem))
+    full = [c for c in cands if c[0] >= WAVE_EFFICIENCY]
+    _, _, s, bm, smem = (min(full, key=lambda c: (c[1], c[2])) if full
+                         else max(cands, key=lambda c: (c[0], -c[1], -c[2])))
+    return GroupedDecodePlan(m, kg, n, g, e, bm, s, 1, bn, smem)
 
 
 def fused_aligned(packed: torch.Tensor, x: torch.Tensor) -> tuple[bool, bool]:
@@ -147,10 +310,8 @@ def fused_aligned(packed: torch.Tensor, x: torch.Tensor) -> tuple[bool, bool]:
     where, besides KG % 4 == 0 (every K-slice then starts on a multiple of
     4 features), x's row stride is a multiple of 4 elements and its base is
     aligned to 4 elements. The K = 964 weight's one-K-group g=4 segment and
-    its `x[:, 960:964]` slice claim neither. For the grouped kernel's
-    stacked operands (a leading expert axis) the expert strides must keep
-    every expert's view so: contiguous codes do where KG % 4 == 0, and x's
-    expert stride must be a multiple of 4 elements too."""
+    its `x[:, 960:964]` slice claim neither. (The grouped kernel's C entry
+    derives its own claims from the pointers and expert strides.)"""
     kg = packed.shape[-1]
     codes = kg % 4 == 0 and packed.data_ptr() % 4 == 0
     acts = (kg % 4 == 0 and all(st % 4 == 0 for st in x.stride()[:-1])
@@ -161,9 +322,7 @@ def fused_aligned(packed: torch.Tensor, x: torch.Tensor) -> tuple[bool, bool]:
 def int_aligned(packed: torch.Tensor, a_r: torch.Tensor) -> tuple[bool, bool]:
     """The integer kernel's alignment claims: codes as for `fused_aligned`;
     a_r in 4-byte words of 4 tokens where KG % 4 == 0, N % 4 == 0 and a_r's
-    base is 4-byte aligned. Contiguous stacked operands (the grouped
-    kernel's) keep every expert's view so: their expert strides M*KG and
-    g*KG*N are then multiples of 4 too."""
+    base is 4-byte aligned."""
     kg = packed.shape[-1]
     codes = kg % 4 == 0 and packed.data_ptr() % 4 == 0
     acts = kg % 4 == 0 and a_r.shape[-1] % 4 == 0 and a_r.data_ptr() % 4 == 0
@@ -336,8 +495,7 @@ def ternary_decode_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
     out = torch.empty((e, x.shape[1], m), dtype=out_dtype, device=x.device)
     if out.numel() == 0 or kg == 0:
         return out.zero_()
-    codes, acts = fused_aligned(packed, x)
-    plan = decode_plan(m, kg, x.shape[1], g, codes_aligned=codes, acts_aligned=acts, e=e)
+    plan = grouped_decode_plan(m, kg, x.shape[1], g, e)
     _build.launch_decode_grouped(packed, x, a_scale, w_scale, g, out, plan,
                                  *_splitk.launch_args(plan, x.device))
     ternary_decode_gemm_fused_grouped.launches += 1
@@ -401,8 +559,7 @@ def ternary_decode_gemm_grouped(packed, a_r, *, g: int) -> torch.Tensor:
     out = torch.empty((e, m, a_r.shape[3]), dtype=torch.int32, device=a_r.device)
     if out.numel() == 0 or kg == 0:
         return out.zero_()
-    codes, acts = int_aligned(packed, a_r)
-    plan = decode_plan(m, kg, a_r.shape[3], g, codes_aligned=codes, acts_aligned=acts, e=e)
+    plan = grouped_decode_plan(m, kg, a_r.shape[3], g, e)
     _build.launch_decode_int_grouped(packed, a_r, g, out, plan,
                                      *_splitk.launch_args(plan, a_r.device))
     ternary_decode_gemm_grouped.launches += 1

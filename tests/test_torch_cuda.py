@@ -217,6 +217,8 @@ GROUPED = {
     "decode": (tdg.ternary_decode_gemm_fused_grouped, tdg.ternary_decode_gemm_fused_plain),
     "lookup": (vlg.vlut_lookup_gemm_fused_grouped, vlg.vlut_lookup_gemm_fused_plain),
 }
+#: each impl's grouped launch plan: (M, KG, N, g, E) -> a plan with `splits`
+GROUPED_PLANS = {"decode": tdg.grouped_decode_plan, "lookup": vlg.grouped_lut_plan}
 # (E, M, KG, g, C): split-K traps (odd E, M off the tiles, C 5 and 17, KG
 # not divisible by the splits), a one-K-group g=4 segment, llama4-scout's
 # w2 g=4 segment and a w1 slice of its 16 experts (no split)
@@ -236,7 +238,7 @@ def test_grouped_kernel_matches_plain_and_single_launches(cuda, impl):
     kern, plain = GROUPED[impl]
     single = KERNELS[impl][0]
     rng = np.random.default_rng(11)
-    assert any(PLANS[impl](m, kg, c, g, e=e).splits > 1 for e, m, kg, g, c in GROUPED_TRAPS)
+    assert any(GROUPED_PLANS[impl](m, kg, c, g, e).splits > 1 for e, m, kg, g, c in GROUPED_TRAPS)
     for e, m, kg, g, c in GROUPED_TRAPS:
         packed = torch.tensor(rng.integers(0, 3 ** g, (e, m, kg)).astype(np.uint8), device=cuda)
         wide = torch.tensor(rng.standard_normal((e, c, kg * g + 4)).astype(np.float32), device=cuda)

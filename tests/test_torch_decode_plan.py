@@ -12,6 +12,7 @@ summed in int32, the split-K partials added into a workspace) equals the
 plain versions bit for bit, fused and integer, the saturated sums at the
 plan with the most splits included. The emulation lives here only: nothing
 on the main path runs it. Inputs are made by numpy from a seed."""
+import dataclasses
 import re
 
 import pytest
@@ -99,6 +100,13 @@ def test_plan_tiles_cover_exactly(m, kg, n, g, aligned):
 #: the splits)
 DEEPSEEK_EXPERTS = [(256, 2048, 1432, 5, 16), (256, 2048, 2, 4, 16),
                     (256, 7168, 408, 5, 16), (256, 7168, 2, 4, 16)]
+LLAMA4_EXPERTS = ([(16, 8192, 1024, 5, n) for n in (4, 16, 64)]
+                  + [(16, 5120, kg, g, n) for kg, g in ((1636, 5), (3, 4)) for n in (4, 16, 64)])
+#: the grouped plan's geometry traps (E, M, KG, g, C), as chip_smoke.py's
+#: DECODE_GEOMETRY_TRAPS: E x blocks just over a wave, several experts a
+#: block, M 70 and 1000, KG 1-77, C 1-64, g 4 and 5, splits
+GROUPED_TRAPS = [(133, 1000, 300, 5, 16), (140, 70, 2, 4, 1), (16, 1000, 77, 5, 64),
+                 (3, 70, 1, 4, 5), (7, 1000, 13, 5, 17), (1, 960, 192, 5, 4)]
 GROUPED_CASES = (
     [(16, 8192, 1024, 5, n) for n in (4, 16, 64)]
     + [(16, 5120, 1636, 5, 16), (16, 5120, 3, 4, 16)]
@@ -107,37 +115,114 @@ GROUPED_CASES = (
 )
 
 
-@pytest.mark.parametrize("e,m,kg,g,n", GROUPED_CASES)
+@pytest.mark.parametrize("e,m,kg,g,n", GROUPED_CASES + GROUPED_TRAPS)
 def test_grouped_plan_counts_the_experts(e, m, kg, g, n, monkeypatch):
-    """A grouped plan covers each expert's rows, tokens and K-groups as a
-    single plan does, counts E × tiles toward the wave (S = 1 at llama4's
-    expert shapes, within two waves where it splits), sizes the split-K
-    workspace and counters for every expert, and is the single plan at
-    E = 1."""
-    p = tdg.decode_plan(m, kg, n, g, e=e)
-    assert p.e == e and p.blocks == e * p.m_tiles * p.n_tiles * p.splits
+    """A grouped plan (`grouped_decode_plan`) covers every (expert, row,
+    token, K-group) exactly once; splits start on a step; the blocks
+    count its expert groups, row chunks, token tiles and splits; split-K
+    comes with a workspace and counters for every expert."""
+    p = tdg.grouped_decode_plan(m, kg, n, g, e)
+    assert p.e == e and p.blocks == p.e_groups * p.m_tiles * p.n_tiles * p.splits
+    assert p.bm % tdg.GROUP_ROWS == 0 and p.bn == (8 if n <= 8 else 16)
+    assert 1 <= p.splits <= max(1, kg // tdg.GROUP_STEP) and 1 <= p.ex <= e
+    _cover([p.experts(z) for z in range(p.e_groups)], e)
     _cover([p.rows(x) for x in range(p.m_tiles)], m)
     _cover([p.tokens(y) for y in range(p.n_tiles)], n)
     _cover([p.kgroups(z) for z in range(p.splits)], kg)
-    tiles = e * p.m_tiles * p.n_tiles
-    if tiles >= tdg.WAVE:
-        assert p.splits == 1, p
-    else:
-        cap = kg // 4 if kg % 4 == 0 else kg
-        assert min(tdg.WAVE, tiles * cap) <= p.blocks <= 2 * tdg.WAVE, p
-    if e >= 16:
-        assert p.splits == 1
-    assert tdg.decode_plan(m, kg, n, g, e=1) == tdg.decode_plan(m, kg, n, g)
+    assert all(p.kgroups(z)[0] % tdg.GROUP_STEP == 0 for z in range(p.splits))
+    assert p.stagings == p.m_tiles
     if p.splits > 1:    # the workspace the wrapper would pass, sized here on the CPU
         monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
         monkeypatch.setattr(_splitk, "_WORKSPACE", {})
         ws, counters = _splitk.launch_args(p, torch.device("cpu"))
-        assert ws.numel() >= e * m * n and counters.numel() >= tiles
+        assert ws.numel() >= e * m * n and counters.numel() >= e * p.m_tiles * p.n_tiles
         assert not ws.any() and not counters.any()
 
 
 def test_grouped_cases_include_a_split_k_launch():
-    assert any(tdg.decode_plan(m, kg, n, g, e=e).splits > 1 for e, m, kg, g, n in GROUPED_CASES)
+    plans = [tdg.grouped_decode_plan(m, kg, n, g, e) for e, m, kg, g, n in GROUPED_CASES + GROUPED_TRAPS]
+    assert any(p.splits > 1 for p in plans) and any(p.ex > 1 for p in plans)
+    assert any(p.packed_rows for p in plans) and any(p.n_tiles > 1 for p in plans)
+
+
+@pytest.mark.parametrize("e,m,kg,g,n", DEEPSEEK_EXPERTS + LLAMA4_EXPERTS)
+def test_grouped_plan_fills_its_last_wave(e, m, kg, g, n):
+    """At the main path's expert shapes the grid fills its last wave to
+    `WAVE_EFFICIENCY`, and the g=4 tails run in one wave; every activation
+    is staged at most 8 times a launch (decode_kernel's 64-row tiles staged
+    it 32-128 times), and `MIN_CHUNKS` times at deepseek's main segments,
+    whose experts' rows take two blocks each."""
+    p = tdg.grouped_decode_plan(m, kg, n, g, e)
+    assert p.stagings <= 8, p
+    if kg <= tdg.GROUP_STEP:
+        assert p.blocks <= tdg.WAVE and p.packed_rows, p
+    else:
+        assert tdg.wave_efficiency(p.blocks) >= tdg.WAVE_EFFICIENCY, p
+    if e == 256 and kg > tdg.GROUP_STEP:
+        assert p.stagings == tdg.MIN_CHUNKS == 2 and p.splits == 1, p
+
+
+@pytest.mark.parametrize("e,m,kg,g,n", [c for c in DEEPSEEK_EXPERTS if c[2] <= 64])
+def test_grouped_tails_run_several_experts_a_block(e, m, kg, g, n):
+    """deepseek's 2-K-group g=4 tails: a few experts a block in about one
+    wave, not E × M-tiles tiny blocks (decode_kernel launched 8,192 and
+    28,672)."""
+    p = tdg.grouped_decode_plan(m, kg, n, g, e)
+    assert p.ex > 1 and p.blocks <= tdg.WAVE and p.splits == 1, p
+
+
+@pytest.mark.parametrize("g", [4, 5])
+def test_grouped_plan_shared_memory(g):
+    """The plan's shared bytes are the kernel's formula at its longest
+    K-slice, and fit what a block can opt in to (227 KB less the static
+    part), at every shape and token count the plan picks for."""
+    for m in (70, 2048, 5120, 7168, 8192):
+        for kg in (1, 2, 3, 13, 64, 65, 408, 1024, 1432, 1636, 2048):
+            for n in (1, 4, 9, 16, 17, 64):
+                for e in (1, 16, 256):
+                    p = tdg.grouped_decode_plan(m, kg, n, g, e)
+                    longest = max(hi - lo for lo, hi in (p.kgroups(z) for z in range(p.splits)))
+                    assert p.smem == tdg.grouped_decode_smem_bytes(g, p.bn, longest), p
+                    assert p.smem <= tdg.GROUP_SMEM_MAX, p
+
+
+def test_grouped_plan_matches_kernel_constants():
+    """The grouped plan's constants are those of `decode_grouped_kernel` in
+    csrc/ternary_decode_gemm.cu, and its shared-memory formula is the
+    kernel's."""
+    src = _src()
+    assert _const(src, "kGWarps") * 32 == tdg.GROUP_THREADS
+    assert _const(src, "kGStep") == tdg.GROUP_STEP
+    assert _const(src, "kGBN") == tdg.GROUP_BN
+    assert _const(src, "kGCopies") == tdg.GROUP_COPIES
+    assert _const(src, "kGSlab") == tdg.GROUP_SLAB
+    assert "constexpr int kGRows = kGSlab * kGWarps;" in src
+    assert tdg.GROUP_ROWS == tdg.GROUP_SLAB * tdg.GROUP_THREADS // 32
+    assert "constexpr int kGSlot = kGSlab * kGStep;" in src
+    assert "return ((r / (128 / kGStep)) & (kGStep / 32 - 1)) << 5;" in src
+    assert "return r * kGStep + (c ^ slot_swizzle(r));" in src
+    assert "constexpr size_t kGMaxSmem = 232448 - 1024;" in src and tdg.GROUP_SMEM_MAX == 232448 - 1024
+    assert "return (nk + 63) / 64 * 64 + 32;" in src
+    assert "return (size_t)kTableSize * 8 * kGCopies;" in src
+    assert "return (size_t)kGWarps * kGSlot;" in src
+
+
+@pytest.mark.parametrize("nk", [2, 64, 408, 1432, 1636])
+def test_grouped_reads_are_conflict_free(nk):
+    """A half-warp's 8-byte reads (rows gid 0-3 or 4-7 x t 0-3, 32 bytes a
+    row) fall on 16 distinct bank pairs: B from the staged activations'
+    rows, and A from a slot's rows (either m16 tile, every k32
+    sub-step) through the swizzle."""
+    rs = tdg.grouped_row_bytes(nk)
+    for half in (0, 1):
+        banks = {((4 * half + r) * rs + 8 * t) // 8 % 16 for r in range(4) for t in range(4)}
+        assert len(banks) == 16, rs
+        for h in (0, 1):
+            for extra in (0, 8):
+                for s in range(tdg.GROUP_STEP // 32):
+                    banks = {(_slot_at(16 * h + extra + 4 * half + r, 32 * s) + 8 * t) // 8 % 16
+                             for r in range(4) for t in range(4)}
+                    assert len(banks) == 16, (h, extra, s)
 
 
 def test_new_segments_are_the_ones_no_earlier_config_had():
@@ -261,11 +346,11 @@ def test_alignment_predicate_on_the_models_views():
 def test_grouped_integer_plan_on_the_stacked_views(e, m, kg, g, n):
     """The grouped integer kernel's operands as `ops._deinterleave(a_q, g,
     e)` stacks them (E experts' C rows in turn): every expert's a_r slice
-    is its single product's de-interleaved copy; the alignment claims hold
-    for the stacked tensors exactly where a single expert's hold (word
-    loads of codes and a_r where KG % 4 == 0 and C % 4 == 0: every
-    deepseek segment but the 2-group g=4 ones); the plan at E = 256 is the
-    launch the wrapper makes, its workspace E*M*N and counters E*tiles.
+    is its single product's de-interleaved copy; the vector claim the C
+    entry derives (a_r in words of 4 tokens where KG % 4 == 0 and C % 4 ==
+    0, every expert stride a multiple of 4) holds for the stacked tensors
+    exactly where a single expert's does: every deepseek segment but the
+    2-group g=4 ones; the plan at E = 256 is the launch the wrapper makes.
     Checked at 3 experts of the real (M, KG, C): the plan does not depend
     on the tensors."""
     rng = np.random.default_rng(kg + m)
@@ -279,9 +364,10 @@ def test_grouped_integer_plan_on_the_stacked_views(e, m, kg, g, n):
         assert tdg.int_aligned(packed[i], a_r[i]) == tdg.int_aligned(packed, a_r)
     want = kg % 4 == 0
     assert tdg.int_aligned(packed, a_r) == (want, want and n % 4 == 0)
-    p = tdg.decode_plan(m, kg, n, g, codes_aligned=want, acts_aligned=want, e=e)
-    assert p.e == 256 and p.splits == 1 and p.blocks == 256 * p.m_tiles * p.n_tiles
-    assert p.smem == tdg.decode_smem_bytes(g, p.bn, p.kstep) <= SMEM_STATIC_MAX
+    assert a_r.stride(0) % 4 == 0
+    p = tdg.grouped_decode_plan(m, kg, n, g, e)
+    assert p.e == 256 and p.splits == 1 and p.blocks == p.e_groups * p.m_tiles * p.n_tiles
+    assert p.smem <= tdg.GROUP_SMEM_MAX
 
 
 @pytest.mark.parametrize("k", sorted({k for _, k in NEW_LINEARS}))
@@ -561,23 +647,273 @@ def test_emulated_fused_kernel_equals_plain(m, kg, n, g, dt):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("e,m,kg,g,n", [(3, 70, 13, 5, 5), (5, 130, 77, 4, 17), (2, 64, 40, 5, 16)])
-def test_emulated_grouped_integer_kernel_equals_plain(e, m, kg, g, n):
-    """The grouped integer kernel, emulated expert by expert with the
-    grouped plan (each expert's blocks add into its own workspace slice),
-    equals `ternary_decode_gemm_grouped` (its plain version on the CPU) and
-    E single integer calls bit for bit; every case splits K."""
-    rng = np.random.default_rng(e + m + kg)
+# ---- the grouped kernel's block order, emulated ---------------------------
+
+def _table_hi():
+    """The 64-bit table's high words: byte 0 = trit 4 of code c."""
+    return np.array([((c // 81) % 3 - 1) & 0xFF for c in range(256)], np.uint32)
+
+
+TABLE_HI = _table_hi()
+
+
+def _decode_words2(w, g):
+    """`decode_word2`: the low words as `decode_word`'s table, trit 4 from
+    byte 0 of the 4 codes' high words by three __byte_perm."""
+    lo = [TABLE[(w >> np.uint32(8 * i)) & np.uint32(0xFF)] for i in range(4)]
+    out = _transpose4(lo)[:g]
+    if g == 5:
+        hi = [TABLE_HI[(w >> np.uint32(8 * i)) & np.uint32(0xFF)] for i in range(4)]
+        out.append(_byte_perm(_byte_perm(hi[0], hi[1], 0x0040), _byte_perm(hi[2], hi[3], 0x0040),
+                              0x5410))
+    return out
+
+
+@pytest.mark.parametrize("g", [4, 5])
+def test_grouped_trit_table_equals_unpack_ternary(g):
+    """The grouped kernel's 64-bit table decodes every byte value as the
+    plain version does."""
+    codes = np.arange(256, dtype=np.uint8)
+    words = codes.reshape(64, 4).view(np.uint32)[:, 0]
+    dec = np.stack([_bytes(t) for t in _decode_words2(words, g)], -1)
+    want = unpack_ternary(torch.tensor(codes[:, None]), g).numpy()
+    assert np.array_equal(dec.reshape(256, g), want)
+
+
+def _words(buf, offs):
+    """Little-endian uint32 of the 4 bytes at each offset of a uint8 buffer."""
+    b = buf[offs[..., None] + np.arange(4)].astype(np.uint32)
+    return b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+
+
+def _mma_warps(a_regs, b_regs):
+    """`_mma` for every warp at once: a_regs (W, 32, 4), b_regs (32, 2)."""
+    a = _bytes(a_regs).astype(np.int32)[:, A_MAP[0], A_MAP[1], A_MAP[2]]
+    return a @ _bytes(b_regs).astype(np.int32)[B_MAP]
+
+
+def _slot_swizzle(r):
+    """`slot_swizzle`: the XOR of row r's 32-byte chunks, its place among
+    the rows sharing a 128-byte bank window."""
+    step = tdg.GROUP_STEP
+    return ((r // (128 // step)) & (step // 32 - 1)) << 5
+
+
+def _slot_at(r, c):
+    """`slot_at`: byte c of row r of a slot (rows GROUP_STEP bytes
+    apart, chunks swizzled)."""
+    return r * tdg.GROUP_STEP + (c ^ _slot_swizzle(r))
+
+
+def _emulate_grouped(packed, a, plan, kind, a_scale=None, seed=0):
+    """The grouped kernel's block order and arithmetic: the plan's blocks
+    run one at a time in a seeded random order (so that a split arrives
+    first, last or skipped in any order); each stages its token tile's
+    K-slice once an expert into a flat aq[j][n][kk] buffer (row stride
+    `grouped_row_bytes`, garbage where the kernel never writes), checks it
+    for a nonzero value (the zero-tile skip); then each warp streams its
+    32-row slabs (slab w, w + 16, ...) through its own slot holding
+    stale bytes (rows at `_slot_at`, or one contiguous run where
+    `packed_rows`), reads the A words of its two m16 tiles at the kernel's
+    offsets (8 unaligned bytes in a packed run), decodes them with the
+    64-bit table, reads B at its offsets, and sums one mma per trit, tile
+    and n8 tile. A slab's sums go to the output (S = 1) or into an int32
+    workspace whose last arriving split writes the output and returns it
+    and its counter to 0. Returns (int32 sums (E, M, N), workspace,
+    counters, blocks that skipped)."""
+    e, m, kg = packed.shape
+    n, g, bn = plan.n, plan.g, plan.bn
+    warps = tdg.GROUP_THREADS // 32
+    rng = np.random.default_rng(seed)
+    out = np.full((e, m, n), -(2 ** 31), np.int64)
+    ws = np.zeros((e, m, n), np.int64)
+    counters = np.zeros((e, plan.m_tiles * plan.n_tiles), np.int64)
+    longest = max(hi - lo for lo, hi in (plan.kgroups(z) for z in range(plan.splits)))
+    rs = tdg.grouped_row_bytes(longest)
+    slot_bytes = tdg.GROUP_SLAB * tdg.GROUP_STEP
+    lanes = np.arange(32)
+    gid, tq = lanes // 4, lanes % 4
+    rows_h = 16 * np.arange(2)[:, None] + gid[None, :]                # (2 tiles, 32)
+    swz = _slot_swizzle(gid)
+    blocks = [(x, y, z) for x in range(plan.m_tiles) for y in range(plan.n_tiles)
+              for z in range(plan.e_groups * plan.splits)]
+    skipped = 0
+    for bi in rng.permutation(len(blocks)):
+        x, y, z = blocks[bi]
+        eg, split = divmod(z, plan.splits)
+        r0, r1 = plan.rows(x)
+        n0, n1 = plan.tokens(y)
+        rv, nv = r1 - r0, n1 - n0
+        nact = -(-nv // 8)
+        kg_lo, kg_hi = plan.kgroups(split)
+        nk = kg_hi - kg_lo
+        width = -(-nk // 32) * 32
+        slots = rng.integers(0, 256, (warps, slot_bytes + 16)).astype(np.uint8)
+        aq = rng.integers(-128, 128, g * bn * rs).astype(np.int8)
+        tile = y * plan.m_tiles + x
+        nslab = -(-rv // tdg.GROUP_SLAB)
+        nsteps = 1 if plan.packed_rows else -(-nk // tdg.GROUP_STEP)
+        for ex in range(*plan.experts(eg)):
+            # stage the slice: tokens [0, 8 nact) x columns [0, width)
+            blk = np.zeros((g, 8 * nact, width), np.int8)
+            if kind == "int":
+                blk[:, :nv, :nk] = a[ex][:, kg_lo:kg_hi, n0:n1].transpose(0, 2, 1)
+            else:
+                xs = a[ex][n0:n1, kg_lo * g:kg_hi * g].astype(np.float32)
+                q = np.clip(np.rint(xs / a_scale[ex][n0:n1, None]), -127, 127).astype(np.int8)
+                blk[:, :nv, :nk] = q.reshape(nv, nk, g).transpose(2, 0, 1)
+            for j in range(g):
+                for t in range(8 * nact):
+                    aq[(j * bn + t) * rs:(j * bn + t) * rs + width] = blk[j, t]
+            aqu = aq.view(np.uint8)
+            skip = not blk.any()
+            skipped += skip
+            if skip:
+                if plan.splits == 1:
+                    out[ex, r0:r1, n0:n1] = 0
+            for w in range(warps):
+                slot = slots[w]
+                if skip:
+                    continue
+                for t in range(w, nslab, warps):
+                    m0 = r0 + t * tdg.GROUP_SLAB
+                    rows = min(tdg.GROUP_SLAB, r1 - m0)
+                    acc = np.zeros((2, 2, 16, 8), np.int64)
+                    for k in range(nsteps):
+                        kk0 = k * tdg.GROUP_STEP
+                        ln = min(tdg.GROUP_STEP, nk - kk0)
+                        if plan.packed_rows:
+                            slot[:rows * kg] = packed[ex, m0:m0 + rows].ravel()
+                        else:
+                            for r in range(rows):
+                                slot[_slot_at(r, np.arange(ln))] = \
+                                    packed[ex, m0 + r, kg_lo + kk0:kg_lo + kk0 + ln]
+                        for s in range(min(tdg.GROUP_STEP // 32, -(-(nk - kk0) // 32))):
+                            if plan.packed_rows:
+                                off = s * 32 + 8 * tq[None, :]
+                                lo, hi = rows_h * kg + off, (rows_h + 8) * kg + off
+                            else:
+                                off = ((s * 32) ^ swz)[None, :] + 8 * tq[None, :]
+                                lo = rows_h * tdg.GROUP_STEP + off
+                                hi = (rows_h + 8) * tdg.GROUP_STEP + off
+                            cur = np.stack([_words(slot, lo), _words(slot, hi), _words(slot, lo + 4),
+                                            _words(slot, hi + 4)], -1)            # (2, 32, 4)
+                            a_regs = _decode_words2(cur, g)                        # g x (2, 32, 4)
+                            for j in range(g):
+                                for nt in range(nact):
+                                    bo = (j * bn + nt * 8 + gid) * rs + kk0 + s * 32 + 8 * tq
+                                    b_regs = np.stack([_words(aqu, bo), _words(aqu, bo + 4)], -1)
+                                    acc[:, nt] += _mma_warps(a_regs[j], b_regs)
+                    sums = acc.transpose(0, 2, 1, 3).reshape(32, 16)[:rows, :nv]
+                    if plan.splits > 1:
+                        ws[ex, m0:m0 + rows, n0:n1] += sums
+                    else:
+                        out[ex, m0:m0 + rows, n0:n1] = sums
+            if plan.splits > 1:
+                counters[ex, tile] += 1
+                if counters[ex, tile] == plan.splits:
+                    out[ex, r0:r1, n0:n1] = ws[ex, r0:r1, n0:n1]
+                    ws[ex, r0:r1, n0:n1] = 0
+                    counters[ex, tile] = 0
+    assert out.min() >= -(2 ** 31) + 1, "an output the emulated kernel never wrote"
+    return out.astype(np.int32), ws, counters, skipped
+
+
+def _grouped_operands(e, m, kg, g, n, seed, zero_expert=None):
+    rng = np.random.default_rng(seed)
     packed = rng.integers(0, 3 ** g, (e, m, kg)).astype(np.uint8)
     a_r = rng.integers(-127, 128, (e, g, kg, n)).astype(np.int8)
-    plan = tdg.decode_plan(m, kg, n, g, e=e)
-    assert plan.splits > 1
-    got = np.stack([_emulate(packed[i], a_r[i], plan, "int") for i in range(e)])
+    x = (rng.standard_normal((e, n, kg * g)) * 3).astype(np.float32)
+    if zero_expert is not None:                 # an expert with no real row
+        a_r[zero_expert] = 0
+        x[zero_expert] = 0
+    a_r[..., -1] = 0                            # every expert's padding token
+    x[:, -1] = 0
+    return packed, a_r, x, rng
+
+
+#: (E, M, KG, g, C): split-K with a ragged last K-slice and 2 token tiles;
+#: packed-row tails of 2, 13 and 40 K-groups with several experts a block;
+#: several steps a slab, split and not, and warps of two slabs (M 600);
+#: C 5, 9 and 17; an all-zero expert beside full ones in each
+GROUPED_EMU_CASES = [(3, 130, 300, 5, 17), (5, 300, 2, 4, 5), (3, 70, 13, 5, 16),
+                     (2, 260, 270, 4, 4), (2, 64, 40, 5, 16), (2, 600, 200, 5, 9)]
+
+
+def _emu_plan(e, m, kg, g, n):
+    """The grouped plan, with one block an expert's rows, a tail's experts
+    taken 2 a block, and the splits forced up where the plan does not split
+    at the case's small E (so that split-K arrivals are emulated)."""
+    p = tdg.grouped_decode_plan(m, kg, n, g, e)
+    # one block an expert's rows, as at E 256, and a tail's experts 2 a block
+    p = dataclasses.replace(p, bm=-(-m // tdg.GROUP_ROWS) * tdg.GROUP_ROWS)
+    if p.packed_rows and e > 1:
+        p = dataclasses.replace(p, ex=2)
+    if p.splits == 1 and kg // tdg.GROUP_STEP >= 2:
+        s = kg // tdg.GROUP_STEP
+        longest = max(tdg._gsplit_bound(z + 1, kg, s) - tdg._gsplit_bound(z, kg, s) for z in range(s))
+        p = dataclasses.replace(p, splits=s, smem=tdg.grouped_decode_smem_bytes(g, p.bn, longest))
+    return p
+
+
+@pytest.mark.parametrize("e,m,kg,g,n", GROUPED_EMU_CASES)
+def test_emulated_grouped_integer_kernel_equals_plain(e, m, kg, g, n):
+    """The grouped integer kernel's block order, emulated, equals
+    `ternary_decode_gemm_grouped` (its plain version on the CPU) and E
+    single integer calls bit for bit, with expert 1 all zero; the zero
+    blocks skip their codes, and split-K leaves the workspace and counters
+    zeroed."""
+    packed, a_r, _, _ = _grouped_operands(e, m, kg, g, n, e + m + kg, zero_expert=1)
+    plan = _emu_plan(e, m, kg, g, n)
+    got, ws, counters, skipped = _emulate_grouped(packed, a_r, plan, "int", seed=m)
     want = tdg.ternary_decode_gemm_grouped(torch.tensor(packed), torch.tensor(a_r), g=g)
     assert torch.equal(torch.tensor(got), want)
     for i in range(e):
         assert torch.equal(want[i], tdg.ternary_decode_gemm(torch.tensor(packed[i]),
                                                             torch.tensor(a_r[i]), g=g))
+    assert skipped >= plan.m_tiles * plan.n_tiles * plan.splits // plan.ex
+    assert not ws.any() and not counters.any()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("e,m,kg,g,n", GROUPED_EMU_CASES)
+def test_emulated_grouped_fused_kernel_equals_plain(e, m, kg, g, n, dt):
+    """The grouped fused kernel's block order, emulated (the quantizer as
+    the kernel's: f32 cast, IEEE division, round half to even, clip +-127),
+    through the epilogue, equals `ternary_decode_gemm_fused_grouped` (its
+    plain version on the CPU) bit for bit, with expert 1 all zero."""
+    packed, _, x, rng = _grouped_operands(e, m, kg, g, n, e + m + kg + 1, zero_expert=1)
+    xt = torch.tensor(x).to(dt)
+    a_scale = torch.stack([act_token_scale(xt[i].T) for i in range(e)]).contiguous()
+    w_scale = torch.tensor(rng.random((e, m)).astype(np.float32))
+    plan = _emu_plan(e, m, kg, g, n)
+    acc, ws, _, skipped = _emulate_grouped(packed, xt.float().numpy(), plan, "fused",
+                                           a_scale.numpy(), seed=n)
+    got = tdg.epilogue(torch.tensor(acc).transpose(1, 2), w_scale, a_scale, dt)
+    want = tdg.ternary_decode_gemm_fused_grouped(torch.tensor(packed), xt, a_scale, w_scale,
+                                                 g=g, out_dtype=dt)
+    assert torch.equal(got, want)
+    assert skipped >= 1 and not ws.any()
+
+
+@pytest.mark.parametrize("e,m,kg,g,n", [(2, 130, 300, 5, 16), (3, 300, 2, 4, 4)])
+def test_emulated_grouped_saturated_sums(e, m, kg, g, n):
+    """All +1 weights and activations 127, beside an all-zero expert: every
+    sum of a full expert is 127*K, exact in int32, split-K included."""
+    packed = np.full((e, m, kg), 3 ** g - 1, np.uint8)
+    a_r = np.full((e, g, kg, n), 127, np.int8)
+    a_r[0] = 0
+    plan = _emu_plan(e, m, kg, g, n)
+    got, *_ = _emulate_grouped(packed, a_r, plan, "int", seed=kg)
+    assert not got[0].any() and got[1:].min() == got[1:].max() == 127 * kg * g
+
+
+def test_emulated_grouped_cases_reach_every_mode():
+    plans = [_emu_plan(*c) for c in GROUPED_EMU_CASES]
+    assert any(p.splits > 1 for p in plans) and any(p.packed_rows for p in plans)
+    assert any(p.ex > 1 for p in plans) and any(p.n_tiles > 1 for p in plans)
+    assert any(p.m > tdg.GROUP_ROWS for p in plans)        # a warp walks two slabs
+    assert any(p.splits == 1 and not p.packed_rows and p.kg > tdg.GROUP_STEP for p in plans)
 
 
 def test_emulated_saturated_sums_at_the_largest_split():
