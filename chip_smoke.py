@@ -300,6 +300,38 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    one dispatch span per call (7 single and 3 grouped BitLinears a layer),
    and their tiles one per launch, equal to the launch counters (8 single
    + 4 grouped a layer: the w2 weights have two packed segments).
+15. encdec: `whisper-medium` at its published widths and depth, no cut
+   (24 encoder + 24 decoder layers, d 1024, 16 heads of 64, d_ff 4096,
+   vocab 51865, bf16, tied head; the stub frontend's frames), random
+   weights from a seeded generator on the card, packed by `pack_params`,
+   after phase 13 (its model freed first). (a) Kernels #1-#4 against
+   their plain versions at its three BitLinear shapes (M, K) (1024, 1024),
+   (4096, 1024), (1024, 4096), each a g=5 and a g=4 segment, N in {1, 4,
+   37, 1500, 6000} (6000: a 4-request encoder batch of 1500 frames):
+   expected difference 0; each shape's plans logged; one decode step's 432
+   launches timed at N 4 and one encoder forward's 336 at N 6000, beside
+   the bound, the plain versions (at N 6000 on layer 0's 14 launches) and
+   a bf16 matmul. (b) Serving through `launch.steps` (B 4, frames (4,
+   1500, 1024), prompts of 8 tokens, 64 greedy tokens, max_len 448) with
+   impl="decode" and "lookup": identical tokens; the impl's kernel
+   launched exactly 336 (encoder) + 528 (decoder prefill: 11 BitLinears a
+   layer, the cross-attention's wk and wv included) times in the prefill
+   step and 432 a decode step, no other mpGeMM or flash launch; the
+   encoder's and the decoder prefill's ms apart; encode + prefill logits
+   of 1 x 64 frames on the card against the CPU plain path (the larger of
+   LOGIT_RTOL and the model's own bf16-vs-f32 distance); after a prefill
+   and 8 decode steps on the cached cross K/V, the logits against a
+   cache-free encode + forward (ENCDEC_CACHE_RTOL); one decode step under
+   torch.profiler. (c) Flash at whisper's training shapes (non-causal B 8
+   S 112, causal S 448; H 16, D 64, bf16) against its plain version, its
+   gradients against autograd through the plain version, timed beside the
+   bound, the plain version and sdpa; then 10 QAT steps of B 8 x S 448
+   (112 frames) with attn_impl="flash" and remat through `train.Trainer`
+   (lr 3e-4, warmup 5): every loss finite, the last below the first; flash
+   launched (24 + 24) x 2 = 96 times a step and no mpGeMM kernel; the
+   checkpoint resumes a second Trainer with equal weights; one sequence's
+   loss on the card against the CPU (TRAIN_LOSS_RTOL); one step profiled.
+   The phase's seconds are logged; rows under `encdec`.
 
 Output: a `kernels` JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}. Details go to
@@ -532,6 +564,35 @@ SSM_SCAN_LEN = 200
 # (bf16 too) and attends in another sum order; bound on max |diff|
 # relative to the largest logit, as LOGIT_RTOL's bf16 rounding argument
 RING_RTOL = 0.05
+# Phase 15: the encoder-decoder whisper-medium at its published widths and
+# depth (24 + 24 layers). Token counts of the kernels' checks: decode (1, 4),
+# a prefill of a few prompts (37), one request's encoder frames (1500:
+# Whisper's 30 s window, n_audio_ctx) and a 4-request encoder batch (6000).
+# Serving: 4 requests of 1500 frames and 8-token prompts, 64 greedy tokens
+# (the prefill's and 63 decode steps'), in a cache of Whisper's n_text_ctx.
+ENCDEC_ARCH = "whisper-medium"
+ENCDEC_TOKENS = (1, 4, 37, 1500, 6000)
+ENCDEC_SMALL_N = 37           # up to here every activation/output type pair is checked
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1500, 8, 64
+ENCDEC_MAX_LEN = 448
+# launches of one forward: 2 per BitLinear (every whisper BitLinear has a
+# g=5 and a g=4 segment); the encoder's 7 a layer; a decoder prefill's 11
+# (self-attention 4, cross-attention 4: wk and wv on the encoder output,
+# FFN 3); a decode step's 9 (the cached cross K/V skip wk and wv)
+ENCDEC_LAUNCHES = {"encoder": 2 * 7 * 24, "prefill": 2 * 11 * 24, "decode": 2 * 9 * 24}
+# the card against the CPU plain path: 1 request, 64 frames, the prompt
+ENCDEC_CPU_FRAMES = 64
+# cached cross K/V (bf16, as the fresh ones in this bf16 model) and self
+# K/V read back from the cache vs a cache-free forward: attention sums in
+# another order, as RING_RTOL's argument; bound relative to the largest logit
+ENCDEC_CACHE_RTOL = 0.05
+ENCDEC_CACHE_STEPS = 8
+# training: B 8 x S 448 (n_text_ctx), frames S / 4 = 112; the card vs the
+# CPU on one sequence of 64 tokens and 16 frames (TRAIN_LOSS_RTOL)
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 8, 448, 10
+ENCDEC_CPU_SEQ = 64
+# flash at whisper's training shapes: (B, S, H, KV, D, causal)
+ENCDEC_FLASH = ((8, 112, 16, 16, 64, False), (8, 448, 16, 16, 64, True))
 # bf16 model, 32 layers, QAT: the CPU and the card round bf16 intermediates
 # after sums in another order, and an int8 activation code at a rounding
 # boundary can move by one; the mean CE over 256 tokens moves far less than
@@ -817,16 +878,16 @@ def int_kernels() -> dict:
     }
 
 
-def fused_vs_plain(torch, kernels, weights, tokens, gen):
+def fused_vs_plain(torch, kernels, weights, tokens, gen, combos=None):
     """Each fused kernel against its plain version at every weight shape,
     token count N and activation/output type pair (f32/f32, bf16/bf16,
-    bf16/f32). → ({name: max |diff|}, number of checks)."""
+    bf16/f32, or `combos`). → ({name: max |diff|}, number of checks)."""
     from repro_torch.core import act_token_scale
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
-    combos = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-              (torch.bfloat16, torch.float32))
+    combos = combos or ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                        (torch.bfloat16, torch.float32))
     max_err = {name: 0.0 for name in kernels}
     n_checks = 0
     for (m, k), pw in weights.items():
@@ -916,7 +977,7 @@ def check_kernels(torch, model, cfg):
     assert len(lins) == 7 * cfg.n_layers and all(lin.pw.k4 == 0 for lin in lins)  # g=5 only
     per_n = {}
     for n in TOKENS:
-        per_n[n] = row = forward_launch_ms(torch, model, n, gen)
+        per_n[n] = row = forward_launch_ms(torch, lins, n, gen)
         log(f"kernels: forward of 224 BitLinears at N={n}: bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}), "
             + ", ".join(f"{nm} {row[nm]['ms']:.4f} ms (eager {row[nm]['eager_ms']:.4f}, "
@@ -2950,14 +3011,11 @@ def check_mla(torch, counters) -> dict:
     return out
 
 
-def layer_weights(model) -> dict:
-    """{(M, K): PackedWeight} of layer 0's BitLinears."""
-    from repro_torch.models.common import PackedLinear
-
+def layer_weights(layer) -> dict:
+    """{(M, K): PackedWeight} of one layer's BitLinears."""
     out = {}
-    for lin in model.layers[0].modules():
-        if isinstance(lin, PackedLinear):
-            out.setdefault((lin.pw.M, lin.pw.K), lin.pw)
+    for lin in packed_linears(layer):
+        out.setdefault((lin.pw.M, lin.pw.K), lin.pw)
     return out
 
 
@@ -2986,49 +3044,110 @@ def int_vs_plain(torch, weights, tokens, gen):
     return max_err, n_checks
 
 
-def forward_launch_ms(torch, model, n: int, gen) -> dict:
-    """Device ms of one forward's mpGeMM launches at N tokens (every layer's
-    BitLinears, each packed segment one launch: the codes stream from
-    memory as in serving), for both fused kernels (CUDA-graph replay, and
-    eager between events), beside the bound (bytes / HBM rate or int8 ops
-    / peak), their plain versions and a bf16 `torch.matmul` against the
-    dequantized weights (a yardstick only). A two-segment linear writes
-    f32 partials, as `ops._mpgemm_tokens` does. Phases 3, 12 and 13."""
-    from repro_torch.core import act_token_scale
-    from repro_torch.kernels import ops
+def packed_linears(module) -> list:
+    """The PackedLinear modules of `module`, in order."""
     from repro_torch.models.common import PackedLinear
 
+    return [m for m in module.modules() if isinstance(m, PackedLinear)]
+
+
+def forward_launch_ms(torch, lins, n: int, gen, plain_lins=None) -> dict:
+    """Device ms of one forward's mpGeMM launches at N tokens (the
+    BitLinears `lins`, each packed segment one launch: the codes stream
+    from memory as in serving), for both fused kernels (CUDA-graph replay,
+    and eager between events), beside the bound (bytes / HBM rate or int8
+    ops / peak), their plain versions and a bf16 `torch.matmul` against
+    the dequantized weights (a yardstick only). A two-segment linear writes
+    f32 partials, as `ops._mpgemm_tokens` does. `plain_lins` (default
+    `lins`): the linears whose launches the plain versions are timed on
+    (phase 15 times them on one layer at N 6000: the plain vector-LUT
+    gather takes ~1 s a linear there). Phases 3, 12, 13 and 15."""
+    from repro_torch.core import act_token_scale
+    from repro_torch.kernels import ops
+
     dev = torch.device("cuda")
-    lins = [m for m in model.modules() if isinstance(m, PackedLinear)]
+    plain_lins = lins if plain_lins is None else plain_lins
     xs = {k: torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
           for k in {lin.pw.K for lin in lins}}
     sc = {k: act_token_scale(x.T).contiguous() for k, x in xs.items()}
-    launches = []
-    for lin in lins:
-        segs = ops._segments(lin.pw)
-        out_dt = torch.bfloat16 if len(segs) == 1 else torch.float32
-        for packed, lo, hi, g in segs:
-            launches.append((packed, xs[lin.pw.K][:, lo:hi], sc[lin.pw.K], lin.scale, g, out_dt))
+
+    def launches_of(linears):
+        out = []
+        for lin in linears:
+            segs = ops._segments(lin.pw)
+            out_dt = torch.bfloat16 if len(segs) == 1 else torch.float32
+            for packed, lo, hi, g in segs:
+                out.append((packed, xs[lin.pw.K][:, lo:hi], sc[lin.pw.K], lin.scale, g, out_dt))
+        return out
+
+    launches, plain_launches = launches_of(lins), launches_of(plain_lins)
     nbytes = sum(p.numel() + w.numel() * 4 + x.numel() * 2 + a.numel() * 4
                  + n * p.shape[0] * (2 if dt == torch.bfloat16 else 4)
                  for p, x, a, w, _, dt in launches)
     nops = sum(2 * n * p.shape[0] * x.shape[1] for p, x, _, _, _, _ in launches)
     row = {"n": n, "launches": len(launches), "bytes": nbytes, "int8_ops": nops,
            "bound_ms": max(nbytes / HBM_BYTES_S, nops / INT8_OPS_S) * 1e3,
-           "bound_by": "bytes" if nbytes / HBM_BYTES_S >= nops / INT8_OPS_S else "operations"}
+           "bound_by": "bytes" if nbytes / HBM_BYTES_S >= nops / INT8_OPS_S else "operations",
+           "plain_launches": len(plain_launches)}
 
-    def run(fn):
-        for p, x, a, w, g, dt in launches:
+    def run(fn, todo=launches):
+        for p, x, a, w, g, dt in todo:
             fn(p, x, a, w, g=g, out_dtype=dt)
 
     for name, (kern, plain) in fused_kernels().items():
         row[name] = {"ms": device_ms(torch, lambda kern=kern: run(kern)),
                      "eager_ms": eager_ms(torch, lambda kern=kern: run(kern)),
-                     "plain_ms": device_ms(torch, lambda plain=plain: run(plain), reps=1)}
+                     "plain_ms": device_ms(torch, lambda plain=plain: run(plain, plain_launches),
+                                           reps=1)}
     dense = [(xs[lin.pw.K], lin.pw.unpack().to(torch.bfloat16)
               .mul_(lin.scale[:, None].to(torch.bfloat16)).T.contiguous()) for lin in lins]
     row["library_ms"] = device_ms(torch, lambda: [x @ d for x, d in dense])
     del dense
+    return row
+
+
+def int_forward_launch_ms(torch, lins, n: int, gen, plain_lins=None) -> dict:
+    """`forward_launch_ms` for the two integer kernels (#3, #4): each packed
+    segment's launch on its int8 activations, quantized and de-interleaved
+    as the unfused pipeline does, beside the bound (codes, int8
+    activations and int32 output vs int8 ops), the plain versions (on
+    `plain_lins`' launches) and `torch._int_mm` on the unpacked int8
+    weights where its shape rules hold (N > 16; a yardstick only).
+    Phase 15."""
+    from repro_torch.core import act_quant_tokens
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    plain_lins = lins if plain_lins is None else plain_lins
+    a_qs = {k: act_quant_tokens(torch.randn((k, n), generator=gen, device=dev) * 3.0)[0]
+            for k in {lin.pw.K for lin in lins}}                      # (K, N) int8
+
+    def launches_of(linears):
+        return [(packed, ops._deinterleave(a_qs[lin.pw.K][lo:hi], g), g)
+                for lin in linears for packed, lo, hi, g in ops._segments(lin.pw)]
+
+    launches, plain_launches = launches_of(lins), launches_of(plain_lins)
+    nbytes = sum(p.numel() + a.numel() + 4 * p.shape[0] * n for p, a, _ in launches)
+    nops = sum(2 * p.shape[0] * n * a.shape[0] * a.shape[1] for p, a, _ in launches)
+    row = {"n": n, "launches": len(launches), "bytes": nbytes, "int8_ops": nops,
+           "bound_ms": max(nbytes / HBM_BYTES_S, nops / INT8_OPS_S) * 1e3,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_S >= nops / INT8_OPS_S else "operations",
+           "plain_launches": len(plain_launches)}
+
+    def run(fn, todo=launches):
+        for p, a, g in todo:
+            fn(p, a, g=g)
+
+    for name, (kern, plain) in int_kernels().items():
+        row[name] = {"ms": device_ms(torch, lambda kern=kern: run(kern)),
+                     "plain_ms": device_ms(torch, lambda plain=plain: run(plain, plain_launches),
+                                           reps=1)}
+    row["library_ms"] = None
+    if n > 16:   # torch._int_mm's shape rules: more than 16 rows, K and M multiples of 8
+        qs = {k: q.T.contiguous() for k, q in a_qs.items()}           # (N, K)
+        w_int8 = [(qs[lin.pw.K], lin.pw.unpack().T) for lin in lins]
+        row["library_ms"] = device_ms(torch, lambda: [torch._int_mm(q, w) for q, w in w_int8])
+        del w_int8
     return row
 
 
@@ -3073,7 +3192,7 @@ def new_arch_kernels(torch, model, label: str) -> dict:
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    weights = layer_weights(model)
+    weights = layer_weights(model.layers[0])
     fused_err, n_fused = fused_vs_plain(torch, fused_kernels(), weights, ODD_TOKENS, gen)
     int_err, n_int = int_vs_plain(torch, weights, ODD_TOKENS, gen)
     err = {**fused_err, **int_err}
@@ -3084,7 +3203,7 @@ def new_arch_kernels(torch, model, label: str) -> dict:
     for name, e in err.items():
         if e != 0:
             raise AssertionError(f"{label}: {name} differs from its plain version by {e} (expected 0)")
-    row = forward_launch_ms(torch, model, DECODE_N, gen)
+    row = forward_launch_ms(torch, packed_linears(model), DECODE_N, gen)
     log(f"{label}: one forward's {row['launches']} launches at N={DECODE_N}: bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
         + ", ".join(f"{nm} {row[nm]['ms']:.4f} ms (plain {row[nm]['plain_ms']:.4f})"
@@ -3434,6 +3553,516 @@ def check_windowed(torch, counters) -> dict:
     log(f"gemma3: phase 13 took {out['seconds']:.1f} s")
     del model
     torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 15: the encoder-decoder (whisper-medium)
+# --------------------------------------------------------------------------
+def encdec_model(torch):
+    """whisper-medium at its published widths and depth, random weights
+    from a seeded generator on the card, packed by `pack_params`.
+    → (cfg, model, facts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec_init, pack_params
+
+    t0 = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = pack_params(encdec_init(cfg, torch.Generator(device="cuda").manual_seed(0)), cfg)
+    torch.cuda.synchronize()
+    n_packed = len(packed_linears(model))
+    out = {"arch": cfg.name, "enc_layers": cfg.enc_layers, "dec_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "packed_linears": n_packed,
+           "model_bytes": {"decoder": packed_model_bytes(model.decoder),
+                           "encoder": sum(t.numel() * t.element_size() for t in
+                                          (*model.encoder.buffers(), *model.encoder.parameters()))},
+           "build_s": time.perf_counter() - t0,
+           "build_peak_bytes": torch.cuda.max_memory_allocated()}
+    if n_packed != 7 * cfg.enc_layers + 11 * cfg.n_layers:
+        raise AssertionError(f"whisper: {n_packed} packed linears")
+    log(f"whisper: {cfg.dtype}, {cfg.enc_layers} + {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab}: built and packed in {out['build_s']:.1f} s (peak "
+        f"{out['build_peak_bytes'] / 2**30:.2f} GiB); bytes {out['model_bytes']}")
+    return cfg, model, out
+
+
+def encdec_kernels(torch, model, cfg) -> dict:
+    """Phase 15 (a): kernels #1-#4 against their plain versions at the
+    three BitLinear shapes (M, K) (1024, 1024), (4096, 1024), (1024, 4096),
+    each two segments, N in ENCDEC_TOKENS (fused: every activation/output
+    type pair up to N 37, the main path's bf16 -> f32 above), expected
+    difference 0, each shape's plans logged; one decode step's launches
+    timed at N 4 (the decoder's 9 BitLinears a layer) and one encoder
+    forward's at N 6000 (7 a layer; the plain versions on layer 0's)."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    weights = layer_weights(model.encoder.layers[0])
+    d, f = cfg.d_model, cfg.d_ff
+    if sorted(weights) != sorted({(d, d), (f, d), (d, f)}):
+        raise AssertionError(f"whisper: BitLinear shapes {sorted(weights)}")
+    small = tuple(n for n in ENCDEC_TOKENS if n <= ENCDEC_SMALL_N)
+    large = tuple(n for n in ENCDEC_TOKENS if n > ENCDEC_SMALL_N)
+    kernels = fused_kernels()
+    err_s, n_s = fused_vs_plain(torch, kernels, weights, small, gen)
+    err_l, n_l = fused_vs_plain(torch, kernels, weights, large, gen,
+                                combos=((torch.bfloat16, torch.float32),))
+    int_err, n_int = int_vs_plain(torch, weights, ENCDEC_TOKENS, gen)
+    err = {**{k: max(err_s[k], err_l[k]) for k in kernels}, **int_err}
+    segs = {f"{m}x{k}": [[int(p.shape[1]), g] for p, _, _, g in ops._segments(pw)]
+            for (m, k), pw in weights.items()}
+    log(f"whisper: {n_s + n_l + n_int} kernel-vs-plain checks at (M, K) {sorted(weights)} "
+        f"(segments [KG, g]: {segs}), N {ENCDEC_TOKENS}: max |diff| {err}")
+    for name, e in err.items():
+        if e != 0:
+            raise AssertionError(f"whisper: {name} differs from its plain version by {e} "
+                                 "(expected 0)")
+    plans = {}
+    for n in ENCDEC_TOKENS:
+        plans[n] = rows = []
+        for (m, k), pw in sorted(weights.items()):
+            for packed, _, _, g in ops._segments(pw):
+                kg = int(packed.shape[1])
+                rows.append({"lut": plan_row(vlg.lut_plan(m, kg, n, g)),
+                             "decode": plan_row(decode_plan_for(tdg, m, kg, n, g))})
+        log(f"whisper: plans at N={n}: " + "; ".join(
+            f"{r['lut']['shape']}: LUT BM {r['lut']['bm']} S {r['lut']['splits']} chunk "
+            f"{r['lut']['chunk']} blocks {r['lut']['blocks']} smem {r['lut']['smem']} | decode "
+            f"BM {r['decode']['bm']} BN {r['decode']['bn']} S {r['decode']['splits']} step "
+            f"{r['decode']['kstep']} blocks {r['decode']['blocks']} smem {r['decode']['smem']}"
+            for r in rows))
+    dec_lins = [lin for layer in model.decoder.layers
+                for lin in packed_linears(layer) if lin not in (layer.cross.wk, layer.cross.wv)]
+    enc_lins = packed_linears(model.encoder)
+    timed, timed_int = {}, {}
+    for label, lins, n, plain_lins in (("decode_step", dec_lins, DECODE_N, None),
+                                       ("encoder", enc_lins, ENCDEC_BATCH * ENCDEC_FRAMES,
+                                        packed_linears(model.encoder.layers[0]))):
+        timed[label] = row = forward_launch_ms(torch, lins, n, gen, plain_lins)
+        log(f"whisper: {label}'s {row['launches']} launches at N={n}: bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            + ", ".join(f"{nm} {row[nm]['ms']:.4f} ms (eager {row[nm]['eager_ms']:.4f}, plain "
+                        f"{row[nm]['plain_ms']:.4f} on {row['plain_launches']} launches)"
+                        for nm in kernels)
+            + f", bf16 matmul yardstick {row['library_ms']:.4f} ms")
+        timed_int[label] = row = int_forward_launch_ms(torch, lins, n, gen, plain_lins)
+        log(f"whisper: {label}'s {row['launches']} integer launches at N={n}: bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            + ", ".join(f"{nm} {row[nm]['ms']:.4f} ms (plain {row[nm]['plain_ms']:.4f} on "
+                        f"{row['plain_launches']} launches)" for nm in int_kernels())
+            + (f", torch._int_mm yardstick {row['library_ms']:.4f} ms"
+               if row["library_ms"] is not None else ""))
+    expected = {"decode_step": ENCDEC_LAUNCHES["decode"], "encoder": ENCDEC_LAUNCHES["encoder"]}
+    if any(t[k]["launches"] != n for t in (timed, timed_int) for k, n in expected.items()):
+        raise AssertionError(f"whisper: timed launches {timed}, {timed_int}")
+    return {"max_abs_err": err, "checks": n_s + n_l + n_int, "segments": segs,
+            "plans": plans, "forward_ms": timed, "int_forward_ms": timed_int}
+
+
+def encdec_inputs(torch, cfg, batch: int, frames: int, seed: int):
+    """Frames (batch, frames, d_model) bf16 from a seeded generator on the
+    card, and prompts (batch, ENCDEC_PROMPT) from a numpy seed."""
+    import numpy as np
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fr = torch.randn((batch, frames, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    tok = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, ENCDEC_PROMPT))
+    return fr, torch.from_numpy(tok.astype(np.int32)).cuda()
+
+
+def encdec_serve(torch, model, cfg, impl, frames, prompts, counters) -> dict:
+    """Phase 15 (b), one impl: greedy serving through `launch.steps` (one
+    prefill step, ENCDEC_NEW - 1 decode steps), warmed up first; the counts
+    zeroed just before the prefill step, read after it and at the end:
+    exactly ENCDEC_LAUNCHES of the impl's kernel a forward, no other
+    mpGeMM or flash launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache
+
+    pre, dec = make_prefill_step(cfg), make_decode_step(cfg)
+    b, s_enc = frames.shape[:2]
+    batch = {"tokens": prompts, "frames": frames}
+    name = single_kernel(impl)
+    with ops.dispatch_override(impl=impl, fusion="fused"):
+        nt, cache = pre(model, init_cache(cfg, b, ENCDEC_MAX_LEN, enc_len=s_enc, device="cuda"),
+                        batch)
+        dec(model, cache, nt[:, None])
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        nt, cache = pre(model, init_cache(cfg, b, ENCDEC_MAX_LEN, enc_len=s_enc, device="cuda"),
+                        batch)
+        toks = [nt]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after_prefill = {nm: fn.launches for nm, fn in counters.items()}
+        for _ in range(ENCDEC_NEW - 1):
+            nt, cache = dec(model, cache, nt[:, None])
+            toks.append(nt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = {nm: fn.launches for nm, fn in counters.items()}
+    steps = ENCDEC_NEW - 1
+    want_pre = ENCDEC_LAUNCHES["encoder"] + ENCDEC_LAUNCHES["prefill"]
+    want = {nm: (want_pre + steps * ENCDEC_LAUNCHES["decode"] if nm == name else 0)
+            for nm in counters}
+    if after_prefill[name] != want_pre or launches != want:
+        raise AssertionError(f"whisper {impl}: launches after the prefill step "
+                             f"{after_prefill[name]} (expected {want_pre}), at the end "
+                             f"{launches} (expected {want})")
+    tokens = torch.stack(toks, 1).cpu()
+    if tokens.shape != (b, ENCDEC_NEW) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"whisper {impl}: bad tokens {tokens.shape}")
+    return {"tokens": tokens.tolist(), "launches": launches,
+            "launches_after_prefill": after_prefill[name],
+            "prefill_step_ms": (t1 - t0) * 1e3, "decode_s": t2 - t1,
+            "decode_tok_s": b * steps / (t2 - t1), "decode_step_ms": (t2 - t1) * 1e3 / steps}
+
+
+def encdec_prefill_logits(torch, model, cfg, frames, prompts):
+    """encode + the decoder's prefill: last-position f32 logits (B, V)."""
+    from repro_torch.models import encode, init_cache, prefill
+
+    with torch.no_grad():
+        enc = encode(model, frames, cfg, mode="serve")
+        cache = init_cache(cfg, frames.shape[0], ENCDEC_MAX_LEN, enc_len=frames.shape[1],
+                           device=frames.device)
+        logits, _ = prefill(model.decoder, prompts, cache, cfg, enc_out=enc)
+    return logits.float()
+
+
+def encdec_card_vs_cpu(torch, model, cfg) -> dict:
+    """Phase 15 (b): one request of ENCDEC_CPU_FRAMES frames and the
+    prompt, encode + prefill logits on the card against the same weights
+    on the CPU (plain path). Bound: LOGIT_RTOL of the largest logit, or
+    the model's own bf16-vs-f32 distance on the card (an f32 copy of the
+    same packed weights) where that is larger, the rule of phases 12-13:
+    at 48 layers of random weights a bf16 rounding moves int8 activation
+    codes, and the card and the CPU round in other sum orders."""
+    frames, prompts = encdec_inputs(torch, cfg, 1, ENCDEC_CPU_FRAMES, seed=151)
+    card = encdec_prefill_logits(torch, model, cfg, frames, prompts)
+    f32_model = copy.deepcopy(model).float()
+    card32 = encdec_prefill_logits(torch, f32_model, cfg.with_(dtype="float32"), frames, prompts)
+    del f32_model
+    t0 = time.perf_counter()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu = encdec_prefill_logits(torch, cpu_model, cfg, frames.cpu(), prompts.cpu())
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    torch.cuda.empty_cache()
+    card = card.cpu()
+    if card.shape != (1, cfg.vocab) or not torch.isfinite(card).all():
+        raise AssertionError(f"whisper: bad logits, shape {tuple(card.shape)}")
+    scale = cpu.abs().max().item()
+    out = {"max_abs_diff": (card - cpu).abs().max().item(), "max_abs_logit": scale,
+           "bf16_vs_f32_max_abs_diff": (card - card32.cpu()).abs().max().item(),
+           "argmax": [int(card.argmax()), int(cpu.argmax())], "cpu_seconds": cpu_s}
+    out["bound"] = max(LOGIT_RTOL * scale, out["bf16_vs_f32_max_abs_diff"])
+    log(f"whisper: card vs cpu encode + prefill logits (1 x {ENCDEC_CPU_FRAMES} frames, "
+        f"{ENCDEC_PROMPT} tokens): max |diff| {out['max_abs_diff']:.5f} of max |logit| "
+        f"{scale:.4f} (bound {out['bound']:.5f}: the larger of {LOGIT_RTOL} of it and the "
+        f"model's bf16-vs-f32 distance {out['bf16_vs_f32_max_abs_diff']:.5f}), argmax "
+        f"{out['argmax']}, cpu {cpu_s:.1f} s")
+    if not out["max_abs_diff"] <= out["bound"]:
+        raise AssertionError(f"whisper: card and cpu logits differ: {out}")
+    return out
+
+
+def encdec_cache_check(torch, model, cfg, frames, prompts) -> dict:
+    """Phase 15 (b): one request (its 1500 frames), a prefill step and
+    ENCDEC_CACHE_STEPS greedy decode steps reading the cached cross K/V;
+    the last step's logits against `encode` + `lm_hidden` of the whole
+    sequence with no cache (ENCDEC_CACHE_RTOL of the largest logit)."""
+    from repro_torch.models import decode_step, encode, init_cache, lm_hidden, lm_logits, prefill
+
+    with torch.no_grad():
+        enc = encode(model, frames, cfg, mode="serve")
+        cache = init_cache(cfg, 1, ENCDEC_MAX_LEN, enc_len=frames.shape[1], device="cuda")
+        row, cache = prefill(model.decoder, prompts, cache, cfg, enc_out=enc)
+        seq = prompts[0].tolist()
+        for _ in range(ENCDEC_CACHE_STEPS):
+            seq.append(int(row[0].argmax()))
+            row, cache = decode_step(model.decoder, torch.tensor([[seq[-1]]], dtype=torch.int32,
+                                                                 device="cuda"), cache, cfg)
+        h, _, _ = lm_hidden(model.decoder, torch.tensor([seq], dtype=torch.int32, device="cuda"),
+                            cfg, mode="serve", enc_out=enc)
+        want = lm_logits(model.decoder, h[:, -1:], cfg)[:, 0].float()
+    got = row.float()
+    out = {"tokens": len(seq), "max_abs_diff": (got - want).abs().max().item(),
+           "max_abs_logit": want.abs().max().item(), "rtol": ENCDEC_CACHE_RTOL,
+           "argmax": [int(got.argmax()), int(want.argmax())]}
+    log(f"whisper: after a prefill of {len(prompts[0])} tokens and {ENCDEC_CACHE_STEPS} decode "
+        f"steps on the cached cross K/V ({frames.shape[1]} frames), decode logits vs a "
+        f"cache-free encode + forward: max |diff| {out['max_abs_diff']:.5f} of max |logit| "
+        f"{out['max_abs_logit']:.4f} (bound {ENCDEC_CACHE_RTOL} of it), argmax {out['argmax']}")
+    if out["max_abs_diff"] > ENCDEC_CACHE_RTOL * out["max_abs_logit"]:
+        raise AssertionError(f"whisper: cached decode leaves the cache-free forward: {out}")
+    return out
+
+
+def encdec_serving(torch, model, cfg, counters) -> dict:
+    """Phase 15 (b): serving with both impls (identical tokens), the
+    encoder's and the decoder prefill's device time apart, the card against
+    the CPU, the cross-attention cache, one decode step profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import encode, init_cache, prefill
+
+    frames, prompts = encdec_inputs(torch, cfg, ENCDEC_BATCH, ENCDEC_FRAMES, seed=15)
+    runs = {impl: encdec_serve(torch, model, cfg, impl, frames, prompts, counters)
+            for impl in IMPLS}
+    for impl, r in runs.items():
+        log(f"whisper {impl}: B {ENCDEC_BATCH} x {ENCDEC_FRAMES} frames, prompts of "
+            f"{ENCDEC_PROMPT}, {ENCDEC_NEW} greedy tokens: prefill step {r['prefill_step_ms']:.1f} "
+            f"ms, decode {r['decode_tok_s']:.1f} tok/s ({r['decode_step_ms']:.2f} ms a step), "
+            f"launches {r['launches_after_prefill']} after the prefill step, "
+            f"{r['launches'][single_kernel(impl)]} in all")
+    if runs["decode"]["tokens"] != runs["lookup"]["tokens"]:
+        raise AssertionError("whisper: impl=decode and impl=lookup emitted different greedy tokens")
+    out = {"serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in runs.items()}}
+
+    # the prefill step's two halves apart, each eager between events
+    parts = {}
+    with torch.no_grad(), ops.dispatch_override(impl="decode"):
+        enc = encode(model, frames, cfg, mode="serve")
+        parts["encoder_ms"] = eager_ms(torch, lambda: encode(model, frames, cfg, mode="serve"),
+                                       reps=1)
+        parts["decoder_prefill_ms"] = eager_ms(torch, lambda: prefill(
+            model.decoder, prompts, init_cache(cfg, ENCDEC_BATCH, ENCDEC_MAX_LEN,
+                                               enc_len=ENCDEC_FRAMES, device="cuda"),
+            cfg, enc_out=enc), reps=1)
+    out["prefill_parts"] = parts
+    log(f"whisper: prefill halves (impl decode, eager): encoder {parts['encoder_ms']:.1f} ms, "
+        f"decoder prefill (its cross K/V included) {parts['decoder_prefill_ms']:.1f} ms")
+
+    out["card_vs_cpu"] = encdec_card_vs_cpu(torch, model, cfg)
+    out["cache"] = encdec_cache_check(torch, model, cfg, frames[:1], prompts[:1])
+
+    # one decode step of the 4 requests under the profiler
+    pre, dec = make_prefill_step(cfg), make_decode_step(cfg)
+    with ops.dispatch_override(impl="decode"):
+        nt, cache = pre(model, init_cache(cfg, ENCDEC_BATCH, ENCDEC_MAX_LEN,
+                                          enc_len=ENCDEC_FRAMES, device="cuda"),
+                        {"tokens": prompts, "frames": frames})
+        nt, cache = dec(model, cache, nt[:, None])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            dec(model, cache, nt[:, None])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_time_by_kernel(prof, 1)
+    dev_ms = sum(ms for ms, _ in by_name)
+    out["decode_profile"] = {"wall_ms": wall_ms, "device_ms": dev_ms,
+                             "device_busy_share": dev_ms / wall_ms if dev_ms else None,
+                             "top_kernels_ms": [[nm[:90], ms] for ms, nm in by_name[:8]]}
+    log(f"whisper: decode step ({ENCDEC_BATCH} requests) wall {wall_ms:.3f} ms, device busy "
+        f"{dev_ms:.3f} ms"
+        + (f" ({100 * dev_ms / wall_ms:.1f}%)" if dev_ms else
+           " (the profiler saw no device time: not measured)"))
+    for nm, ms in out["decode_profile"]["top_kernels_ms"]:
+        log(f"whisper:   {ms:8.4f} ms  {nm}")
+    return out
+
+
+def encdec_flash(torch) -> dict:
+    """Phase 15 (c), before training: the flash kernel at whisper's
+    training shapes (ENCDEC_FLASH: the encoder's non-causal S 112, the
+    decoder's causal S 448; bf16, H 16 of D 64) against its plain version
+    (FLASH_TOL), its gradients through `flash_attention_trainable` against
+    autograd through the plain version (FLASH_GRAD_TOL), and its device
+    time beside the bound, the plain version and `scaled_dot_product_attention`
+    (a yardstick only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(152)
+    rows = []
+    for b, s, h, kv, d, causal in ENCDEC_FLASH:
+        q, k, v = flash_inputs(torch, b, s, h, kv, d, torch.bfloat16, gen)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        err = (got.float() - want.float()).abs().max().item()
+        bound = FLASH_TOL["bfloat16"] * max(1.0, want.float().abs().max().item())
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        g_kern = torch.autograd.grad(fa.flash_attention_trainable(qg, kg, vg, causal, 0, 0.0),
+                                     (qg, kg, vg), dout)
+        g_plain = torch.autograd.grad(fa.flash_attention_plain(qg, kg, vg, causal=causal),
+                                      (qg, kg, vg), dout)
+        grad_err = max((a.float() - c.float()).abs().max().item() for a, c in zip(g_kern, g_plain))
+        grad_bound = FLASH_GRAD_TOL["bfloat16"] * max(
+            1.0, max(c.float().abs().max().item() for c in g_plain))
+        if not (err <= bound and grad_err <= grad_bound):
+            raise AssertionError(f"whisper flash B{b} S{s} causal={causal}: |diff| {err} (bound "
+                                 f"{bound}), gradients {grad_err} (bound {grad_bound})")
+        pairs = s * (s + 1) // 2 if causal else s * s
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        flops = 4 * b * h * d * pairs
+        t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        row = {"shape": dict(B=b, S=s, H=h, KV=kv, D=d, causal=causal, dtype="bfloat16"),
+               "max_abs_err": err, "grad_max_abs_err": grad_err, "bytes": nbytes, "flops": flops,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "plan": repr(fa.plan_for(q, k, v, torch.empty_like(q), causal=causal, window=0)),
+               "ms": device_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal), reps=20),
+               "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
+                                                                             causal=causal)),
+               "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qc, kc, vc, is_causal=causal), reps=20)}
+        rows.append(row)
+        log(f"whisper flash: B{b} S{s} H{h}/KV{kv} D{d} causal={causal} bf16: |diff| {err:.3g}, "
+            f"gradients |diff| {grad_err:.3g}; kernel {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, sdpa "
+            f"yardstick {row['library_ms']:.4f} ms; plan {row['plan']}")
+    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def encdec_cpu_loss(torch, model, cfg, batch, frames) -> dict:
+    """The loss of one sequence (row 0: its first ENCDEC_CPU_SEQ tokens and
+    ENCDEC_CPU_SEQ / 4 frames) on the card against the same weights on the
+    CPU (plain path), no gradients (TRAIN_LOSS_RTOL)."""
+    from repro_torch.models import encdec_loss
+
+    n_frames = ENCDEC_CPU_SEQ // cfg.enc_frame_ratio
+    tok, lab = batch["tokens"][:1, :ENCDEC_CPU_SEQ], batch["labels"][:1, :ENCDEC_CPU_SEQ]
+    fr = frames[:1, :n_frames]
+    with torch.no_grad():
+        card = encdec_loss(model, fr.cuda(), tok.cuda(), lab.cuda(), cfg)[0].item()
+        t0 = time.perf_counter()
+        cpu_model = copy.deepcopy(model).to("cpu")
+        cpu = encdec_loss(cpu_model, fr.cpu(), tok.cpu(), lab.cpu(), cfg)[0].item()
+        cpu_s = time.perf_counter() - t0
+    del cpu_model
+    if not (math.isfinite(card) and abs(card - cpu) <= TRAIN_LOSS_RTOL * abs(cpu)):
+        raise AssertionError(f"whisper: card loss {card} and cpu loss {cpu} differ by more than "
+                             f"{TRAIN_LOSS_RTOL} relative")
+    return {"card": card, "cpu": cpu, "cpu_seconds": cpu_s}
+
+
+def encdec_train(torch, counters) -> dict:
+    """Phase 15 (c): ENCDEC_TRAIN_STEPS QAT steps of whisper-medium at full
+    width and depth through `train.Trainer` (attn_impl="flash", remat, B 8
+    x S 448 with the stub frontend's 112 frames, lr 3e-4, warmup 5): every
+    loss finite, the last below the first; flash launched (24 + 24) x 2
+    times a step (remat runs each layer's forward again) and no mpGeMM
+    kernel; the checkpoint resumes a second Trainer with equal weights; the
+    card against the CPU on one sequence; one step's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.trainer import _stub_frames
+
+    cfg = get_config(ENCDEC_ARCH).with_(attn_impl="flash")
+    ckpt_dir = ROOT / "build" / "chip_smoke_encdec_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    b, s, steps = ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS
+    tc = TrainConfig(total_steps=steps, checkpoint_every=steps // 2, log_every=1,
+                     checkpoint_dir=str(ckpt_dir), keep_checkpoints=1, seed=0)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=steps)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
+    tr = Trainer(cfg, opt, tc, dc, device="cuda")
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    frames = _stub_frames(cfg, b, s, tc.seed)
+    log(f"whisper train: {cfg.dtype} attn_impl={cfg.attn_impl} remat={cfg.remat}, "
+        f"{cfg.enc_layers} + {cfg.n_layers} layers, {n_params / 1e6:.1f}M parameters, B {b} x S "
+        f"{s} ({tuple(frames.shape)} frames), lr {TRAIN_LR}, {steps} steps")
+    batch0 = {k: torch.from_numpy(x) for k, x in SyntheticLM(dc).batch_at(0).items()}
+    before = encdec_cpu_loss(torch, tr.model, cfg, batch0, frames)
+    log(f"whisper train: card vs cpu loss (1 x {ENCDEC_CPU_SEQ} tokens): {before['card']:.5f} "
+        f"vs {before['cpu']:.5f} (cpu {before['cpu_seconds']:.1f} s)")
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = tr.run()
+    wall = time.perf_counter() - t0
+    launches = {nm: fn.launches for nm, fn in counters.items()}
+    per_step = 2 * (cfg.enc_layers + cfg.n_layers)
+    want = {nm: (per_step * steps if nm == "flash_attention" else 0) for nm in counters}
+    losses = [r["loss"] for r in rows]
+    step_s = [r["step_time_s"] for r in rows]
+    if launches != want:
+        raise AssertionError(f"whisper train: launches {launches}, expected {want}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"whisper train: losses not all finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"whisper train: last loss {losses[-1]} is not below the first "
+                             f"{losses[0]}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    res = {"losses": losses, "step_time_s": step_s, "step_ms_median": steady * 1e3,
+           "tokens_per_s": b * s / steady, "wall_s": wall, "launches": launches,
+           "flash_launches_per_step": per_step,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "n_params": n_params,
+           "card_vs_cpu_loss": before}
+    log(f"whisper train: {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{res['step_ms_median']:.1f} ms (median of steps 2-{steps}; step 1 "
+        f"{step_s[0] * 1e3:.1f} ms), {res['tokens_per_s']:.0f} decoder tok/s, flash launches "
+        f"{launches['flash_attention']} ({per_step} a step), peak {res['peak_mem_gb']:.1f} GB, "
+        f"wall {wall:.1f} s (checkpoints included)")
+
+    tr2 = Trainer(cfg, opt, tc, dc, device="cuda")
+    same = all(torch.equal(p, q) for p, q in zip(tr.model.parameters(), tr2.model.parameters()))
+    if tr2.step != steps or tr2.data.step != steps or not same:
+        raise AssertionError(f"whisper train: resumed at step {tr2.step} (data {tr2.data.step}), "
+                             f"weights equal: {same}")
+    res["resumed_step"] = tr2.step
+    log(f"whisper train: a second Trainer resumed at step {tr2.step} with equal weights")
+    del tr2
+
+    batch = {k: torch.from_numpy(x).cuda() for k, x in SyntheticLM(dc).batch_at(steps).items()}
+    batch["frames"] = frames.cuda()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr._step(tr.state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_time_by_kernel(prof, 1)
+    dev_ms = sum(ms for ms, _ in by_name)
+    res["profile"] = {"wall_ms": wall_ms, "device_ms": dev_ms,
+                      "device_busy_share": dev_ms / wall_ms if dev_ms else None,
+                      "top_kernels_ms": [[nm[:90], ms] for ms, nm in by_name[:8]]}
+    log(f"whisper train: one step under the profiler: wall {wall_ms:.1f} ms, device busy "
+        f"{dev_ms:.1f} ms"
+        + (f" ({100 * dev_ms / wall_ms:.1f}%)" if dev_ms else
+           " (the profiler saw no device time: not measured)"))
+    for nm, ms in res["profile"]["top_kernels_ms"]:
+        log(f"whisper train:   {ms:8.3f} ms  {nm}")
+    del tr
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_encdec(torch, counters) -> dict:
+    """Phase 15: whisper-medium at its published widths and depth (24
+    encoder + 24 decoder layers, d 1024, 16 heads of 64, d_ff 4096, vocab
+    51865, bf16, tied head): (a) `encdec_kernels`; (b) `encdec_serving`;
+    (c) `encdec_flash`, then `encdec_train`."""
+    t0 = time.perf_counter()
+    cfg, model, out = encdec_model(torch)
+    out["kernels"] = encdec_kernels(torch, model, cfg)
+    out.update(encdec_serving(torch, model, cfg, counters))
+    del model
+    torch.cuda.empty_cache()
+    out["flash"] = encdec_flash(torch)
+    out["train"] = encdec_train(torch, counters)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"whisper: phase 15 took {out['seconds']:.1f} s")
     return out
 
 
@@ -3880,6 +4509,10 @@ def main() -> int:
     ssm = check_ssm(torch, counters)
     windowed = check_windowed(torch, counters)
 
+    # 15. the encoder-decoder: whisper-medium at full width and depth, its
+    # serving steps and its QAT training (its model freed before phase 6)
+    encdec = check_encdec(torch, counters)
+
     # 6. flash
     flash = check_flash(torch)
 
@@ -3895,7 +4528,7 @@ def main() -> int:
             launches, err = unfused["serve"][meta["impl"]]["launches"], unfused["max_abs_err"]
             library_ms = row["library"]["ms"]
         err = max(err[name], ssm["kernels"]["max_abs_err"][name],
-                  windowed["kernels"]["max_abs_err"][name])
+                  windowed["kernels"]["max_abs_err"][name], encdec["kernels"]["max_abs_err"][name])
         return {"name": name, "route": "cuda", "source": meta["source"],
                 "replaces": meta["replaces"], "launches": launches[name],
                 "max_abs_err": float(err), "ms": row[name]["ms"],
@@ -3931,7 +4564,8 @@ def main() -> int:
         grouped_int_row(name, meta) for name, meta in GROUPED_INT_META.items()
     ] + [
         {"name": "flash_attention", "route": "cuda", **FLASH_META,
-         "launches": trained["launches"]["flash_attention"], "max_abs_err": flash["max_abs_err"],
+         "launches": trained["launches"]["flash_attention"],
+         "max_abs_err": max(flash["max_abs_err"], encdec["flash"]["max_abs_err"]),
          "ms": frow["ms"], "plain_ms": frow["plain_ms"], "bound_ms": frow["bound_ms"],
          "bound_by": frow["bound_by"], "library_ms": frow["library_ms"]},
     ]}
@@ -3954,7 +4588,7 @@ def main() -> int:
         "multi_token": multi,
         "paged": paged,
         "obs": observed,
-        "moe": moe, "mla": mla, "ssm": ssm, "windowed": windowed,
+        "moe": moe, "mla": mla, "ssm": ssm, "windowed": windowed, "encdec": encdec,
         "flash": flash, "train": trained,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

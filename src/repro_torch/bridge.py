@@ -1,16 +1,19 @@
 """Carry parameters between a JAX parameter pytree (as numpy arrays) and
 the port's modules, both ways.
 
-The input is the pytree of `repro.models.init_lm` (optionally packed by
-`repro.models.pack_params`) with every leaf converted to numpy by the
+The input is the pytree of `repro.models.init_lm` or of
+`repro.models.encdec_init` (``{"encoder": {"stages", "final_norm"},
+"decoder": <init_lm tree>}``), optionally packed by
+`repro.models.pack_params`, with every leaf converted to numpy by the
 caller, e.g. ``jax.tree.map(np.asarray, params)``; this module imports
 neither JAX nor the JAX package. Packed weights are recognised by their
 ``packed5``/``packed4``/``scale``/``K`` attributes and carried byte for byte.
 The JAX layout stacks each stage's repeated layers on a leading axis
 (``params["stages"][si]["b{pos}"]``); they are unstacked here, in the
-order the stage scan applies them, into one module per layer; `lm_to_jax`
-and `to_jax_tree` stack them back (the tests compare parameters and
-gradients after training steps that way).
+order the stage scan applies them, into one module per layer; `lm_to_jax`,
+`encdec_to_jax` and `to_jax_tree` stack them back (the tests compare
+parameters and gradients after training steps that way), packed weights
+as `PackedWeight`s of numpy arrays.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.blocks import Block
 from repro_torch.models.common import Embedding, Linear, PackedLinear, QLinear, RMSNorm
 from repro_torch.models.decoder import LM, compress_layout
+from repro_torch.models.encdec import EncDec, Encoder, encoder_specs
 from repro_torch.models.mla import MLA
 from repro_torch.models.moe import DenseFFN, MoEFFN
 from repro_torch.models.ssm import SSM
@@ -93,7 +97,11 @@ def _mixer(mx, r, device):
 def _block(node, r, device) -> Block:
     ffn = (() if "ffn" not in node
            else (_norm(node["ffn_norm"], r, device), _ffn(node["ffn"], r, device)))
-    return Block(_norm(node["mixer_norm"], r, device), _mixer(node["mixer"], r, device), *ffn)
+    cross = ({} if "cross" not in node
+             else {"cross_norm": _norm(node["cross_norm"], r, device),
+                   "cross": _mixer(node["cross"], r, device)})
+    return Block(_norm(node["mixer_norm"], r, device), _mixer(node["mixer"], r, device), *ffn,
+                 **cross)
 
 
 def _reps(stage_node) -> int:
@@ -101,14 +109,20 @@ def _reps(stage_node) -> int:
     return int(np.asarray(leaf).shape[0])
 
 
-def lm_from_jax(params: dict, cfg, *, device="cuda") -> LM:
-    """Build the port's `LM` from a numpy-leaved JAX `init_lm` pytree."""
-    device = resolve_device(device)
+def _stage_layers(stages: list, device) -> list[Block]:
+    """One module per layer of the stacked stages, in the scan's order."""
     layers = []
-    for stage in params["stages"]:
+    for stage in stages:
         pattern = sorted(stage, key=lambda k: int(k[1:]))           # b0, b1, ...
         for r in range(_reps(stage[pattern[0]])):
             layers.extend(_block(stage[pos], r, device) for pos in pattern)
+    return layers
+
+
+def lm_from_jax(params: dict, cfg, *, device="cuda") -> LM:
+    """Build the port's `LM` from a numpy-leaved JAX `init_lm` pytree."""
+    device = resolve_device(device)
+    layers = _stage_layers(params["stages"], device)
     if len(layers) != cfg.n_layers:
         raise ValueError(f"pytree holds {len(layers)} layers, config {cfg.n_layers}")
     head = _linear(params["head"], None, device) if "head" in params else None
@@ -118,6 +132,19 @@ def lm_from_jax(params: dict, cfg, *, device="cuda") -> LM:
         RMSNorm(to_torch(params["final_norm"]["scale"], device)),
         head,
     )
+
+
+def encdec_from_jax(params: dict, cfg, *, device="cuda") -> EncDec:
+    """Build the port's `EncDec` from a numpy-leaved JAX `encdec_init`
+    pytree: the encoder's stages and final norm, and the decoder's
+    `init_lm` tree."""
+    device = resolve_device(device)
+    enc = params["encoder"]
+    layers = _stage_layers(enc["stages"], device)
+    if len(layers) != cfg.enc_layers:
+        raise ValueError(f"pytree holds {len(layers)} encoder layers, config {cfg.enc_layers}")
+    return EncDec(Encoder(layers, RMSNorm(to_torch(enc["final_norm"]["scale"], device))),
+                  lm_from_jax(params["decoder"], cfg, device=device))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -136,34 +163,75 @@ def _set(tree: dict, path: list[str], value) -> None:
     tree[path[-1]] = value
 
 
-def to_jax_tree(named: dict, cfg) -> dict:
+def _leaf(t):
+    if isinstance(t, PackedWeight):
+        return PackedWeight(to_numpy(t.packed5), to_numpy(t.packed4), to_numpy(t.scale), K=t.K)
+    return to_numpy(t)
+
+
+def _stack(leaves: list):
+    if isinstance(leaves[0], PackedWeight):
+        return PackedWeight(*(np.stack([getattr(x, f) for x in leaves])
+                              for f in ("packed5", "packed4", "scale")), K=leaves[0].K)
+    return np.stack(leaves)
+
+
+def to_jax_tree(named: dict, cfg, specs=None) -> dict:
     """A dict keyed like ``LM.named_parameters()`` (parameters, or their
-    gradients) → the numpy pytree of JAX's `init_lm`: each stage's
-    repeated layers stacked on a leading axis."""
+    gradients; a packed linear's "<path>.pw" a `PackedWeight`) → the numpy
+    pytree of JAX's `init_lm`: each stage's repeated layers (of `specs`,
+    the config's by default) stacked on a leading axis."""
+    specs = cfg.layer_specs() if specs is None else specs
     per_layer: dict[int, dict] = {}
     out: dict = {}
     for name, t in named.items():
         parts = name.split(".")
         if parts[0] == "layers":
-            per_layer.setdefault(int(parts[1]), {})[tuple(parts[2:])] = to_numpy(t)
+            per_layer.setdefault(int(parts[1]), {})[tuple(parts[2:])] = _leaf(t)
         else:
-            _set(out, parts, to_numpy(t))
+            _set(out, parts, _leaf(t))
     stages, layer = [], 0
-    for pattern, reps in compress_layout(cfg.layer_specs()):
+    for pattern, reps in compress_layout(specs):
         stage: dict = {}
         for pos in range(len(pattern)):
             idx = [layer + r * len(pattern) + pos for r in range(reps)]
             for key in per_layer[idx[0]]:
-                _set(stage, [f"b{pos}", *key], np.stack([per_layer[i][key] for i in idx]))
+                _set(stage, [f"b{pos}", *key], _stack([per_layer[i][key] for i in idx]))
         stages.append(stage)
         layer += reps * len(pattern)
-    if layer != cfg.n_layers or len(per_layer) != cfg.n_layers:
-        raise ValueError(f"{len(per_layer)} layers given, config {cfg.n_layers}")
+    if layer != len(specs) or len(per_layer) != len(specs):
+        raise ValueError(f"{len(per_layer)} layers given, config {len(specs)}")
     out["stages"] = stages
     return out
 
 
+def named_leaves(model: torch.nn.Module) -> dict:
+    """The model's parameters by name, and each packed linear's weight as
+    "<path>.pw": the leaves of its JAX pytree."""
+    out = dict(model.named_parameters())
+    for name, mod in model.named_modules():
+        if isinstance(mod, PackedLinear):
+            out[f"{name}.pw"] = mod.pw
+    return out
+
+
 def lm_to_jax(model: LM, cfg) -> dict:
-    """The inverse of `lm_from_jax` for unpacked models: the port's `LM` →
-    a numpy pytree in the JAX stacked-stage layout."""
-    return to_jax_tree(dict(model.named_parameters()), cfg)
+    """The inverse of `lm_from_jax`: the port's `LM`, packed or not → a
+    numpy pytree in the JAX stacked-stage layout."""
+    return to_jax_tree(named_leaves(model), cfg)
+
+
+def encdec_tree(named: dict, cfg) -> dict:
+    """A dict keyed like ``EncDec.named_parameters()`` (or `named_leaves`,
+    or gradients) → the numpy pytree of JAX's `encdec_init`."""
+    parts: dict = {"encoder": {}, "decoder": {}}
+    for name, t in named.items():
+        top, rest = name.split(".", 1)
+        parts[top][rest] = t
+    return {"encoder": to_jax_tree(parts["encoder"], cfg, encoder_specs(cfg)),
+            "decoder": to_jax_tree(parts["decoder"], cfg)}
+
+
+def encdec_to_jax(model: EncDec, cfg) -> dict:
+    """The inverse of `encdec_from_jax`, packed or not."""
+    return encdec_tree(named_leaves(model), cfg)

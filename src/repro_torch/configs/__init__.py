@@ -1,9 +1,10 @@
 """repro_torch.configs — the architectures the port serves (--arch <id>).
 
 Each module exposes CONFIG (the published dims) and SMOKE (a reduced
-same-family config for CPU tests), as in the JAX package. Only the
-architectures whose serving path has been ported are registered (every
-decoder-only one); asking for any other (the enc-dec whisper-medium) raises."""
+same-family config for CPU tests), as in the JAX package. Every
+architecture of the JAX package is registered: the nine decoder-only ones
+and the encoder-decoder whisper-medium (`models.encdec`, served through
+`launch.steps`). Asking for any other id raises."""
 from __future__ import annotations
 
 import importlib
@@ -20,15 +21,13 @@ _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "command-r-35b": "command_r_35b",
     "chameleon-34b": "chameleon_34b",
+    "whisper-medium": "whisper_medium",
 }
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
-        raise NotImplementedError(
-            f"arch {name!r} is not yet ported to repro_torch; ported: "
-            f"{sorted(_MODULES)}"
-        )
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f".{_MODULES[name]}", __package__)
     return mod.SMOKE if smoke else mod.CONFIG
 

@@ -28,6 +28,8 @@ their device time.
 ARCH is any decoder-only architecture of `repro_torch.configs`:
 smollm-360m, gemma3-1b, internlm2-1.8b, command-r-35b, chameleon-34b,
 llama4-scout-17b-a16e, deepseek-v3-671b, mamba2-1.3b, jamba-1.5-large-398b.
+The encoder-decoder whisper-medium is refused: the engine takes decoder-only
+models, and its serving steps are `repro_torch.launch.steps`.
 SSM layers (mamba2, jamba) and windowed layers (gemma3) serve whole prompts
 only: the engine refuses speculation, chunked prefill and paging on them.
 
@@ -110,8 +112,12 @@ def main(argv=None):
     if args.no_obs and (args.stats_interval or args.metrics_out or args.trace_out):
         ap.error("--no-obs conflicts with --stats-interval/--metrics-out/--trace-out")
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "encdec":
+        ap.error(f"--arch {args.arch} is an encoder-decoder: the continuous-batching engine "
+                 "serves decoder-only models; serve it with the greedy prefill and decode "
+                 "steps of repro_torch.launch.steps (make_prefill_step, make_decode_step)")
+    device = resolve_device(args.device)
     model = init_lm(cfg, torch.Generator(device=device).manual_seed(args.seed), packed=True)
     spec = None
     if args.spec_k:

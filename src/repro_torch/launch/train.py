@@ -1,9 +1,11 @@
 """Training launcher with bounded-restart supervision.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch ARCH \
       [--smoke] [--device cuda|cpu] --steps 200 --batch 8 --seq 128 \
       --ckpt-dir build/run1
 
+ARCH is any architecture of `repro_torch.configs`; an encoder-decoder
+(whisper-medium) trains on the JAX package's stub audio frames.
 Weights are random, drawn from a seeded `torch.Generator` on the device.
 The supervisor restarts the trainer from its last checkpoint on retryable
 failures; SIGTERM checkpoints and exits. A run whose checkpoint directory

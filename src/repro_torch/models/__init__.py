@@ -1,7 +1,7 @@
-"""repro_torch.models — the decoder of the serving and training paths,
+"""repro_torch.models — the models of the serving and training paths,
 ported from `repro.models` (attention, MLA and SSM mixers, dense and MoE FFNs,
 dense and paged KV caches, chunked CE loss, the multi-token verify step and
-its cache bookkeeping)."""
+its cache bookkeeping, and the encoder-decoder with its cross-attention)."""
 from .common import linear_apply, rmsnorm_apply, rope
 from .convert import pack_params
 from .decoder import (
@@ -23,6 +23,7 @@ from .decoder import (
     stacked_shapes,
     verify_step,
 )
+from .encdec import EncDec, encdec_init, encdec_loss, encode, encoder_specs, sinusoid_positions
 from .mla import MLA, mla_apply, mla_cache_init, mla_init
 from .paged import (
     POOL_KEYS,
@@ -47,4 +48,5 @@ __all__ = [
     "POOL_KEYS", "page_phys", "page_scatter", "page_view", "set_block_tables",
     "scrub_pages", "compact_paged_block", "gather_page", "restore_page",
     "SSM", "ssm_apply", "ssm_cache_init", "ssm_init",
+    "EncDec", "encdec_init", "encdec_loss", "encode", "encoder_specs", "sinusoid_positions",
 ]

@@ -11,6 +11,12 @@ the value dtype), not `F.scaled_dot_product_attention`.
 The no-cache (train/eval) forward runs `sdpa` or, with
 ``cfg.attn_impl == "flash"``, the flash-attention kernel on transposed views
 of the (B, S, H, D) tensors (the kernel reads strides: no copies).
+`causal=False` makes either bidirectional (the enc-dec encoder).
+
+The enc-dec decoder's cross-attention (`cross_attn_*`) attends the encoder
+output's keys and values with `sdpa`, every position 0 and no causal mask;
+a prefill computes them into the layer's cache (``xk``, ``xv``) and decode
+steps reuse them.
 
 A multi-token `verify` step (speculative verification, chunked prefill)
 appends S tokens at per-slot positions and attends the whole cache; with a
@@ -189,8 +195,10 @@ def _project_qkv(p: Attention, x, cfg, spec, mode, positions):
 
 
 def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
-               cache: dict | None = None, verify: bool = False, tree=None):
-    """Causal self-attention → (y, new_cache). cache=None: no-cache
+               cache: dict | None = None, causal: bool = True, verify: bool = False,
+               tree=None):
+    """Self-attention → (y, new_cache), causal unless `causal=False` (the
+    enc-dec encoder's bidirectional layers). cache=None: no-cache
     (train/eval) forward.
     Otherwise prefill (S>1: writes the cache from position cache["idx"] and
     attends within the incoming sequence) or decode (S==1: appends and
@@ -224,13 +232,13 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
         offsets = torch.arange(s, dtype=torch.int32, device=x.device)
     positions = start[:, None] + offsets[None, :]
     q, k, v = _project_qkv(p, x, cfg, spec, mode, positions)
-    attn = dict(causal=True, window=spec.window, softcap=cfg.attn_logit_softcap,
+    attn = dict(causal=causal, window=spec.window, softcap=cfg.attn_logit_softcap,
                 chunk=cfg.attn_chunk, dense_max=cfg.attn_dense_max)
 
     if cache is None:
         if cfg.attn_impl == "flash":
             out = flash_attention_trainable(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True,
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
                 spec.window, cfg.attn_logit_softcap,
             ).transpose(1, 2)
         else:
@@ -305,3 +313,38 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
             out = sdpa(q, k, v, positions, positions, **attn)
     b_, s_, h, hd = out.shape
     return linear_apply(p.wo, out.reshape(b_, s_, h * hd), mode), new_cache
+
+
+# --------------------------------------------------------------------------
+# Cross-attention (enc-dec decoder layers)
+# --------------------------------------------------------------------------
+def cross_attn_init(cfg, *, generator, device) -> Attention:
+    h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    kw = dict(generator=generator, device=device)
+    return Attention(
+        linear_init(d, h * hd, cfg, **kw), linear_init(d, kv * hd, cfg, **kw),
+        linear_init(d, kv * hd, cfg, **kw), linear_init(h * hd, d, cfg, **kw),
+    )
+
+
+def cross_attn_kv(p: Attention, enc_out: torch.Tensor, cfg, mode: str):
+    """The encoder output's keys and values, (B, S_enc, KV, D) each: a
+    prefill computes them once into the cache, decode steps reuse them."""
+    b, se, _ = enc_out.shape
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    k = linear_apply(p.wk, enc_out, mode).reshape(b, se, kv, hd)
+    v = linear_apply(p.wv, enc_out, mode).reshape(b, se, kv, hd)
+    return k, v
+
+
+def cross_attn_apply(p: Attention, x: torch.Tensor, k, v, cfg, mode: str) -> torch.Tensor:
+    """Every query attends every encoder position: all positions 0 and
+    causal=False, so the mask is all true."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = linear_apply(p.wq, x, mode).reshape(b, s, h, hd)
+    q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    kv_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
+    out = sdpa(q, k, v, q_pos, kv_pos, causal=False, window=0,
+               chunk=cfg.attn_chunk, dense_max=cfg.attn_dense_max)
+    return linear_apply(p.wo, out.reshape(b, s, h * hd), mode)

@@ -78,30 +78,45 @@ def compress_layout(specs, max_period: int = 8) -> list[tuple[tuple, int]]:
     return stages
 
 
-def stacked_shapes(model: LM, cfg) -> dict[str, tuple]:
+def _stage_reps(specs) -> dict[int, int]:
+    """{layer index: the repeat count of its stage}."""
+    reps, layer = {}, 0
+    for pattern, r in compress_layout(specs):
+        for i in range(r * len(pattern)):
+            reps[layer + i] = r
+        layer += r * len(pattern)
+    return reps
+
+
+def stacked_shapes(model: nn.Module, cfg) -> dict[str, tuple]:
     """Each parameter's shape in the JAX package's stacked-stage layout: a
     per-layer parameter gains its stage's repeat count as a leading axis.
     The optimizer's and the gradient compression's per-leaf rules (weight
     decay on ndim >= 2, int8 state for >= 4096 elements) read these, so
     they pick the same leaves as in JAX (a 32-layer stage's norm scales
-    are one (32, d) leaf there)."""
-    reps, layer = {}, 0
-    for pattern, r in compress_layout(cfg.layer_specs()):
-        for i in range(r * len(pattern)):
-            reps[layer + i] = r
-        layer += r * len(pattern)
+    are one (32, d) leaf there). `model` is an `LM`, or an `EncDec` whose
+    names start with "encoder." (the encoder's stages) or "decoder."."""
+    stacks = {"": _stage_reps(cfg.layer_specs())}
+    if cfg.family == "encdec":
+        from .encdec import encoder_specs
+
+        stacks = {"encoder.": _stage_reps(encoder_specs(cfg)), "decoder.": stacks[""]}
     out = {}
     for name, p in model.named_parameters():
-        parts = name.split(".")
-        out[name] = (reps[int(parts[1])], *p.shape) if parts[0] == "layers" else tuple(p.shape)
+        prefix = next(pre for pre in stacks if name.startswith(pre))
+        parts = name[len(prefix):].split(".")
+        out[name] = ((stacks[prefix][int(parts[1])], *p.shape) if parts[0] == "layers"
+                     else tuple(p.shape))
     return out
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, enc_len: int = 0, *,
                device="cuda", page_size: int = 0, n_pages: int = 0) -> list[dict]:
     """One cache dict per layer. The default dtype is bf16 whatever the
     model's dtype, as in the JAX package (decode attention then runs in
-    bf16, and the `wo` BitLinear sees bf16 activations).
+    bf16, and the `wo` BitLinear sees bf16 activations). An enc-dec
+    decoder's layers also hold the cross keys and values of `enc_len`
+    encoder positions (`blocks.block_cache_init`).
 
     page_size > 0 builds the paged layout (models.paged): per-layer
     physical page pools of ``n_pages`` pages (page 0 reserved null, plus
@@ -120,7 +135,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                 f"n_pages ({n_pages}) must be >= 2: page 0 is the reserved "
                 "null page, so at least one allocatable page is needed")
     device = resolve_device(device)
-    cache = [block_cache_init(cfg, spec, batch, max_len, dtype, device,
+    cache = [block_cache_init(cfg, spec, batch, max_len, dtype, device, enc_len,
                               page_size=page_size, n_pages=n_pages)
              for spec in cfg.layer_specs()]
     if page_size:
@@ -138,19 +153,48 @@ def _remat(cfg, cache) -> bool:
     return True
 
 
-def _block_out(layer, x, *, cfg, spec, mode):
-    x, _, aux = block_apply(layer, x, cfg=cfg, spec=spec, mode=mode)
+def _block_out(layer, x, enc_out, *, cfg, spec, mode, causal):
+    x, _, aux = block_apply(layer, x, cfg=cfg, spec=spec, mode=mode, enc_out=enc_out,
+                            causal=causal)
     return x, aux
 
 
+def layers_apply(layers, specs, x: torch.Tensor, *, cfg, mode: str, cache: list | None = None,
+                 enc_out: torch.Tensor | None = None, causal: bool = True, verify: bool = False,
+                 tree=None, prefill_resume: bool = False):
+    """Run `x` through a stack of blocks, the JAX stage scans' order. With
+    ``cfg.remat`` a no-cache forward under autograd recomputes each layer
+    in backward; `enc_out` enters each checkpointed layer as an input, so
+    its gradient reaches the encoder. → (x, new_cache, summed aux)."""
+    remat = _remat(cfg, cache)
+    new_cache = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (layer, spec) in enumerate(zip(layers, specs)):
+        if remat:
+            fn = functools.partial(_block_out, layer, cfg=cfg, spec=spec, mode=mode,
+                                   causal=causal)
+            (x, a), nc = checkpoint(fn, x, enc_out, use_reentrant=False), None
+        else:
+            x, nc, a = block_apply(layer, x, cfg=cfg, spec=spec, mode=mode,
+                                   cache=cache[i] if cache is not None else None,
+                                   enc_out=enc_out, causal=causal, verify=verify, tree=tree,
+                                   prefill_resume=prefill_resume)
+        aux = aux + a
+        new_cache.append(nc)
+    return x, (new_cache if cache is not None else None), aux
+
+
 def lm_hidden(model: LM, tokens: torch.Tensor, cfg, *, mode: str = "train",
-              cache: list | None = None, verify: bool = False, tree=None,
+              cache: list | None = None, enc_out: torch.Tensor | None = None,
+              causal: bool = True, verify: bool = False, tree=None,
               prefill_resume: bool = False):
     """tokens: int (B, S) → (hidden (B, S, d), new_cache, aux_loss): aux is
     the layers' summed MoE router loss (f32, 0 without MoE layers or
-    outside training). verify=True: the S tokens are a multi-token decode
-    step appended to the cache (see `verify_step`); tree marks them as a
-    flattened draft tree (verify only)."""
+    outside training). enc_out (B, S_enc, d): the encoder output an enc-dec
+    decoder's cross-attention reads (a prefill stores its K/V in the cache;
+    decode steps pass None). verify=True: the S tokens are a multi-token
+    decode step appended to the cache (see `verify_step`); tree marks them
+    as a flattened draft tree (verify only)."""
     if tree is not None and not verify:
         raise ValueError("tree attention is only defined for verify steps")
     if prefill_resume and (tree is not None or not verify):
@@ -158,21 +202,11 @@ def lm_hidden(model: LM, tokens: torch.Tensor, cfg, *, mode: str = "train",
             "prefill_resume is the chunked-prefill verify read path; it is "
             "undefined for trees or non-verify forwards")
     x = embed_apply(model.embed, tokens, cfg)
-    remat = _remat(cfg, cache)
-    new_cache = []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (layer, spec) in enumerate(zip(model.layers, cfg.layer_specs())):
-        if remat:
-            fn = functools.partial(_block_out, layer, cfg=cfg, spec=spec, mode=mode)
-            (x, a), nc = checkpoint(fn, x, use_reentrant=False), None
-        else:
-            x, nc, a = block_apply(layer, x, cfg=cfg, spec=spec, mode=mode,
-                                   cache=cache[i] if cache is not None else None,
-                                   verify=verify, tree=tree, prefill_resume=prefill_resume)
-        aux = aux + a
-        new_cache.append(nc)
+    x, new_cache, aux = layers_apply(model.layers, cfg.layer_specs(), x, cfg=cfg, mode=mode,
+                                     cache=cache, enc_out=enc_out, causal=causal, verify=verify,
+                                     tree=tree, prefill_resume=prefill_resume)
     x = rmsnorm_apply(model.final_norm, x, cfg.norm_eps)
-    return x, (new_cache if cache is not None else None), aux
+    return x, new_cache, aux
 
 
 def _head_matmul(model: LM, h: torch.Tensor, cfg) -> torch.Tensor:
@@ -196,10 +230,12 @@ def _ce_chunk(model: LM, hc, yc, mc, cfg):
 
 
 def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor, cfg, *,
-            mode: str = "train", loss_mask: torch.Tensor | None = None):
-    """Chunked softmax cross-entropy plus the MoE router loss.
+            mode: str = "train", enc_out: torch.Tensor | None = None,
+            loss_mask: torch.Tensor | None = None):
+    """Chunked softmax cross-entropy plus the MoE router loss; enc_out is
+    the encoder output an enc-dec decoder attends.
     → (loss, {"ce", "aux", "tokens"})."""
-    h, _, aux = lm_hidden(model, tokens, cfg, mode=mode)
+    h, _, aux = lm_hidden(model, tokens, cfg, mode=mode, enc_out=enc_out)
     b, s, _ = h.shape
     chunk = min(cfg.loss_chunk, s)
     pad = (-s) % chunk
@@ -221,10 +257,13 @@ def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor, cfg, *,
     return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
-def prefill(model: LM, tokens: torch.Tensor, cache: list, cfg):
-    """Run the prompt through the model, filling the cache.
+def prefill(model: LM, tokens: torch.Tensor, cache: list, cfg, *,
+            enc_out: torch.Tensor | None = None, causal: bool = True):
+    """Run the prompt through the model, filling the cache (and, given
+    enc_out, the cross-attention K/V of an enc-dec decoder).
     → (last-position logits (B, V), new_cache)."""
-    h, new_cache, _ = lm_hidden(model, tokens, cfg, mode="serve", cache=cache)
+    h, new_cache, _ = lm_hidden(model, tokens, cfg, mode="serve", cache=cache, enc_out=enc_out,
+                                causal=causal)
     return _head_matmul(model, h[:, -1:, :], cfg)[:, 0], new_cache
 
 

@@ -13,8 +13,9 @@
 The state is ``{"params": {name: parameter}, "opt": adamw state[, "ef":
 error feedback]}``; the parameters are the model's own tensors. AdamW and
 the compression pick their per-leaf rules on the JAX stacked layout
-(`models.stacked_shapes`), so both packages treat the same leaves alike. Only the
-decoder LM is ported: an encoder-decoder config raises.
+(`models.stacked_shapes`), so both packages treat the same leaves alike. An
+encoder-decoder config trains an `EncDec` on `encdec_loss`, its batches
+carrying the JAX package's stub audio frames (`_stub_frames`).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import dataclasses
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -30,7 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.dist.compression import compress_tree, decompress_tree, ef_init
 from repro_torch.dist.fault_tolerance import PreemptionGuard, StragglerMonitor
-from repro_torch.models import init_lm, lm_loss, stacked_shapes
+from repro_torch.models import encdec_init, encdec_loss, init_lm, lm_loss, stacked_shapes
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 #: checkpoints go under the repository's build directory unless told otherwise
@@ -52,10 +54,12 @@ class TrainConfig:
 
 def make_loss_fn(cfg: ModelConfig):
     if cfg.family == "encdec":
-        raise NotImplementedError("the encoder-decoder loss is not ported yet")
-
-    def loss_fn(model, batch):
-        return lm_loss(model, batch["tokens"], batch["labels"], cfg, mode="train")
+        def loss_fn(model, batch):
+            return encdec_loss(model, batch["frames"], batch["tokens"], batch["labels"], cfg,
+                               mode="train")
+    else:
+        def loss_fn(model, batch):
+            return lm_loss(model, batch["tokens"], batch["labels"], cfg, mode="train")
     return loss_fn
 
 
@@ -99,10 +103,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, tc: TrainConfig):
 
 
 class Trainer:
-    """`model` (optional): the LM to train, e.g. weights carried over from
-    another run; by default `init_lm` draws them from a ``torch.Generator``
-    seeded with ``tc.seed`` on `device`. A checkpoint in
-    ``tc.checkpoint_dir`` takes precedence over both."""
+    """`model` (optional): the LM (or `EncDec`) to train, e.g. weights
+    carried over from another run; by default `init_lm` (`encdec_init`)
+    draws them from a ``torch.Generator`` seeded with ``tc.seed`` on
+    `device`. A checkpoint in ``tc.checkpoint_dir`` takes precedence over
+    both."""
 
     def __init__(
         self,
@@ -128,10 +133,9 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _build_state(self, model):
-        if self.cfg.family == "encdec":
-            raise NotImplementedError("encoder-decoder training is not ported yet")
         if model is None:
-            model = init_lm(self.cfg, torch.Generator(device=self.device).manual_seed(self.tc.seed))
+            init = encdec_init if self.cfg.family == "encdec" else init_lm
+            model = init(self.cfg, torch.Generator(device=self.device).manual_seed(self.tc.seed))
         self.model = model.to(self.device).requires_grad_(True)
         params = dict(self.model.named_parameters())
         shapes = stacked_shapes(self.model, self.cfg)
@@ -170,6 +174,9 @@ class Trainer:
                 return self.metrics_log
             self.data.step = self.step
             batch = {k: torch.from_numpy(v).to(self.device) for k, v in next(self.data).items()}
+            if self.cfg.family == "encdec":
+                b, s = batch["tokens"].shape
+                batch["frames"] = _stub_frames(self.cfg, b, s, self.tc.seed).to(self.device)
             t0 = time.perf_counter()
             self.state, metrics = self._step(self.state, batch)
             self._sync()
@@ -189,3 +196,13 @@ class Trainer:
         self.ckpt.wait()
         self.save(blocking=True)
         return self.metrics_log
+
+
+def _stub_frames(cfg, b: int, s: int, seed: int) -> torch.Tensor:
+    """The stub frontend's frame embeddings, (b, max(s // enc_frame_ratio,
+    1), d_model) bf16: a fresh numpy draw from `seed` (the same frames
+    every step, as in the JAX package), rounded from f64 to bf16 once, as
+    JAX converts them."""
+    rng = np.random.default_rng(seed)
+    frames = rng.standard_normal((b, max(s // cfg.enc_frame_ratio, 1), cfg.d_model))
+    return torch.from_numpy(frames).to(torch.bfloat16)

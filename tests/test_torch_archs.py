@@ -1,7 +1,8 @@
 """The port's architecture registry and its four dense GQA architectures
 (gemma3-1b, internlm2-1.8b, command-r-35b, chameleon-34b) against the JAX
-package, in f32 on their smoke configs: every registered config equal to
-JAX's field by field, prefill and decode logits of the packed models
+package, in f32 on their smoke configs: every registered config (the
+ten of the JAX package, whisper-medium's included) equal to JAX's field by
+field, prefill and decode logits of the packed models
 (JAX's Pallas decode kernel interpreted, the port's plain version) over
 gemma3's window of 16 (the ring cache wraps), dual RoPE bases, q/k norms,
 the embedding scale and tied and untied heads, gemma3's greedy
@@ -32,6 +33,7 @@ from repro import models as jm  # noqa: E402
 from repro import serve as js  # noqa: E402
 from repro import spec as jspec  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import list_archs as jlist_archs  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import models as tm  # noqa: E402
@@ -42,7 +44,8 @@ from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 ARCHS = ("smollm-360m", "gemma3-1b", "internlm2-1.8b", "command-r-35b", "chameleon-34b",
-         "llama4-scout-17b-a16e", "deepseek-v3-671b", "mamba2-1.3b", "jamba-1.5-large-398b")
+         "llama4-scout-17b-a16e", "deepseek-v3-671b", "mamba2-1.3b", "jamba-1.5-large-398b",
+         "whisper-medium")
 DENSE = ("gemma3-1b", "internlm2-1.8b", "command-r-35b", "chameleon-34b")
 OUT_RTOL = 1e-5
 #: prefill length and decode steps: gemma3's smoke window is 16, so the
@@ -59,10 +62,12 @@ def test_config_equals_jax(arch, smoke):
 
 
 def test_registry_is_every_decoder_only_arch():
-    assert sorted(_MODULES) == sorted(ARCHS)
-    jget_config("whisper-medium")
-    with pytest.raises(NotImplementedError, match="whisper-medium"):
-        tget_config("whisper-medium")
+    """The port registers every architecture of the JAX package, the
+    encoder-decoder whisper-medium included, and refuses an unknown id as
+    JAX does."""
+    assert sorted(_MODULES) == sorted(ARCHS) == sorted(jlist_archs())
+    with pytest.raises(KeyError, match="no-such-arch"):
+        tget_config("no-such-arch")
 
 
 def _cfgs(arch):

@@ -5,6 +5,7 @@ file imports no JAX, so it runs on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import copy
 import dataclasses
 
 import pytest
@@ -19,7 +20,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ternary_decode_gemm as tdg  # noqa: E402
 from repro_torch.kernels import vlut_lookup_gemm as vlg  # noqa: E402
-from repro_torch.models import init_lm, pack_params  # noqa: E402
+from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.models import encdec_init, init_cache, init_lm, pack_params  # noqa: E402
 from repro_torch.serve import ContinuousBatchingScheduler, Engine, PagedKVConfig, Request  # noqa: E402
 
 KERNELS = {
@@ -339,6 +341,34 @@ def test_ssm_and_windowed_smoke_serving_on_the_card_matches_the_cpu(cuda, arch):
         outs.append([r.generated for r in reqs])
     assert outs[0] == outs[1] == outs[2]
     assert outs[3] == outs[4] == outs[5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+def test_whisper_smoke_steps_on_the_card_match_the_cpu(cuda, impl):
+    """The encoder-decoder on the card: whisper-medium's smoke config in
+    f32, encode + prefill + 6 greedy decode steps through `launch.steps`
+    (the decode steps reading the cross K/V the prefill cached), gives the
+    CPU's tokens with both impls, through the impl's kernel."""
+    cfg = get_config("whisper-medium", smoke=True).with_(dtype="float32")
+    model = pack_params(encdec_init(cfg, torch.Generator().manual_seed(0)), cfg)
+    rng = np.random.default_rng(0)
+    batch = {"frames": torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32)),
+             "tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32))}
+    outs = []
+    for device in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(device)
+        pre, dec = make_prefill_step(cfg, device=device), make_decode_step(cfg, device=device)
+        before = KERNELS[impl][0].launches
+        with ops.dispatch_override(impl=impl):
+            nt, cache = pre(m, init_cache(cfg, 2, 32, enc_len=16, device=device), batch)
+            toks = [nt.cpu()]
+            for _ in range(6):
+                nt, cache = dec(m, cache, nt[:, None])
+                toks.append(nt.cpu())
+        assert (KERNELS[impl][0].launches > before) == (device == "cuda")
+        outs.append(torch.stack(toks))
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.cuda

@@ -48,6 +48,12 @@ def test_walk_covers_the_observability_slice():
             "src/repro_torch/obs/trace.py", "src/repro_torch/roofline/analysis.py"} <= rels
 
 
+def test_walk_covers_the_encdec_slice():
+    rels = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"src/repro_torch/models/encdec.py", "src/repro_torch/launch/steps.py",
+            "src/repro_torch/configs/whisper_medium.py"} <= rels
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
