@@ -332,6 +332,26 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    checkpoint resumes a second Trainer with equal weights; one sequence's
    loss on the card against the CPU (TRAIN_LOSS_RTOL); one step profiled.
    The phase's seconds are logged; rows under `encdec`.
+16. dist, after phase 7: the distribution layer (`repro_torch.dist`,
+   `launch.mesh`). (a) The "xla" mpGeMM impl (the JAX package's shardable
+   path: codes decoded to trits, one f32 product per 512 K-groups, exact,
+   summed in int32; no kernel of the port): int32 equal to
+   `ternary_decode_gemm` (#3) and its plain version at smollm-360m's and
+   whisper-medium's BitLinear shapes, every segment, N in {1, 4, 37, 1500,
+   6000} (expected difference 0); timed beside #1 (fused) and #3 (the
+   unfused pipeline) over one smollm forward's 224 BitLinears at N 4 and
+   whisper's encoder's 168 BitLinears (336 kernel launches) at N 6000,
+   whole pipelines (`ternary_matmul`) and integer cores; greedy serving of
+   smollm-360m (seed 0, phase 4's weights and prompts) with impl="xla":
+   phase 5's unfused tokens, and no kernel launched. (b) A world of one
+   rank over NCCL on a free local port and `make_small_mesh(1, 1)`:
+   `Trainer(mesh=...)` on smollm-360m at full width and depth, B 8 x S
+   512, 3 steps from phase 7's seed and settings, against an unsharded
+   `Trainer` of the same 3 steps: losses and final parameters bit-equal
+   (every placement is Replicate at world 1), the flash kernel launched
+   2 x 32 x 3 times inside the sharded steps and no mpGeMM kernel; the step
+   ms and one profiled step's busy share beside phase 7's. The process
+   group is destroyed at the end. Rows under `dist`.
 
 Output: a `kernels` JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}. Details go to
@@ -593,6 +613,10 @@ ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 8, 448, 10
 ENCDEC_CPU_SEQ = 64
 # flash at whisper's training shapes: (B, S, H, KV, D, causal)
 ENCDEC_FLASH = ((8, 112, 16, 16, 64, False), (8, 448, 16, 16, 64, True))
+# Phase 16 (dist): the "xla" impl's token counts (phase 15's) and the world-1
+# sharded trainer's steps
+XLA_TOKENS = ENCDEC_TOKENS
+DIST_STEPS = 3
 # bf16 model, 32 layers, QAT: the CPU and the card round bf16 intermediates
 # after sums in another order, and an int8 activation code at a rounding
 # boundary can move by one; the mean CE over 256 tokens moves far less than
@@ -4359,6 +4383,219 @@ def train(torch, counters) -> dict:
     return res
 
 
+def xla_vs_kernel(torch, weights, gen) -> dict:
+    """Phase 16 (a): the "xla" impl's integer core against #3 and its plain
+    version at every segment of `weights` and N in XLA_TOKENS.
+    → ({name: max |diff|}, number of checks)."""
+    from repro_torch.core import act_quant_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+
+    dev = torch.device("cuda")
+    err, n_checks = {"ternary_decode_gemm": 0, "ternary_decode_gemm_plain": 0}, 0
+    for (m, k), pw in weights.items():
+        for n in XLA_TOKENS:
+            a_q, _ = act_quant_tokens(torch.randn((k, n), generator=gen, device=dev) * 3.0)
+            for packed, lo, hi, g in ops._segments(pw):
+                got = ops._xla_streamed_decode(packed, a_q[lo:hi], g)
+                a_r = ops._deinterleave(a_q[lo:hi], g)
+                for name, fn in (("ternary_decode_gemm", tdg.ternary_decode_gemm),
+                                 ("ternary_decode_gemm_plain", tdg.ternary_decode_gemm_plain)):
+                    want = fn(packed, a_r, g=g)
+                    torch.cuda.synchronize()
+                    if got.dtype != torch.int32 or tuple(got.shape) != (m, n) or \
+                            tuple(want.shape) != (m, n):
+                        raise AssertionError(f"xla: {got.dtype} {tuple(got.shape)} at {(m, k, n)}")
+                    err[name] = max(err[name], (got.long() - want.long()).abs().max().item())
+                n_checks += 1
+    return err, n_checks
+
+
+def xla_forward_ms(torch, lins, n: int, gen) -> dict:
+    """Phase 16 (a): device ms of one forward's BitLinears `lins` at N
+    tokens through `ternary_matmul` with impl="xla" beside the fused
+    pipeline (#1) and the unfused one (#3), and of the integer cores alone
+    (the xla streamed decode against #3's launches) on the same int8
+    activations."""
+    from repro_torch.core import act_quant_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+
+    dev = torch.device("cuda")
+    xs = {k: torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+          for k in {lin.pw.K for lin in lins}}
+    a_qs = {k: act_quant_tokens(x.T)[0] for k, x in xs.items()}
+    segs = [(packed, a_qs[lin.pw.K][lo:hi], g)
+            for lin in lins for packed, lo, hi, g in ops._segments(lin.pw)]
+    a_rs = [(packed, ops._deinterleave(a, g), g) for packed, a, g in segs]
+
+    def pipeline(impl, fusion):
+        for lin in lins:
+            ops.ternary_matmul(lin.pw, xs[lin.pw.K], impl=impl, fusion=fusion)
+
+    row = {"n": n, "bitlinears": len(lins), "segments": len(segs), "pipeline": {
+        name: device_ms(torch, lambda impl=impl, fusion=fusion: pipeline(impl, fusion))
+        for name, impl, fusion in (("xla", "xla", "unfused"),
+                                   ("ternary_decode_gemm_fused", "decode", "fused"),
+                                   ("ternary_decode_gemm", "decode", "unfused"))}}
+    row["int_core"] = {
+        "xla": device_ms(torch, lambda: [ops._xla_streamed_decode(p, a, g) for p, a, g in segs]),
+        "ternary_decode_gemm": device_ms(
+            torch, lambda: [tdg.ternary_decode_gemm(p, a, g=g) for p, a, g in a_rs])}
+    return row
+
+
+def dist_train(torch, counters, trained) -> dict:
+    """Phase 16 (b): `Trainer(mesh=...)` on a world of one rank over NCCL
+    against the unsharded `Trainer`, the same DIST_STEPS steps."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import batch_shardings, distribute_tree, full_tensor
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_small_mesh(1, 1)
+        cfg = get_config("smollm-360m").with_(attn_impl="flash")
+        b, s = TRAIN_BATCH, TRAIN_SEQ
+        opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS)
+        dc = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
+        runs = {}
+        for name, m in (("unsharded", None), ("mesh", mesh)):
+            ckpt_dir = ROOT / "build" / f"chip_smoke_dist_{name}"
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            tc = TrainConfig(total_steps=DIST_STEPS, checkpoint_every=10 * DIST_STEPS,
+                             log_every=1, checkpoint_dir=str(ckpt_dir), keep_checkpoints=1,
+                             seed=0)
+            tr = Trainer(cfg, opt, tc, dc, device="cuda", mesh=m)
+            for fn in counters.values():
+                fn.launches = 0
+            rows = tr.run()
+            runs[name] = {"trainer": tr, "losses": [r["loss"] for r in rows],
+                          "step_s": [r["step_time_s"] for r in rows],
+                          "launches": {nm: fn.launches for nm, fn in counters.items()}}
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        sharded, plain = runs["mesh"]["trainer"], runs["unsharded"]["trainer"]
+        params = sharded.state["params"]
+        placements = {tuple(p.placements) if isinstance(p, DTensor) else None
+                      for p in params.values()}
+        if placements != {(Replicate(), Replicate())}:
+            raise AssertionError(f"dist: placements {placements}")
+        want = {nm: (2 * cfg.n_layers * DIST_STEPS if nm == "flash_attention" else 0)
+                for nm in counters}
+        if runs["mesh"]["launches"] != want:
+            raise AssertionError(f"dist: launches {runs['mesh']['launches']}, expected {want}")
+        if runs["mesh"]["losses"] != runs["unsharded"]["losses"]:
+            raise AssertionError(f"dist: losses {runs['mesh']['losses']} vs "
+                                 f"{runs['unsharded']['losses']}")
+        if trained["losses"][:DIST_STEPS] != runs["unsharded"]["losses"]:
+            raise AssertionError(f"dist: unsharded losses {runs['unsharded']['losses']} vs "
+                                 f"phase 7's {trained['losses'][:DIST_STEPS]}")
+        diff = max((full_tensor(p).float() - plain.state["params"][nm].float()).abs().max().item()
+                   for nm, p in params.items())
+        if diff != 0:
+            raise AssertionError(f"dist: parameters after {DIST_STEPS} steps differ by {diff}")
+        batch = {k: torch.from_numpy(x).cuda() for k, x in SyntheticLM(dc).batch_at(0).items()}
+        batch = distribute_tree(batch, batch_shardings(batch, mesh, cfg))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with sharded._step_ctx():
+                sharded._step(sharded.state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = sum(ms for ms, _ in device_time_by_kernel(prof, 1))
+        out = {"losses": runs["mesh"]["losses"], "param_max_abs_diff": diff,
+               "launches": runs["mesh"]["launches"],
+               "placements": [str(pl) for pl in next(iter(placements))],
+               "step_ms": {nm: [t * 1e3 for t in r["step_s"]] for nm, r in runs.items()},
+               "profile": {"wall_ms": wall_ms, "device_ms": dev_ms,
+                           "device_busy_share": dev_ms / wall_ms if dev_ms else None}}
+        log(f"dist: world 1 over NCCL, mesh {mesh}: {DIST_STEPS} sharded steps bit-equal to the "
+            f"unsharded Trainer's (losses {out['losses']}, parameters max |diff| {diff}); "
+            f"placements {out['placements']}; launches {out['launches']}")
+        p7 = trained["profile"]
+        log("dist: step ms (steps 1-{}) mesh {}, unsharded {}; phase 7's median {:.1f}; "
+            "profiled step: mesh wall {:.1f} ms, device ".format(
+                DIST_STEPS, " ".join(f"{t:.1f}" for t in out["step_ms"]["mesh"]),
+                " ".join(f"{t:.1f}" for t in out["step_ms"]["unsharded"]),
+                trained["step_ms_median"], wall_ms)
+            + (f"{dev_ms:.1f} ms ({100 * dev_ms / wall_ms:.1f}% busy)" if dev_ms else
+               "not measured (the profiler saw no device time)")
+            + f"; phase 7 wall {p7['wall_ms']:.1f} ms, device {p7['device_ms']:.1f} ms")
+        del runs, sharded, plain, params
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def check_dist(torch, counters, unfused, trained) -> dict:
+    """Phase 16: the "xla" impl on the card, then the world-1 sharded
+    trainer."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import encoder_specs, init_lm, pack_params
+    from repro_torch.models.blocks import block_init
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    cfg = get_config("smollm-360m")
+    model = pack_params(init_lm(cfg, torch.Generator(device="cuda").manual_seed(0)), cfg)
+    wcfg = get_config(ENCDEC_ARCH)
+    wgen = torch.Generator(device="cuda").manual_seed(0)
+    encoder = [pack_params(block_init(wcfg, spec, generator=wgen, device=torch.device("cuda")),
+                           wcfg) for spec in encoder_specs(wcfg)]
+    weights = {**layer_weights(model.layers[0]), **layer_weights(encoder[0])}
+    err, n_checks = xla_vs_kernel(torch, weights, gen)
+    log(f"dist: xla impl: {n_checks} checks at (M, K) {sorted(weights)}, N {XLA_TOKENS}: "
+        f"max |diff| {err}")
+    if any(e != 0 for e in err.values()):
+        raise AssertionError(f"dist: the xla impl differs from #3 or its plain version: {err}")
+    timed = {}
+    for label, lins, n in (("smollm_forward", packed_linears(model), DECODE_N),
+                           ("whisper_encoder", [lin for layer in encoder
+                                                for lin in packed_linears(layer)],
+                            ENCDEC_BATCH * ENCDEC_FRAMES)):
+        timed[label] = row = xla_forward_ms(torch, lins, n, gen)
+        log(f"dist: {label}'s {row['bitlinears']} BitLinears ({row['segments']} segments) at "
+            f"N={n}: pipelines " + ", ".join(f"{k} {v:.4f} ms" for k, v in row["pipeline"].items())
+            + "; integer cores " + ", ".join(f"{k} {v:.4f} ms" for k, v in row["int_core"].items()))
+    if timed["smollm_forward"]["bitlinears"] != 224 or \
+            timed["whisper_encoder"]["segments"] != ENCDEC_LAUNCHES["encoder"]:
+        raise AssertionError(f"dist: timed {timed}")
+    rng = np.random.default_rng(0)            # phase 4's prompts
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(16, 65))).astype(np.int32)
+               for _ in range(8)]
+    r = serve(torch, model, cfg, "xla", prompts, counters, fusion="unfused")
+    if r["tokens"] != unfused["serve"]["decode"]["tokens"]:
+        raise AssertionError("dist: impl=xla emitted other greedy tokens than phase 5's unfused run")
+    if any(r["launches"].values()):
+        raise AssertionError(f"dist: impl=xla launched kernels: {r['launches']}")
+    log(f"dist: serve impl=xla: phase 5's unfused tokens, no kernel launched; "
+        f"prefill_tok_s={r['prefill_tok_s']:.1f} decode_tok_s={r['decode_tok_s']:.1f}")
+    out = {"xla": {"max_abs_err": err, "checks": n_checks, "forward_ms": timed,
+                   "serve": {k: v for k, v in r.items() if k != "tokens"}}}
+    del model, encoder, weights
+    torch.cuda.empty_cache()
+    out["train"] = dist_train(torch, counters, trained)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"dist: phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4519,6 +4756,9 @@ def main() -> int:
     # 7. train
     trained = train(torch, counters)
 
+    # 16. dist: the xla impl and the world-1 sharded trainer (after phase 7)
+    dist_out = check_dist(torch, counters, unfused, trained)
+
     def kernel_row(name, meta):
         if meta["fusion"] == "fused":
             row, launches, err = per_n[DECODE_N], runs[meta["impl"]]["launches"], max_err
@@ -4589,7 +4829,7 @@ def main() -> int:
         "paged": paged,
         "obs": observed,
         "moe": moe, "mla": mla, "ssm": ssm, "windowed": windowed, "encdec": encdec,
-        "flash": flash, "train": trained,
+        "flash": flash, "train": trained, "dist": dist_out,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

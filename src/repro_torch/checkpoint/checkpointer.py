@@ -19,7 +19,15 @@ template.
 Async: ``save(..., blocking=False)`` copies every leaf to host memory first
 (the trainer updates its parameters in place right after), then writes on
 a daemon thread; ``wait()`` joins before the next save or program exit.
-Restore onto device shardings waits for the port of `dist`.
+
+Sharded states: a DTensor leaf is written as its global tensor (gathered
+on every rank, written by rank 0 alone; a blocking save ends at a barrier,
+so every rank may read it next). The files are the same whatever the mesh,
+so a checkpoint of an unsharded run restores onto a mesh and back.
+``restore(..., shardings=)`` places each leaf by the given tree of
+`dist.sharding.NamedSharding`s, which may be on another mesh than the save
+was (elastic restore); without it, a DTensor leaf of the template keeps the
+template's placements.
 """
 from __future__ import annotations
 
@@ -31,6 +39,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.dist.sharding import NamedSharding, distribute, place
 
 _SENTINEL = "COMMIT"
 
@@ -39,16 +51,17 @@ def _dtype_name(dt: torch.dtype) -> str:
     return str(dt).removeprefix("torch.")
 
 
-def _flatten(tree, path=()):
-    """Yield (path string, tensor) in a fixed order (sorted dict keys)."""
-    if isinstance(tree, torch.Tensor):
+def _flatten(tree, path=(), leaf=torch.Tensor):
+    """Yield (path string, leaf) in a fixed order (sorted dict keys); the
+    leaves are the instances of `leaf`."""
+    if isinstance(tree, leaf):
         yield "/".join(path), tree
     elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _flatten(tree[k], path + (f"[{k!r}]",))
+            yield from _flatten(tree[k], path + (f"[{k!r}]",), leaf)
     elif dataclasses.is_dataclass(tree):
         for f in dataclasses.fields(tree):
-            yield from _flatten(getattr(tree, f.name), path + (f".{f.name}",))
+            yield from _flatten(getattr(tree, f.name), path + (f".{f.name}",), leaf)
 
 
 def _rebuild(tree, leaves, path=()):
@@ -65,7 +78,10 @@ def _rebuild(tree, leaves, path=()):
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A host copy that later in-place updates of `t` cannot reach."""
+    """A host copy that later in-place updates of `t` cannot reach (of the
+    global tensor, for a DTensor)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -95,6 +111,10 @@ class Checkpointer:
         entries = [{"path": p, "shape": list(t.shape), "dtype": _dtype_name(t.dtype)}
                    for p, t in flat]
         host = [_to_host(t) for _, t in flat]
+        if _distributed() and dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            return
 
         def _write():
             tmp = os.path.join(self.dir, f".tmp_step_{step}")
@@ -113,6 +133,8 @@ class Checkpointer:
 
         if blocking:
             _write()
+            if _distributed():
+                dist.barrier()
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
@@ -141,10 +163,12 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: int | None = None):
+    def restore(self, template, step: int | None = None, shardings=None):
         """template: a tree matching the saved structure; its tensor leaves
         give the shapes to check and the device to load onto (the CPU for
-        ``meta`` tensors). → (state, extra)"""
+        ``meta`` tensors). shardings: a tree of the same structure whose
+        `NamedSharding`s place the leaves as DTensors (module docstring).
+        → (state, extra)"""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no complete checkpoint in {self.dir}")
@@ -152,6 +176,7 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         saved = {e["path"]: i for i, e in enumerate(manifest["leaves"])}
+        placed = dict(_flatten(shardings, leaf=NamedSharding)) if shardings is not None else {}
         leaves = {}
         for p, ab in _flatten(template):
             if p not in saved:
@@ -161,5 +186,14 @@ class Checkpointer:
                            manifest["leaves"][i]["dtype"])
             if tuple(t.shape) != tuple(ab.shape):
                 raise ValueError(f"shape mismatch for {p}: {tuple(t.shape)} vs {tuple(ab.shape)}")
-            leaves[p] = t if ab.device.type == "meta" else t.to(ab.device)
+            if p in placed:
+                leaves[p] = distribute(t.to(placed[p].mesh.device_type), placed[p])
+            elif isinstance(ab, DTensor):
+                leaves[p] = place(t.to(ab.device_mesh.device_type), ab.device_mesh, ab.placements)
+            else:
+                leaves[p] = t if ab.device.type == "meta" else t.to(ab.device)
         return _rebuild(template, leaves), manifest.get("extra", {})
+
+
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()

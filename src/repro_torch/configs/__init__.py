@@ -9,7 +9,16 @@ from __future__ import annotations
 
 import importlib
 
-from .base import LayerSpec, MLAConfig, MoEConfig, ModelConfig, SSMConfig, uniform_layers
+from .base import (
+    SHAPES,
+    LayerSpec,
+    MLAConfig,
+    MoEConfig,
+    ModelConfig,
+    ShapeConfig,
+    SSMConfig,
+    uniform_layers,
+)
 
 _MODULES = {
     "smollm-360m": "smollm_360m",
@@ -25,6 +34,17 @@ _MODULES = {
 }
 
 
+#: archs whose attention is fully quadratic: long_500k does not apply
+FULL_ATTENTION_ARCHS = frozenset({
+    "llama4-scout-17b-a16e", "deepseek-v3-671b", "smollm-360m",
+    "command-r-35b", "internlm2-1.8b", "whisper-medium", "chameleon-34b",
+})
+
+
+def list_archs() -> list[str]:
+    return list(_MODULES)
+
+
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
@@ -32,5 +52,10 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["LayerSpec", "MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig", "uniform_layers",
-           "get_config"]
+def cell_is_applicable(arch: str, shape_name: str) -> bool:
+    return not (shape_name == "long_500k" and arch in FULL_ATTENTION_ARCHS)
+
+
+__all__ = ["SHAPES", "LayerSpec", "MLAConfig", "MoEConfig", "ModelConfig", "ShapeConfig",
+           "SSMConfig", "FULL_ATTENTION_ARCHS", "uniform_layers", "list_archs", "get_config",
+           "cell_is_applicable"]

@@ -124,3 +124,20 @@ def uniform_layers(
     n: int, mixer: str = "attn", ffn: str = "dense", **kw
 ) -> tuple[LayerSpec, ...]:
     return tuple(LayerSpec(mixer=mixer, ffn=ffn, **kw) for _ in range(n))
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell of the dry run's matrix."""
+    name: str                       # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                       # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

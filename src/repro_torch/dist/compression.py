@@ -7,14 +7,19 @@ row-wise int8 `QTensor`s (the optimizer states' format), and the
 quantization residual is carried in an error-feedback dict, so the signal
 drains over steps instead of being lost. Small leaves (norms, biases) pass
 through uncompressed; "large" is read from ``shapes`` when given (see
-`optim.adamw`). The collective-side ``compressed_psum`` waits for the
-port of `dist` to `torch.distributed`.
+`optim.adamw`). The leaves may be DTensors (a sharded trainer's): every
+step is elementwise or a reduction along the last axis.
+
+`compressed_psum` is the collective-side pattern: quantize → dequantize on
+each rank, then one `all_reduce` sum, bounding each rank's error by its
+row max / 127.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim import QTensor, dequantize_blockwise, quantize_blockwise
 
@@ -51,3 +56,14 @@ def decompress_tree(comp: dict) -> dict:
     """Inverse of :func:`compress_tree`'s quantization (f32 dict)."""
     return {n: dequantize_blockwise(x) if isinstance(x, QTensor) else x
             for n, x in comp.items()}
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """int8-compressed all-reduce over `group` (a process group, e.g.
+    ``mesh.get_group("data")``; None: the default group): each rank
+    quantizes its `x` blockwise and dequantizes it before the sum, bounding
+    wire precision at 8 bits (error <= rowmax/127 a rank). → the f32 sum,
+    the same on every rank of the group."""
+    y = dequantize_blockwise(quantize_blockwise(x))
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y

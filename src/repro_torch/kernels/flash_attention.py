@@ -25,6 +25,7 @@ import dataclasses
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import _build
 
@@ -201,6 +202,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
     add one to ``flash_attention.launches``) or raise."""
     check_attention_args(q, k, v, window)
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("the flash kernel takes local tensors; a DTensor reached it "
+                        "(run it on local shards through local_map)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.device.type != "cuda" or q.dtype not in _KERNEL_DTYPES:

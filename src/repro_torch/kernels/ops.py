@@ -18,8 +18,12 @@ picks the pipeline:
   bit-identical; with two they agree to f32 rounding.
 
 `impl` picks the kernel: "decode" (ternary decode + integer dot, the
-default) or "lookup" (the paper's vector-LUT). The JAX package's "xla"
-impl is its shardable dry-run path and waits for the port of `dist`. Its
+default) or "lookup" (the paper's vector-LUT). "xla" is the JAX package's
+shardable path (its default off the TPU), ported as it computes there:
+no kernel of this package, but the codes decoded to trits and one integer
+product per chunk of 512 K-groups, summed over the chunks in int32
+(`_xla_streamed_decode`). It always runs the unfused pipeline, as in the
+JAX package, and only when asked for. The JAX package's
 `tiles=` override and autotuner (`kernels/autotune.py`) choose TPU VMEM
 tiles; the port's tile selection is still to come (ROADMAP A 7).
 
@@ -38,6 +42,7 @@ import contextlib
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import obs as obs_mod
 from repro_torch.core.packing import PackedWeight
@@ -60,7 +65,10 @@ from .vlut_lookup_gemm import (
     vlut_lookup_gemm_grouped,
 )
 
-IMPLS = ("decode", "lookup")
+IMPLS = ("decode", "lookup", "xla")
+#: the K-groups of one integer product of the "xla" impl
+XLA_K_CHUNK_GROUPS = 512
+_R = 3
 FUSIONS = ("fused", "unfused")
 _KERNELS = {"decode": ternary_decode_gemm_fused, "lookup": vlut_lookup_gemm_fused}
 _GROUPED_KERNELS = {"decode": ternary_decode_gemm_fused_grouped,
@@ -85,13 +93,17 @@ def dispatch_config() -> DispatchConfig:
 
 
 def _check_impl(impl: str) -> None:
-    if impl == "xla":
-        raise NotImplementedError(
-            "impl='xla' is the JAX package's shardable dry-run path; it is "
-            "not ported yet (it comes with the port of dist)"
-        )
     if impl not in IMPLS:
         raise ValueError(f"unknown mpGeMM impl {impl!r}; have {IMPLS}")
+
+
+def check_local(*tensors) -> None:
+    """The kernels take raw pointers: a DTensor (a sharded weight or
+    activation under a mesh) must never reach them."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            "the mpGeMM and flash kernels take local tensors; a DTensor reached "
+            "one (run the kernel on local shards, e.g. through local_map)")
 
 
 def _check_fusion(fusion: str) -> None:
@@ -138,8 +150,11 @@ def _segments(pw: PackedWeight):
 
 def _mpgemm_tokens(pw: PackedWeight, x: torch.Tensor, impl: str,
                    out_dtype) -> torch.Tensor:
-    """Token-major fused mpGeMM: x (N, K) float → (N, M) out_dtype."""
+    """Token-major fused mpGeMM: x (N, K) float → (N, M) out_dtype ("xla":
+    the unfused pipeline, never fused)."""
     _check_impl(impl)
+    if impl == "xla":
+        return _mpgemm_unfused(pw, x.T, impl, out_dtype).T
     if x.shape[1] > 1 and x.stride(1) != 1:
         x = x.contiguous()
     x_f = x if x.is_floating_point() else x.to(torch.float32)
@@ -168,13 +183,50 @@ def _deinterleave(a_q: torch.Tensor, g: int, e: int = 0) -> torch.Tensor:
     return a_q.view(k // g, g, n).permute(1, 0, 2).contiguous()
 
 
+def _decode_dot(packed: torch.Tensor, a_q: torch.Tensor, g: int) -> torch.Tensor:
+    """The "xla" impl's chunk: codes (..., M, KG) decoded to a dense trit
+    tile, then one product with a_q (..., KG*g, N) int8 → (..., M, N) int32.
+    The product runs in f32, exact: every partial sum is an integer below
+    KG*g*127 < 2**24 (`XLA_K_CHUNK_GROUPS` K-groups at most); CUDA
+    matmuls keep TF32 off (torch's default), and TF32 would be exact on
+    these operands too."""
+    places = _R ** torch.arange(g, dtype=torch.int32, device=packed.device)
+    trits = torch.div(packed.to(torch.int32)[..., None], places,
+                      rounding_mode="floor") % _R - 1               # (..., M, KG, g)
+    w_t = trits.reshape(*packed.shape[:-1], packed.shape[-1] * g).to(torch.float32)
+    return torch.matmul(w_t, a_q.to(torch.float32)).to(torch.int32)
+
+
+def _xla_streamed_decode(packed: torch.Tensor, a_q_seg: torch.Tensor, g: int,
+                         k_chunk_groups: int = XLA_K_CHUNK_GROUPS) -> torch.Tensor:
+    """The JAX package's pure-XLA streamed decode + dot: packed (..., M, KG)
+    uint8 × a_q_seg (..., KG*g, N) int8 → (..., M, N) int32, one
+    `_decode_dot` per chunk of `k_chunk_groups` K-groups (the transient
+    decoded tile stays M × chunk·g), summed over the chunks in int32. The
+    last chunk is cut short where JAX pads it with zero codes and zero
+    activations (the same sum)."""
+    kg = packed.shape[-1]
+    out = None
+    for c0 in range(0, kg, k_chunk_groups):
+        c1 = min(kg, c0 + k_chunk_groups)
+        part = _decode_dot(packed[..., c0:c1], a_q_seg[..., c0 * g:c1 * g, :], g)
+        out = part if out is None else out + part
+    return out
+
+
 def _segment_gemm_int(packed: torch.Tensor, a_q_seg: torch.Tensor, g: int,
                       impl: str, e: int = 0) -> torch.Tensor:
     """Unfused integer segment: packed (M, KG) uint8 × a_q_seg (K, N) int8
     → (M, N) int32, through the chosen integer kernel; with e > 0 stacked
     packed (E, M, KG) and N = E*C tokens, expert by expert, → (E, M, C)
     through ONE launch of the grouped integer kernel. Nothing is padded:
-    the kernels mask ragged edges themselves."""
+    the kernels mask ragged edges themselves. "xla" launches no kernel
+    (`_xla_streamed_decode`, batched over the experts)."""
+    if impl == "xla":
+        if e:
+            k, n = a_q_seg.shape
+            return _xla_streamed_decode(packed, a_q_seg.view(k, e, n // e).transpose(0, 1), g)
+        return _xla_streamed_decode(packed, a_q_seg, g)
     kernel = _INT_GROUPED_KERNELS[impl] if e else _INT_KERNELS[impl]
     return kernel(packed, _deinterleave(a_q_seg, g, e), g=g)
 
@@ -208,7 +260,7 @@ def vlut_mpgemm(pw: PackedWeight, a: torch.Tensor, *, impl: str = "decode",
     token-contiguous → (M, N). `fusion` picks the pipeline (module
     docstring)."""
     _check_fusion(fusion)
-    if fusion == "unfused":
+    if fusion == "unfused" or impl == "xla":
         return _mpgemm_unfused(pw, a, impl, out_dtype)
     return _mpgemm_tokens(pw, a.T.contiguous(), impl, out_dtype).T
 
@@ -220,7 +272,7 @@ def segment_mpgemm(packed: torch.Tensor, a: torch.Tensor, g: int, impl: str, *,
     unfused pipeline. (The JAX version is its autotuner's timing target and
     also takes `tiles=`; the port has no tile choice yet.)"""
     _check_impl(impl)
-    if fused:
+    if fused and impl != "xla":
         x = a.T.contiguous()                                         # (N, K)
         ones = torch.ones((1,), dtype=torch.float32, device=a.device)
         out = _KERNELS[impl](packed, x, act_token_scale(a).contiguous(), ones, g=g,
@@ -241,9 +293,9 @@ def launch_tiles(pw: PackedWeight, n: int, impl: str, e: int | None = None) -> l
     "g5 bm128 s2 c64" (BM, K-splits, table chunk), a grouped one's with
     " x4" (experts per block) after it; "e16 " in front of a grouped
     launch's.
-    No tokens: no launch."""
+    No tokens, or "xla" (no kernel): no launch."""
     _check_impl(impl)
-    if n == 0:
+    if n == 0 or impl == "xla":
         return []
     head = f"e{e} " if e is not None and e > 1 else ""
     tiles = []
@@ -277,6 +329,7 @@ def ternary_matmul(pw: PackedWeight, x: torch.Tensor, impl: str | None = None,
     impl = impl if impl is not None else _dispatch.impl
     fusion = fusion if fusion is not None else _dispatch.fusion
     _check_fusion(fusion)
+    check_local(x, pw.packed5, pw.packed4, pw.scale)
     x2 = x.reshape(-1, x.shape[-1])
     o = obs_mod.current()
     if o is None:
@@ -288,7 +341,7 @@ def ternary_matmul(pw: PackedWeight, x: torch.Tensor, impl: str | None = None,
 
 def _ternary_matmul(pw: PackedWeight, x2: torch.Tensor, impl: str, fusion: str) -> torch.Tensor:
     """`ternary_matmul` on flattened tokens: x2 (N, K) → (N, M)."""
-    if fusion == "unfused":
+    if fusion == "unfused" or impl == "xla":
         return _mpgemm_unfused(pw, x2.T, impl, x2.dtype).T
     return _mpgemm_tokens(pw, x2, impl, x2.dtype)
 
@@ -313,6 +366,7 @@ def ternary_matmul_batched(pw: PackedWeight, x: torch.Tensor, impl: str | None =
     fusion = fusion if fusion is not None else _dispatch.fusion
     _check_fusion(fusion)
     _check_impl(impl)
+    check_local(x, pw.packed5, pw.packed4, pw.scale)
     o = obs_mod.current()
     if o is None:
         return _ternary_matmul_batched(pw, x, impl, fusion)
@@ -326,7 +380,7 @@ def _ternary_matmul_batched(pw: PackedWeight, x: torch.Tensor, impl: str,
                             fusion: str) -> torch.Tensor:
     """`ternary_matmul_batched` after routing: x (E, C, K) → (E, C, M)."""
     e, c, k = x.shape
-    if fusion == "unfused":
+    if fusion == "unfused" or impl == "xla":
         return _mpgemm_unfused(pw, x.reshape(e * c, k).T, impl, x.dtype, e=e).transpose(1, 2)
     if k > 1 and x.stride(2) != 1:
         x = x.contiguous()

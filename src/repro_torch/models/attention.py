@@ -32,8 +32,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.sharding import shard_act
 from repro_torch.kernels.flash_attention import flash_attention_trainable
+from repro_torch.launch.mesh import axis_size, batch_axes, mesh_axes
 
 from .common import linear_apply, linear_init, rmsnorm_apply, rmsnorm_init, rope
 from .paged import page_phys, page_view, pool_pages
@@ -124,6 +127,67 @@ def tree_step_gate(tree, start: torch.Tensor, s: int, length: int) -> torch.Tens
     return torch.where(in_step[:, None, :], lookup.permute(1, 0, 2), True)
 
 
+def split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n*d) → (..., n, d). DTensor cannot split a dim sharded over a
+    mesh dim whose size does not divide the n heads (JAX's partitioner
+    gathers it implicitly): such a dim is gathered first."""
+    if isinstance(t, DTensor):
+        from torch.distributed.tensor import Replicate, Shard
+
+        sizes, last = t.device_mesh.shape, t.ndim - 1
+        placements = [Replicate() if isinstance(pl, Shard) and pl.dim == last and n % sizes[i]
+                      else pl for i, pl in enumerate(t.placements)]
+        if placements != list(t.placements):
+            t = t.redistribute(t.device_mesh, placements)
+    return t.reshape(*t.shape[:-1], n, d)
+
+
+def _flash(q, k, v, causal: bool, window: int, softcap: float) -> torch.Tensor:
+    """The flash kernel on (B, S, H, D) tensors, through transposed views.
+    On DTensors (a no-cache forward under a mesh) each rank runs the kernel
+    on its local block (`local_map`): batch over the batch axes and heads
+    over ``model`` where they divide evenly (query and KV heads both, so a
+    local query head keeps its KV head), every other dim whole; inputs
+    placed otherwise are redistributed there first."""
+    def run(q, k, v):
+        return flash_attention_trainable(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                         causal, window, softcap).transpose(1, 2)
+
+    if not isinstance(q, DTensor):
+        return run(q, k, v)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    b, _, h, _ = q.shape
+    nb, nm = axis_size(mesh, batch_axes(mesh)), axis_size(mesh, "model")
+    heads = h % nm == 0 and k.shape[2] % nm == 0
+    placements = tuple(
+        Shard(0) if name in batch_axes(mesh) and b % nb == 0
+        else Shard(2) if name == "model" and heads else Replicate()
+        for name in mesh_axes(mesh))
+    # DTensor views a local tensor by the global tensor's strides, so what
+    # crosses local_map stays contiguous: the output, and the gradients of
+    # q, k, v (the kernel's transposed layout otherwise)
+    def local(q, k, v):
+        return run(*(_ContiguousGrad.apply(t) for t in (q, k, v))).contiguous()
+
+    return local_map(local, out_placements=(placements,), in_placements=(placements,) * 3,
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 # --------------------------------------------------------------------------
 # GQA layer
 # --------------------------------------------------------------------------
@@ -182,9 +246,9 @@ def attn_cache_init(cfg, spec, batch: int, max_len: int, dtype, device,
 def _project_qkv(p: Attention, x, cfg, spec, mode, positions):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear_apply(p.wq, x, mode).reshape(b, s, h, hd)
-    k = linear_apply(p.wk, x, mode).reshape(b, s, kv, hd)
-    v = linear_apply(p.wv, x, mode).reshape(b, s, kv, hd)
+    q = split_heads(linear_apply(p.wq, x, mode), h, hd)
+    k = split_heads(linear_apply(p.wk, x, mode), kv, hd)
+    v = split_heads(linear_apply(p.wv, x, mode), kv, hd)
     if cfg.qk_norm:
         q = rmsnorm_apply(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm_apply(p.k_norm, k, cfg.norm_eps)
@@ -237,10 +301,7 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
 
     if cache is None:
         if cfg.attn_impl == "flash":
-            out = flash_attention_trainable(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
-                spec.window, cfg.attn_logit_softcap,
-            ).transpose(1, 2)
+            out = _flash(q, k, v, causal, spec.window, cfg.attn_logit_softcap)
         else:
             out = sdpa(q, k, v, positions, positions, **attn)
         new_cache = None
@@ -301,7 +362,8 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
             ck[bidx, slots] = kw
             cv[bidx, slots] = vw
             sp[bidx, slots] = pw
-        new_cache = {"k": ck, "v": cv, "slot_pos": sp, "idx": start + s}
+        new_cache = {"k": shard_act(ck, "kv_cache"), "v": shard_act(cv, "kv_cache"),
+                     "slot_pos": sp, "idx": start + s}
         if s == 1 or verify:
             # decode / verify: attend the whole cache (it already holds the
             # incoming tokens), in the cache's dtype; causality comes from
@@ -332,8 +394,8 @@ def cross_attn_kv(p: Attention, enc_out: torch.Tensor, cfg, mode: str):
     prefill computes them once into the cache, decode steps reuse them."""
     b, se, _ = enc_out.shape
     kv, hd = cfg.n_kv_heads, cfg.head_dim
-    k = linear_apply(p.wk, enc_out, mode).reshape(b, se, kv, hd)
-    v = linear_apply(p.wv, enc_out, mode).reshape(b, se, kv, hd)
+    k = split_heads(linear_apply(p.wk, enc_out, mode), kv, hd)
+    v = split_heads(linear_apply(p.wv, enc_out, mode), kv, hd)
     return k, v
 
 
@@ -342,7 +404,7 @@ def cross_attn_apply(p: Attention, x: torch.Tensor, k, v, cfg, mode: str) -> tor
     causal=False, so the mask is all true."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    q = linear_apply(p.wq, x, mode).reshape(b, s, h, hd)
+    q = split_heads(linear_apply(p.wq, x, mode), h, hd)
     q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
     kv_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
     out = sdpa(q, k, v, q_pos, kv_pos, causal=False, window=0,

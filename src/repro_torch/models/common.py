@@ -79,8 +79,9 @@ def linear_init(k_in: int, m_out: int, cfg, *, generator: torch.Generator,
 
     if experts:
         w = torch.empty((experts, k_in, m_out), dtype=dtype, device=device)
-        for e in range(experts):
-            w[e] = draw()
+        if w.device.type != "meta":          # meta: shapes only, nothing to draw
+            for e in range(experts):
+                w[e] = draw()
     else:
         w = draw()
     cls = QLinear if (quant and cfg.quant == "ternary") else Linear

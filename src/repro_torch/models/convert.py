@@ -35,7 +35,8 @@ def pack_params(model: nn.Module, cfg) -> nn.Module:
             if isinstance(child, QLinear):
                 qw = child.qw
                 if qw.ndim == 3:
-                    step = max(1, PACK_ELEMENTS // qw[0].numel())
+                    step = (len(qw) if qw.device.type == "meta"
+                            else max(1, PACK_ELEMENTS // qw[0].numel()))
                     parts = [_pack(qw[i:i + step], cfg.pack_mode) for i in range(0, len(qw), step)]
                     pw = PackedWeight(*(torch.cat([getattr(p, f) for p in parts])
                                         for f in ("packed5", "packed4", "scale")), K=parts[0].K)

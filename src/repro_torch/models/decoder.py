@@ -4,8 +4,11 @@ from `repro.models.decoder`).
 The JAX package scans stacked "stages" of repeated layers; here the layers
 are an `nn.ModuleList` walked by a Python loop, and the KV cache is a list
 with one dict per layer. With ``cfg.remat`` each layer of a no-cache forward
-under autograd is recomputed in backward (`torch.utils.checkpoint`, the
-JAX "full" policy). The cross-entropy is computed in sequence chunks of
+under autograd is recomputed in backward (`torch.utils.checkpoint`): all of
+it ("full"), or all but the linears' products ("dots", JAX's
+`dots_with_no_batch_dims_saveable`). Under a sharding context the residual
+stream and the loss's logits carry JAX's activation constraints
+(`dist.sharding.shard_act`; the identity otherwise). The cross-entropy is computed in sequence chunks of
 ``cfg.loss_chunk`` (never the full (B, S, V) logits at once). Entry points
 keep the JAX names: `lm_hidden`, `lm_logits`, `lm_loss`, `init_cache`,
 `prefill`, `decode_step`, `verify_step`, `prefill_bucket`,
@@ -18,10 +21,17 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch import resolve_device
+from repro_torch.dist.sharding import shard_act
 
 from .blocks import block_apply, block_cache_init, block_init
 from .common import Linear, embed_apply, embed_init, linear_init, rmsnorm_apply, rmsnorm_init
@@ -38,14 +48,15 @@ class LM(nn.Module):
         self.head = head
 
 
-def init_lm(cfg, generator: torch.Generator, *, packed: bool = False) -> LM:
-    """Random weights drawn from `generator`, on its device: dense "qw"
+def init_lm(cfg, generator: torch.Generator, *, packed: bool = False, device=None) -> LM:
+    """Random weights drawn from `generator`, on its device (or `device`:
+    "meta" builds the shapes alone, with no allocation): dense "qw"
     linears, to pack with `pack_params` before serving. packed=True packs
     each layer as soon as it is drawn — the same model as
     ``pack_params(init_lm(cfg, generator), cfg)`` with one layer's dense
     weights alive at a time (a full-width MoE model's dense weights do not
     fit on one card)."""
-    device = resolve_device(generator.device)
+    device = resolve_device(generator.device if device is None else device)
     kw = dict(generator=generator, device=device)
     head = (None if cfg.tie_embeddings
             else linear_init(cfg.d_model, cfg.vocab, cfg, quant=False, **kw))
@@ -144,13 +155,28 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, enc_len: int
     return cache
 
 
-def _remat(cfg, cache) -> bool:
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's `dots_with_no_batch_dims_saveable`: keep the outputs of
+    products without batch dims (the linears' ``aten.mm`` / ``addmm``; a
+    (B, S, K) @ (K, M) matmul folds its tokens into one mm), recompute the
+    rest (attention's batched products included)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, cache) -> dict | None:
+    """`checkpoint` keywords of ``cfg.remat_policy`` ("full": recompute the
+    whole layer; "dots": `_dots_policy`), or None when nothing is
+    recomputed (no remat, a cache, or no autograd)."""
     if not (cfg.remat and cache is None and torch.is_grad_enabled()):
-        return False
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet; only 'full'")
-    return True
+        return None
+    if cfg.remat_policy == "full":
+        return {}
+    if cfg.remat_policy == "dots":
+        return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                _dots_policy)}
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; have 'full', 'dots'")
 
 
 def _block_out(layer, x, enc_out, *, cfg, spec, mode, causal):
@@ -170,15 +196,16 @@ def layers_apply(layers, specs, x: torch.Tensor, *, cfg, mode: str, cache: list 
     new_cache = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (layer, spec) in enumerate(zip(layers, specs)):
-        if remat:
+        if remat is not None:
             fn = functools.partial(_block_out, layer, cfg=cfg, spec=spec, mode=mode,
                                    causal=causal)
-            (x, a), nc = checkpoint(fn, x, enc_out, use_reentrant=False), None
+            (x, a), nc = checkpoint(fn, x, enc_out, use_reentrant=False, **remat), None
         else:
             x, nc, a = block_apply(layer, x, cfg=cfg, spec=spec, mode=mode,
                                    cache=cache[i] if cache is not None else None,
                                    enc_out=enc_out, causal=causal, verify=verify, tree=tree,
                                    prefill_resume=prefill_resume)
+        x = shard_act(x, "btd")
         aux = aux + a
         new_cache.append(nc)
     return x, (new_cache if cache is not None else None), aux
@@ -201,7 +228,7 @@ def lm_hidden(model: LM, tokens: torch.Tensor, cfg, *, mode: str = "train",
         raise ValueError(
             "prefill_resume is the chunked-prefill verify read path; it is "
             "undefined for trees or non-verify forwards")
-    x = embed_apply(model.embed, tokens, cfg)
+    x = shard_act(embed_apply(model.embed, tokens, cfg), "btd")
     x, new_cache, aux = layers_apply(model.layers, cfg.layer_specs(), x, cfg=cfg, mode=mode,
                                      cache=cache, enc_out=enc_out, causal=causal, verify=verify,
                                      tree=tree, prefill_resume=prefill_resume)
@@ -223,9 +250,15 @@ def lm_logits(model: LM, h: torch.Tensor, cfg) -> torch.Tensor:
 
 def _ce_chunk(model: LM, hc, yc, mc, cfg):
     """Summed masked CE and token count of one (B, c) chunk."""
-    logits = _head_matmul(model, hc, cfg)                            # (B,c,V) f32
+    logits = shard_act(_head_matmul(model, hc, cfg), "btv")          # (B,c,V) f32
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, yc[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # DTensor's gather over a vocab-sharded dim gives a _MaskPartial that
+        # its redistribution cannot reduce on a 2-D mesh; the one-hot pick
+        # stays sharded and is exact (one nonzero term per row)
+        ll = (logits * F.one_hot(yc, logits.shape[-1]).to(logits.dtype)).sum(-1)
+    else:
+        ll = torch.gather(logits, -1, yc[..., None])[..., 0]
     return ((logz - ll) * mc).sum(), mc.sum()
 
 

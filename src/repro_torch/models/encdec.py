@@ -56,14 +56,16 @@ def sinusoid_positions(s: int, d: int, dtype=torch.float32, device="cpu") -> tor
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
-def encdec_init(cfg, generator: torch.Generator) -> EncDec:
-    """Random weights drawn from `generator`, on its device: the encoder's
-    layers, then the decoder (`init_lm`); dense "qw" linears, to pack with
-    `pack_params` before serving."""
-    device = resolve_device(generator.device)
+def encdec_init(cfg, generator: torch.Generator, *, device=None) -> EncDec:
+    """Random weights drawn from `generator`, on its device (or `device`,
+    "meta" for shapes alone): the encoder's layers, then the decoder
+    (`init_lm`); dense "qw" linears, to pack with `pack_params` before
+    serving."""
+    device = resolve_device(generator.device if device is None else device)
     layers = [block_init(cfg, spec, generator=generator, device=device)
               for spec in encoder_specs(cfg)]
-    return EncDec(Encoder(layers, rmsnorm_init(cfg.d_model, device)), init_lm(cfg, generator))
+    return EncDec(Encoder(layers, rmsnorm_init(cfg.d_model, device)),
+                  init_lm(cfg, generator, device=device))
 
 
 def encode(model: EncDec, frames: torch.Tensor, cfg, *, mode: str = "train") -> torch.Tensor:

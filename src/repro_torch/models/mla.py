@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.quantize import fake_ternary_cols
+from repro_torch.dist.sharding import shard_act
 
 from .attention import NEG_INF, sdpa, tree_step_gate
 from .common import (
@@ -206,7 +207,9 @@ def mla_apply(p: MLA, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
         else:
             _write_dense(cache["ckv"], slots, ckv)
             _write_dense(cache["krope"], slots, k_rope)
-            ckv_cached, krope_cached = cache["ckv"], cache["krope"]
+            new_cache["ckv"] = shard_act(cache["ckv"], "kv_cache")
+            new_cache["krope"] = shard_act(cache["krope"], "kv_cache")
+            ckv_cached, krope_cached = new_cache["ckv"], new_cache["krope"]
 
     if cache is not None and verify and prefill_resume and s > 1:
         # ---- chunked-prefill resume: naive expansion over the cache ------

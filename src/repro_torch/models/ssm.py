@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.sharding import shard_act
+
 from .common import _frozen, gated_rmsnorm_apply, linear_apply, linear_init, rmsnorm_init
 
 
@@ -183,6 +185,6 @@ def ssm_apply(p: SSM, u: torch.Tensor, *, cfg, spec, mode: str = "serve",
 
     new_cache = None
     if cache is not None:
-        new_cache = {"conv": new_hist.to(cache["conv"].dtype), "state": h_fin,
-                     "idx": cache["idx"] + s}
+        new_cache = {"conv": new_hist.to(cache["conv"].dtype),
+                     "state": shard_act(h_fin, "ssm_state"), "idx": cache["idx"] + s}
     return out, new_cache

@@ -16,15 +16,29 @@ the compression pick their per-leaf rules on the JAX stacked layout
 (`models.stacked_shapes`), so both packages treat the same leaves alike. An
 encoder-decoder config trains an `EncDec` on `encdec_loss`, its batches
 carrying the JAX package's stub audio frames (`_stub_frames`).
+
+With ``mesh=`` (a `DeviceMesh` with dims ("data", "model") or ("pod",
+"data", "model"); every rank runs the same program) the training is
+sharded by the `dist.sharding` rules: every rank draws the full tensors
+from the seeded generator, then the parameters become DTensors placed by
+`param_shardings`, the AdamW state (the int8 moments' ``q`` as its
+parameter, ``scale`` without the last axis) and the error feedback by
+`opt_shardings` / `param_shardings`, and each step's global batch — the
+one JAX's single-process trainer reads — by `batch_shardings`. Steps run
+under `use_sharding_ctx` (the models' activation constraints) and DTensor's
+implicit replication of plain tensors (masks, positions, constants); each
+gradient is reduced onto its parameter's placements before the update.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import Checkpointer
@@ -32,6 +46,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.dist.compression import compress_tree, decompress_tree, ef_init
 from repro_torch.dist.fault_tolerance import PreemptionGuard, StragglerMonitor
+from repro_torch.dist.sharding import (
+    batch_shardings,
+    distribute,
+    distribute_tree,
+    full_tensor,
+    opt_shardings,
+    param_shardings,
+    use_sharding_ctx,
+)
 from repro_torch.models import encdec_init, encdec_loss, init_lm, lm_loss, stacked_shapes
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
@@ -71,6 +94,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, tc: TrainConfig):
     def grads_of(model, params, batch):
         loss, metrics = loss_fn(model, batch)
         grads = torch.autograd.grad(loss, list(params.values()))
+        # a sharded parameter's gradient comes back partial or otherwise
+        # placed: reduce it onto the parameter's own placements
+        grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g
+                 for p, g in zip(params.values(), grads)]
         return loss.detach(), metrics, dict(zip(params, grads))
 
     def train_step(model, state, batch):
@@ -107,7 +134,8 @@ class Trainer:
     carried over from another run; by default `init_lm` (`encdec_init`)
     draws them from a ``torch.Generator`` seeded with ``tc.seed`` on
     `device`. A checkpoint in ``tc.checkpoint_dir`` takes precedence over
-    both."""
+    both. `mesh`: shard the training over it (module docstring); its
+    device type must be `device`'s."""
 
     def __init__(
         self,
@@ -119,9 +147,13 @@ class Trainer:
         *,
         device="cuda",
         model=None,
+        mesh=None,
     ):
         self.cfg, self.opt_cfg, self.tc = cfg, opt_cfg, tc
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot train on {self.device}")
         self.data = SyntheticLM(data_cfg)
         self.ckpt = Checkpointer(tc.checkpoint_dir, keep=tc.keep_checkpoints)
         self.guard = PreemptionGuard(install=install_signals)
@@ -142,12 +174,15 @@ class Trainer:
         state = {"params": params, "opt": adamw_init(params, self.opt_cfg, shapes)}
         if self.tc.grad_compression:
             state["ef"] = ef_init(params)
+        if self.mesh is not None:
+            state = self._distribute(state)
         self.state = state
         self.step = 0
         # resume if a checkpoint exists
         latest = self.ckpt.latest_step()
         if latest is not None:
             restored, extra = self.ckpt.restore(self.state, latest)
+            params = self.state["params"]
             with torch.no_grad():
                 for name, p in params.items():
                     p.copy_(restored["params"][name])
@@ -155,6 +190,43 @@ class Trainer:
             self.state = restored
             self.step = latest
             self.data.load_state_dict(extra["data"])
+
+    def _distribute(self, state: dict) -> dict:
+        """The state's tensors as DTensors placed by the sharding rules; the
+        model's parameters are replaced by the distributed ones."""
+        mesh, cfg = self.mesh, self.cfg
+        shard = param_shardings(state["params"], mesh, cfg)
+        with torch.no_grad():
+            for name, p in state["params"].items():
+                owner, leaf = name.rsplit(".", 1)
+                d = distribute(p.detach(), shard[name])
+                setattr(self.model.get_submodule(owner), leaf, torch.nn.Parameter(d))
+        out = {"params": dict(self.model.named_parameters()),
+               "opt": distribute_tree(state["opt"], opt_shardings(state["opt"], mesh, cfg))}
+        if "ef" in state:
+            out["ef"] = distribute_tree(state["ef"], shard)
+        return out
+
+    def _batch(self) -> dict:
+        """The step's global batch, on the device (distributed by
+        `batch_shardings` under a mesh)."""
+        batch = {k: torch.from_numpy(v).to(self.device) for k, v in next(self.data).items()}
+        if self.cfg.family == "encdec":
+            b, s = batch["tokens"].shape
+            batch["frames"] = _stub_frames(self.cfg, b, s, self.tc.seed).to(self.device)
+        if self.mesh is not None:
+            batch = distribute_tree(batch, batch_shardings(batch, self.mesh, self.cfg))
+        return batch
+
+    def _step_ctx(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(use_sharding_ctx(self.mesh, self.cfg))
+        stack.enter_context(implicit_replication())
+        return stack
 
     # ------------------------------------------------------------------
     def save(self, blocking=True):
@@ -173,12 +245,10 @@ class Trainer:
                 self.save(blocking=True)
                 return self.metrics_log
             self.data.step = self.step
-            batch = {k: torch.from_numpy(v).to(self.device) for k, v in next(self.data).items()}
-            if self.cfg.family == "encdec":
-                b, s = batch["tokens"].shape
-                batch["frames"] = _stub_frames(self.cfg, b, s, self.tc.seed).to(self.device)
+            batch = self._batch()
             t0 = time.perf_counter()
-            self.state, metrics = self._step(self.state, batch)
+            with self._step_ctx():
+                self.state, metrics = self._step(self.state, batch)
             self._sync()
             dt = time.perf_counter() - t0
             self.step += 1
@@ -186,7 +256,7 @@ class Trainer:
             if self.step % self.tc.log_every == 0 or self.step == 1:
                 row = {
                     "step": self.step,
-                    "loss": float(metrics["loss"]),
+                    "loss": float(full_tensor(metrics["loss"])),
                     "step_time_s": dt,
                 }
                 self.metrics_log.append(row)

@@ -54,6 +54,13 @@ def test_walk_covers_the_encdec_slice():
             "src/repro_torch/configs/whisper_medium.py"} <= rels
 
 
+def test_walk_covers_the_dist_slice():
+    rels = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"src/repro_torch/dist/sharding.py", "src/repro_torch/dist/compression.py",
+            "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/roofline/analysis.py"} <= rels
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -122,8 +122,8 @@ def test_dispatch_semantics(monkeypatch):
         ops.configure_dispatch(interpret=True)             # a TPU-only knob
     with pytest.raises(ValueError):
         ops.configure_dispatch(fusion="staged")
-    with pytest.raises(NotImplementedError):
-        ops.configure_dispatch(impl="xla")
+    with ops.dispatch_override(impl="xla"):              # the ported shardable path
+        assert ops.dispatch_config().impl == "xla"
     with pytest.raises(ValueError):
         ops.configure_dispatch(impl="onehot")
     assert ops.configure_dispatch(impl=None).impl == "decode"

@@ -168,5 +168,8 @@ def test_lm_logits_and_dots_policy(loss_case):
         h, _, _ = tm.lm_hidden(model, torch.from_numpy(tok), tcfg, mode="eval")
         logits = tm.lm_logits(model, h, tcfg)
     assert logits.shape == (2, 40, tcfg.vocab) and logits.dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        tm.lm_hidden(model, torch.from_numpy(tok), tcfg.with_(remat_policy="dots"))
+    # "dots" recomputes all but the linears' products: the same forward
+    with torch.no_grad():
+        h_dots, _, _ = tm.lm_hidden(model, torch.from_numpy(tok),
+                                    tcfg.with_(remat_policy="dots"), mode="eval")
+    assert torch.equal(h_dots, h)
