@@ -95,7 +95,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    checkpoint written at the last step resumes a second Trainer there with
    the same weights; the loss of one sequence on the card agrees with the
    CPU plain path on the same weights, before and after training. Then
-   one step under torch.profiler (device-busy share).
+   one step under torch.profiler, the device traced alone (device-busy
+   share).
 
 8. multi-token serving, run after phase 5 on phase 4's model and prompts
    (4 slots, max_len 256, 16 new tokens). (a) Both fused kernels against
@@ -121,7 +122,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (ServeStats, whole run), tokens and nodes per step, acceptance, mean
    draft k, chunk steps, and the token counts N the mpGeMM launches saw.
    Then one chain and one tree step of 4 full slots under torch.profiler
-   (device time by kernel, busy share), as phase 4's decode step.
+   (device time by kernel, busy share; the device traced alone).
 9. paged: the paged KV cache (`Engine(paged_kv=PagedKVConfig(...))`, page
    size 16) on phase 4's model, 4 slots and max_len 256, 16 new tokens,
    after phase 8. Every run's counts are zeroed just before it; it must
@@ -287,9 +288,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    trace holds scheduler ticks, decode, chunk and verify steps and
    dispatch spans, none dropped; every dispatch span lies inside a step
    span, or inside a scheduler tick for a whole-prompt admission's
-   prefill (8 x 224 of them). (e) 3 runs with obs off and 3 with obs on,
-   interleaved, in (a)'s configuration: the median host ms per decode step
-   and decode tok/s of each, logged, not gated; and the hook alone on the
+   prefill (8 x 224 of them). (e) A run with obs off, then (a)'s run with
+   obs on, in (a)'s configuration: the host ms per decode step and decode
+   tok/s of each, logged, not gated; and the hook alone on the
    host: one decode tick's 226 events (224 dispatch spans with their tile
    lookups, a step, a tick) recorded 200 times. (f) Per-launch device
    times of kernels #1-#4 at N 4, phase 3's forward timed shape by shape
@@ -330,8 +331,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (lr 3e-4, warmup 5): every loss finite, the last below the first; flash
    launched (24 + 24) x 2 = 96 times a step and no mpGeMM kernel; the
    checkpoint resumes a second Trainer with equal weights; one sequence's
-   loss on the card against the CPU (TRAIN_LOSS_RTOL); one step profiled.
-   The phase's seconds are logged; rows under `encdec`.
+   loss on the card against the CPU (TRAIN_LOSS_RTOL); one step profiled
+   (the device traced alone). The phase's seconds are logged; rows under `encdec`.
 16. dist, after phase 7: the distribution layer (`repro_torch.dist`,
    `launch.mesh`). (a) The "xla" mpGeMM impl (the JAX package's shardable
    path: codes decoded to trits, one f32 product per 512 K-groups, exact,
@@ -350,8 +351,38 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    `Trainer` of the same 3 steps: losses and final parameters bit-equal
    (every placement is Replicate at world 1), the flash kernel launched
    2 x 32 x 3 times inside the sharded steps and no mpGeMM kernel; the step
-   ms and one profiled step's busy share beside phase 7's. The process
-   group is destroyed at the end. Rows under `dist`.
+   ms and one profiled step's busy share (the device traced alone) beside
+   phase 7's. The process group is destroyed at the end. Rows under `dist`.
+17. autotune, after every other phase: the measured launch-plan choice
+   (`kernels.autotune`). Phases 3-16 run on an empty plan cache under
+   build/ with inline tuning off, so they launch the heuristic plans.
+   (a) That cache was never written, and `launch_tiles` reports today's
+   heuristic plan for smollm-360m's segments at N 4 and 64. (b) Into a
+   fresh cache under build/, with an `Obs` installed: kernels #1-#4 at
+   smollm-360m's 4 distinct segments at N 4 and 64 and at whisper-medium's
+   encoder's 6 at N 6000, and the fused grouped pair at llama4-scout's 3
+   expert segments at C 4 (62 problems): every candidate plan (at most 32,
+   today's first; each legal under the kernels' C checks) launched and
+   held bit-equal to the heuristic plan's output, the heuristic plan's
+   output to the plain version on the same operands (the vector-LUT
+   pair's at N 6000 to the decode pair's plain version: the same exact
+   integers, a gather of ~1 s a call spared), then timed by CUDA-graph
+   replay (each launch after a 50 MB L2 flush where the operands fit in
+   it); the heuristic plan's and the winner's ms logged. (c) Every tuned
+   key reread through `get_plan` with no timing (the trial counter stays
+   put), and from a fresh `PlanCache` on the file: the same plans. (d)
+   Phase 4's serving, both fused impls, on the same weights (seed 0) with
+   the tuned cache, impl="decode" after a run with the empty one (the
+   host's speed drifts over the script): phase 4's greedy tokens, 224
+   launches a forward, decode tok/s logged. (e) whisper-medium's
+   encoder's 336 launches at N 6000 under the tuned plans (each launch
+   reporting its tuned plan), #1-#4, by graph replay beside phase 15's.
+   (f) Each winner one `repro:mpgemm_kernel_seconds` sample of the
+   installed `Obs`. The launch counters are restored at the end; rows
+   under `autotune`.
+
+Each log line starts with the seconds since the script began; each
+phase's seconds are logged and kept under `phase_seconds`.
 
 Output: a `kernels` JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}. Details go to
@@ -364,6 +395,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -481,11 +513,12 @@ SYSTEM_PROMPT = 128
 OFFLOAD_PAGES, OFFLOAD_HOST_PAGES, OFFLOAD_PROMPT = 17, 64, 128
 CPU_SEQ = 256
 # Phase 14 (observability): obs-off and obs-on serving runs, interleaved,
-# for the cost of the layer, and the hook alone over OBS_HOOK_TICKS decode
-# ticks' events. An achieved-GB/s gauge (the bytes a launch must move over
+# for the cost of the layer (one pair: its ±15% host noise is recorded
+# since PR 23), and the hook alone over OBS_HOOK_TICKS decode ticks'
+# events. An achieved-GB/s gauge (the bytes a launch must move over
 # its device time) above the card's HBM rate by more than timing noise
 # would mean a wrong byte count or a wrong time.
-OBS_COST_RUNS = 3
+OBS_COST_RUNS = 1
 OBS_HOOK_TICKS = 200
 OBS_GBPS_SLACK = 1.05
 OBS_TRACE_NAMES = ("scheduler_tick", "engine_step/decode", "engine_step/chunk",
@@ -616,6 +649,11 @@ ENCDEC_FLASH = ((8, 112, 16, 16, 64, False), (8, 448, 16, 16, 64, True))
 # Phase 16 (dist): the "xla" impl's token counts (phase 15's) and the world-1
 # sharded trainer's steps
 XLA_TOKENS = ENCDEC_TOKENS
+# phase 17: the plan cache of phases 3-16 (never written: nothing tunes
+# there) and the one phase 17 tunes into, both under build/
+PLANS_DIR = ROOT / "build" / "chip_smoke_plans"
+AUTOTUNE_TOKENS = (DECODE_N, 64)        # smollm-360m's segments are tuned at these N
+AUTOTUNE_C = 4                          # llama4-scout's expert rows, tuned at C 4
 DIST_STEPS = 3
 # bf16 model, 32 layers, QAT: the CPU and the card round bf16 intermediates
 # after sums in another order, and an int8 activation code at a rounding
@@ -630,8 +668,12 @@ TRAIN_LOSS_RTOL = 0.02
 LOGIT_RTOL = 0.05
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, after the seconds since the script began."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def device_line() -> str:
@@ -1253,36 +1295,48 @@ def check_unfused(torch, model, cfg, weights, prompts, counters, fused_runs, per
             "serve": runs, "per_tokens": per_n_unfused, "compare": compare}
 
 
-def device_time_by_kernel(prof, steps: int) -> list:
+def device_time_by_kernel(averages, steps: int) -> list:
     """[(device ms per step, kernel name)], largest first: the device-side
-    entries of `prof` (CPU ops carry their kernels' time too)."""
+    entries of a trace's `key_averages()` (CPU ops carry their kernels'
+    time too). Each profile takes its averages once: on a training step's
+    trace one pass costs ~10 s of host time."""
     def dev_us(ev):
         return getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
 
-    return sorted(((dev_us(ev) / steps / 1e3, ev.key) for ev in prof.key_averages()
+    return sorted(((dev_us(ev) / steps / 1e3, ev.key) for ev in averages
                    if str(ev.device_type).endswith("CUDA") and dev_us(ev) > 0), reverse=True)
 
 
-def op_device_ms(prof, steps: int, names=("aten::index", "aten::index_put_")) -> dict:
+def device_only():
+    """The profiler's activities where only the kernels' device time is
+    read: the device alone. Tracing the host's ops too costs each op its
+    record (a step's wall time grows) and the trace's averages ~2.5x the
+    host time (a training step's ~20 s against ~8)."""
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CUDA]
+
+
+def op_device_ms(averages, steps: int, names=("aten::index", "aten::index_put_")) -> dict:
     """{op: [device ms per step, calls per step]} of the named CPU ops (the
-    device time of the kernels each launched); ops absent from the trace
-    are left out."""
+    device time of the kernels each launched) in a trace's `key_averages()`;
+    ops absent from the trace are left out."""
     out = {}
-    for ev in prof.key_averages():
+    for ev in averages:
         if ev.key in names:
             us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
             out[ev.key] = [us / steps / 1e3, ev.count / steps]
     return out
 
 
-def profile_decode(torch, model, cfg, prompts, steps: int = 4, spec=None, paged=None,
+def profile_decode(torch, model, cfg, prompts, steps: int = 2, spec=None, paged=None,
                    op_names=("aten::index", "aten::index_put_")) -> dict:
     """Where a decode step's time goes: `torch.profiler` over `steps`
     batched decode steps of 4 full slots (impl="decode"; with `spec`, each
     step is draft, verify and accept; with `paged`, a PagedKVConfig, the
     cache is paged). Device time by kernel, the device's busy share of the
-    wall time, the wall time per step, and the device time of the indexed
-    gathers and scatters."""
+    wall time, the wall time per step, and the device time of the
+    `op_names` (with none, the profiler traces the device only)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Engine, Request
@@ -1295,19 +1349,21 @@ def profile_decode(torch, model, cfg, prompts, steps: int = 4, spec=None, paged=
     eng.decode_once()
     eng.decode_once()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if op_names else device_only()
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.decode_once()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
-    by_name = device_time_by_kernel(prof, steps)
+    averages = prof.key_averages()
+    by_name = device_time_by_kernel(averages, steps)
     device_ms = sum(ms for ms, _ in by_name)
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms if device_ms else None,
             "top_kernels_ms_per_step": [[name[:90], ms] for ms, name in by_name[:8]],
-            "op_device_ms_per_step": op_device_ms(prof, steps, op_names)}
+            "op_device_ms_per_step": op_device_ms(averages, steps, op_names)}
 
 
 def clone_cache(cache: list) -> list:
@@ -1705,7 +1761,7 @@ def check_multi_token(torch, model, cfg, weights, prompts, counters, ref_tokens)
                              f"< {ORACLE_MIN_ACCEPT}")
     profiles = {}
     for name in ("chain_ngram", "tree_ngram"):
-        prof = profile_decode(torch, model, cfg, prompts, spec=runs[name]["spec"])
+        prof = profile_decode(torch, model, cfg, prompts, spec=runs[name]["spec"], op_names=())
         profiles[name] = prof
         log(f"multi: profile of a {name} step (4 slots): wall {prof['wall_ms_per_step']:.3f} ms, "
             f"device busy {prof['device_ms_per_step']:.3f} ms"
@@ -3075,7 +3131,7 @@ def packed_linears(module) -> list:
     return [m for m in module.modules() if isinstance(m, PackedLinear)]
 
 
-def forward_launch_ms(torch, lins, n: int, gen, plain_lins=None) -> dict:
+def forward_launch_ms(torch, lins, n: int, gen, plain_lins=None, yardsticks: bool = True) -> dict:
     """Device ms of one forward's mpGeMM launches at N tokens (the
     BitLinears `lins`, each packed segment one launch: the codes stream
     from memory as in serving), for both fused kernels (CUDA-graph replay,
@@ -3085,7 +3141,8 @@ def forward_launch_ms(torch, lins, n: int, gen, plain_lins=None) -> dict:
     f32 partials, as `ops._mpgemm_tokens` does. `plain_lins` (default
     `lins`): the linears whose launches the plain versions are timed on
     (phase 15 times them on one layer at N 6000: the plain vector-LUT
-    gather takes ~1 s a linear there). Phases 3, 12, 13 and 15."""
+    gather takes ~1 s a linear there). `yardsticks=False`: the kernels'
+    graph replays alone (phase 17 (e)). Phases 3, 12, 13, 15 and 17."""
     from repro_torch.core import act_token_scale
     from repro_torch.kernels import ops
 
@@ -3119,10 +3176,13 @@ def forward_launch_ms(torch, lins, n: int, gen, plain_lins=None) -> dict:
             fn(p, x, a, w, g=g, out_dtype=dt)
 
     for name, (kern, plain) in fused_kernels().items():
-        row[name] = {"ms": device_ms(torch, lambda kern=kern: run(kern)),
-                     "eager_ms": eager_ms(torch, lambda kern=kern: run(kern)),
-                     "plain_ms": device_ms(torch, lambda plain=plain: run(plain, plain_launches),
-                                           reps=1)}
+        row[name] = {"ms": device_ms(torch, lambda kern=kern: run(kern))}
+        if yardsticks:
+            row[name]["eager_ms"] = eager_ms(torch, lambda kern=kern: run(kern))
+            row[name]["plain_ms"] = device_ms(
+                torch, lambda plain=plain: run(plain, plain_launches), reps=1)
+    if not yardsticks:
+        return row
     dense = [(xs[lin.pw.K], lin.pw.unpack().to(torch.bfloat16)
               .mul_(lin.scale[:, None].to(torch.bfloat16)).T.contiguous()) for lin in lins]
     row["library_ms"] = device_ms(torch, lambda: [x @ d for x, d in dense])
@@ -3130,14 +3190,15 @@ def forward_launch_ms(torch, lins, n: int, gen, plain_lins=None) -> dict:
     return row
 
 
-def int_forward_launch_ms(torch, lins, n: int, gen, plain_lins=None) -> dict:
+def int_forward_launch_ms(torch, lins, n: int, gen, plain_lins=None,
+                          yardsticks: bool = True) -> dict:
     """`forward_launch_ms` for the two integer kernels (#3, #4): each packed
     segment's launch on its int8 activations, quantized and de-interleaved
     as the unfused pipeline does, beside the bound (codes, int8
     activations and int32 output vs int8 ops), the plain versions (on
     `plain_lins`' launches) and `torch._int_mm` on the unpacked int8
-    weights where its shape rules hold (N > 16; a yardstick only).
-    Phase 15."""
+    weights where its shape rules hold (N > 16; a yardstick only);
+    `yardsticks=False`: the kernels alone. Phases 15 and 17."""
     from repro_torch.core import act_quant_tokens
     from repro_torch.kernels import ops
 
@@ -3163,11 +3224,12 @@ def int_forward_launch_ms(torch, lins, n: int, gen, plain_lins=None) -> dict:
             fn(p, a, g=g)
 
     for name, (kern, plain) in int_kernels().items():
-        row[name] = {"ms": device_ms(torch, lambda kern=kern: run(kern)),
-                     "plain_ms": device_ms(torch, lambda plain=plain: run(plain, plain_launches),
-                                           reps=1)}
+        row[name] = {"ms": device_ms(torch, lambda kern=kern: run(kern))}
+        if yardsticks:
+            row[name]["plain_ms"] = device_ms(
+                torch, lambda plain=plain: run(plain, plain_launches), reps=1)
     row["library_ms"] = None
-    if n > 16:   # torch._int_mm's shape rules: more than 16 rows, K and M multiples of 8
+    if n > 16 and yardsticks:   # torch._int_mm's shape rules: more than 16 rows, K and M multiples of 8
         qs = {k: q.T.contiguous() for k, q in a_qs.items()}           # (N, K)
         w_int8 = [(qs[lin.pw.K], lin.pw.unpack().T) for lin in lins]
         row["library_ms"] = device_ms(torch, lambda: [torch._int_mm(q, w) for q, w in w_int8])
@@ -3372,7 +3434,7 @@ def new_arch_profile(torch, model, cfg, prompts, label: str) -> dict:
     """Phases 12 and 13 (e): one decode step of 4 full slots under
     torch.profiler (wall and device ms, busy share, device ms by kernel),
     and the f32 head's device ms on its own (`head_ms`)."""
-    prof = profile_decode(torch, model, cfg, [p for p in prompts if len(p) <= 64])
+    prof = profile_decode(torch, model, cfg, [p for p in prompts if len(p) <= 64], op_names=())
     prof["head"] = head_ms(torch, model, cfg)
     dev_ms = prof["device_ms_per_step"]
     prof["head"]["share"] = prof["head"]["ms"] / dev_ms if dev_ms else None
@@ -3833,7 +3895,7 @@ def encdec_serving(torch, model, cfg, counters) -> dict:
     """Phase 15 (b): serving with both impls (identical tokens), the
     encoder's and the decoder prefill's device time apart, the card against
     the CPU, the cross-attention cache, one decode step profiled."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -3877,12 +3939,12 @@ def encdec_serving(torch, model, cfg, counters) -> dict:
                         {"tokens": prompts, "frames": frames})
         nt, cache = dec(model, cache, nt[:, None])
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=device_only()) as prof:
             t0 = time.perf_counter()
             dec(model, cache, nt[:, None])
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = device_time_by_kernel(prof, 1)
+    by_name = device_time_by_kernel(prof.key_averages(), 1)
     dev_ms = sum(ms for ms, _ in by_name)
     out["decode_profile"] = {"wall_ms": wall_ms, "device_ms": dev_ms,
                              "device_busy_share": dev_ms / wall_ms if dev_ms else None,
@@ -3981,7 +4043,7 @@ def encdec_train(torch, counters) -> dict:
     times a step (remat runs each layer's forward again) and no mpGeMM
     kernel; the checkpoint resumes a second Trainer with equal weights; the
     card against the CPU on one sequence; one step's busy share."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -4050,12 +4112,12 @@ def encdec_train(torch, counters) -> dict:
     batch = {k: torch.from_numpy(x).cuda() for k, x in SyntheticLM(dc).batch_at(steps).items()}
     batch["frames"] = frames.cuda()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=device_only()) as prof:
         t0 = time.perf_counter()
         tr._step(tr.state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = device_time_by_kernel(prof, 1)
+    by_name = device_time_by_kernel(prof.key_averages(), 1)
     dev_ms = sum(ms for ms, _ in by_name)
     res["profile"] = {"wall_ms": wall_ms, "device_ms": dev_ms,
                       "device_busy_share": dev_ms / wall_ms if dev_ms else None,
@@ -4292,7 +4354,7 @@ def cpu_loss_check(torch, model, cfg, batch) -> dict:
 def train(torch, counters) -> dict:
     """Phase 7: QAT training of full-width smollm-360m through the flash
     kernel, checkpoint and resume, card vs CPU loss, one profiled step."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -4362,14 +4424,15 @@ def train(torch, counters) -> dict:
     # one step under the profiler
     batch = {k: torch.from_numpy(x).cuda() for k, x in SyntheticLM(dc).batch_at(TRAIN_STEPS).items()}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=device_only()) as prof:
         t0 = time.perf_counter()
         tr._step(tr.state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = device_time_by_kernel(prof, 1)
+    averages = prof.key_averages()
+    by_name = device_time_by_kernel(averages, 1)
     dev_ms = sum(ms for ms, _ in by_name)
-    n_kernels = sum(ev.count for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA"))
+    n_kernels = sum(ev.count for ev in averages if str(ev.device_type).endswith("CUDA"))
     res["profile"] = {"wall_ms": wall_ms, "device_ms": dev_ms, "device_kernels": n_kernels,
                       "device_busy_share": dev_ms / wall_ms if dev_ms else None,
                       "top_kernels_ms": [[name[:90], ms] for ms, name in by_name[:10]]}
@@ -4452,7 +4515,7 @@ def dist_train(torch, counters, trained) -> dict:
 
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Replicate
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -4510,13 +4573,13 @@ def dist_train(torch, counters, trained) -> dict:
         batch = {k: torch.from_numpy(x).cuda() for k, x in SyntheticLM(dc).batch_at(0).items()}
         batch = distribute_tree(batch, batch_shardings(batch, mesh, cfg))
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=device_only()) as prof:
             t0 = time.perf_counter()
             with sharded._step_ctx():
                 sharded._step(sharded.state, batch)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        dev_ms = sum(ms for ms, _ in device_time_by_kernel(prof, 1))
+        dev_ms = sum(ms for ms, _ in device_time_by_kernel(prof.key_averages(), 1))
         out = {"losses": runs["mesh"]["losses"], "param_max_abs_diff": diff,
                "launches": runs["mesh"]["launches"],
                "placements": [str(pl) for pl in next(iter(placements))],
@@ -4595,6 +4658,228 @@ def check_dist(torch, counters, unfused, trained) -> dict:
     log(f"dist: phase 16 took {out['seconds']:.1f} s")
     return out
 
+def autotune_problems(torch) -> list:
+    """Phase 17 (b)'s problems, (model, kernel family, fused, g, M, KG, N, E,
+    output dtype): kernels #1-#4 at smollm-360m's distinct segments at N 4
+    and 64 and at whisper-medium's encoder segments at N 6000, and the
+    fused grouped pair at llama4-scout's expert segments at C 4; the
+    output dtype the main path gives each (f32 partials where a weight has
+    two segments)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import pack_group_sizes
+
+    def segments(k):
+        return [(kg, g) for kg, g in zip(pack_group_sizes(k), (5, 4)) if kg]
+
+    out = []
+    wcfg = get_config(ENCDEC_ARCH)
+    d, f = wcfg.d_model, wcfg.d_ff
+    for label, shapes, tokens in (("smollm-360m", SHAPES, AUTOTUNE_TOKENS),
+                                  (ENCDEC_ARCH, ((d, d), (f, d), (d, f)),
+                                   (ENCDEC_BATCH * ENCDEC_FRAMES,))):
+        for m, k in shapes:
+            segs = segments(k)
+            out_dt = torch.bfloat16 if len(segs) == 1 else torch.float32
+            for kg, g in segs:
+                for n in tokens:
+                    for impl in IMPLS:
+                        for fused in (True, False):
+                            out.append((label, impl, fused, g, m, kg, n, None, out_dt))
+    two_segments = {m for e, m, kg, g in MAIN_GROUPED_SEGMENTS[:3] if g == 4}
+    for e, m, kg, g in MAIN_GROUPED_SEGMENTS[:3]:
+        out_dt = torch.float32 if m in two_segments else torch.bfloat16
+        for impl in IMPLS:
+            out.append((MOE_ARCH, f"{impl}_grouped", True, g, m, kg, AUTOTUNE_C, e, out_dt))
+    return out
+
+
+def autotune_plain(kernel: str, fused: bool, n: int):
+    """The plain version phase 17 holds a family's heuristic plan to: its
+    own, except the vector-LUT pair's at whisper's N 6000, where its gather
+    takes ~1 s a call: there the decode pair's (one f32 product of exact
+    integers: the same integers, so the same outputs bit for bit)."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+
+    own = kernel.startswith("lookup") and n <= 256
+    if fused:
+        return vlg.vlut_lookup_gemm_fused_plain if own else tdg.ternary_decode_gemm_fused_plain
+    return vlg.vlut_lookup_gemm_plain if own else tdg.ternary_decode_gemm_plain
+
+
+def check_autotune(torch, counters, prompts, ref_runs, encdec) -> dict:
+    """Phase 17: the measured launch-plan choice (`kernels.autotune`), after
+    every other phase. (a) The plan cache of phases 3-16 was never
+    written, and every smollm-360m launch at N 4 and 64 reports today's
+    heuristic plan. (b) Each of `autotune_problems` tuned into a fresh cache
+    under build/: every candidate held bit-equal to the heuristic plan's
+    output (inside `tune`), the heuristic plan's output to the plain
+    version on the same operands, and the heuristic and winning plans' ms
+    logged. (c) `get_plan` rereads every tuned key with no timing, and a
+    fresh `PlanCache` on the file gives the same plans. (d) Phase 4's
+    serving, both fused impls, on the same weights with the tuned cache
+    (impl="decode" after a run with the empty cache): phase 4's greedy
+    tokens, 224 launches a forward. (e) whisper-medium's
+    encoder's 336 launches at N 6000 under the tuned plans, #1-#4, by graph
+    replay beside phase 15's. (f) Each winner is a
+    `repro:mpgemm_kernel_seconds` sample of the installed `Obs`. The launch
+    counters are restored at the end."""
+    from repro_torch import obs as obs_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+    from repro_torch.models import init_lm, pack_params
+
+    t_phase = time.perf_counter()
+    saved = {name: fn.launches for name, fn in counters.items()}
+    dev = torch.device("cuda")
+    cfg = get_config("smollm-360m")
+    model = pack_params(init_lm(cfg, torch.Generator(device="cuda").manual_seed(0)), cfg)
+    weights = layer_weights(model.layers[0])
+
+    # (a) the cold cache
+    cold = autotune.default_cache()
+    if pathlib.Path(cold.path).exists():
+        raise AssertionError(f"autotune: phases 3-16 wrote the plan cache {cold.path}")
+    for (m, k), pw in sorted(weights.items()):
+        for n in AUTOTUNE_TOKENS:
+            dp, lp = tdg.decode_plan(m, k // 5, n, 5), vlg.lut_plan(m, k // 5, n, 5)
+            for impl, want in (("decode", [f"g5 {dp.bm}x{dp.bn} s{dp.splits} k{dp.kstep}"]),
+                               ("lookup", [f"g5 bm{lp.bm} s{lp.splits} c{lp.chunk}"])):
+                if ops.launch_tiles(pw, n, impl) != want:
+                    raise AssertionError(f"autotune: cold plan of {impl} ({m}, {k}) N {n}: "
+                                         f"{ops.launch_tiles(pw, n, impl)}, today's {want}")
+    log(f"autotune: (a) cold cache {cold.path} never written; smollm's launches at N "
+        f"{AUTOTUNE_TOKENS} report today's heuristic plans")
+
+    # (b) tune, with an Obs installed for (f)
+    tuned_path = PLANS_DIR / "plans.json"
+    cache = autotune.reset_default_cache(str(tuned_path))
+    observed = obs_mod.Obs(obs_mod.ObsConfig())
+    obs_mod.install(observed)
+    rows, winners = [], []
+    t0 = time.perf_counter()
+    for label, kernel, fused, g, m, kg, n, e, out_dt in autotune_problems(torch):
+        bench = autotune.default_benchmark(kernel, g, m, kg, n, e=e, fused=fused, device=dev,
+                                           dtype=torch.bfloat16, out_dtype=out_dt)
+        kw = {"g": g, "out_dtype": out_dt} if fused else {"g": g}
+        want = autotune_plain(kernel, fused, n)(*bench.inputs, **kw)
+        if not torch.equal(bench.reference, want):
+            raise AssertionError(f"autotune: {kernel} fused={fused} ({m}, {kg}, {n}, g{g}, E {e}): "
+                                 "the heuristic plan's output differs from the plain version")
+        del want
+        res = autotune.tune(kernel, g, m, kg, n, e=e, fused=fused, device=dev, benchmark=bench)
+        heur = autotune.heuristic(kernel, g, m, kg, n, e=e)
+        (first, heur_s), *_ = res.trials
+        if autotune.fields_of(kernel, first) != autotune.fields_of(kernel, heur):
+            raise AssertionError(f"autotune: the heuristic plan {heur} was not timed first")
+        row = {"model": label, "kernel": kernel, "fused": fused, "g": g, "m": m, "kg": kg,
+               "n": n, "e": e, "out_dtype": str(out_dt).split(".")[-1],
+               "candidates": len(res.trials), "heuristic": autotune.describe(heur),
+               "heuristic_ms": heur_s * 1e3, "winner": autotune.describe(res.plan),
+               "winner_ms": res.seconds * 1e3, "ratio": heur_s / res.seconds}
+        rows.append(row)
+        winners.append(res.seconds / (e or 1))
+        log(f"autotune: (b) {label} {kernel} {'fused' if fused else 'integer'} g{g} M {m} KG {kg} "
+            f"N {n}" + (f" E {e}" if e else "") + f": {row['candidates']} candidates, heuristic "
+            f"{row['heuristic']} {row['heuristic_ms']:.4f} ms, winner {row['winner']} "
+            f"{row['winner_ms']:.4f} ms ({row['ratio']:.3f}x)")
+        del bench
+    tune_s = time.perf_counter() - t0
+    obs_mod.install(None)
+
+    # (c) persistence: reread with no timing, and from a fresh instance
+    trials = autotune.tune.trials
+    fresh = autotune.PlanCache(str(tuned_path))
+    for r, (_, kernel, fused, g, m, kg, n, e, _) in zip(rows, autotune_problems(torch)):
+        for c in (cache, fresh):
+            p = autotune.get_plan(kernel, g, m, kg, n, e=e, fused=fused, device=dev, cache=c,
+                                  tune_if_missing=True)
+            if autotune.describe(p) != r["winner"]:
+                raise AssertionError(f"autotune: reread {autotune.describe(p)}, tuned {r['winner']}")
+    if autotune.tune.trials != trials:
+        raise AssertionError(f"autotune: rereading ran {autotune.tune.trials - trials} trials")
+    log(f"autotune: (c) {len(rows)} tuned keys reread (this cache and a fresh one on "
+        f"{tuned_path.relative_to(ROOT)}) with 0 trials")
+
+    # (f) every winner a sample of the installed Obs (which keeps positive
+    # seconds only: a winner at or below the flush's noise has none)
+    samples = [v for mt in observed.registry.all() if mt.name == "repro:mpgemm_kernel_seconds"
+               for v in mt.samples]
+    if sorted(samples) != sorted(w for w in winners if w > 0):
+        raise AssertionError(f"autotune: {len(samples)} kernel samples, {len(winners)} winners")
+    log(f"autotune: (f) {len(samples)} repro:mpgemm_kernel_seconds samples, one per winner "
+        f"({sum(w <= 0 for w in winners)} winners at or below 0 s)")
+
+    # (d) phase 4's serving with the tuned cache, impl="decode" after a run
+    # with the empty one: serving is host-bound and the host's speed drifts
+    # over the script, so phase 4's rates are no yardstick here
+    serving = {}
+    for impl, runs in (("decode", (("heuristic", cold.path), ("tuned", str(tuned_path)))),
+                       ("lookup", (("tuned", str(tuned_path)),))):
+        name = single_kernel(impl)
+        for plans, path in runs:
+            autotune.reset_default_cache(path)
+            r = serve(torch, model, cfg, impl, prompts, counters)
+            want = {nm: (224 * r["forwards"] if nm == name else 0) for nm in counters}
+            if r["launches"] != want:
+                raise AssertionError(f"autotune: impl={impl} ({plans} plans) launches "
+                                     f"{r['launches']}, expected {want}")
+            if r["tokens"] != ref_runs[impl]["tokens"]:
+                raise AssertionError(f"autotune: impl={impl} with {plans} plans left phase 4's "
+                                     "tokens")
+            row = serving.setdefault(impl, {})[plans] = {k: v for k, v in r.items()
+                                                         if k != "tokens"}
+            row["tiles_n4"] = {f"{m}x{k}": ops.launch_tiles(pw, DECODE_N, impl)
+                               for (m, k), pw in sorted(weights.items())}
+            log(f"autotune: (d) impl={impl} {plans} plans: phase 4's tokens, launches "
+                f"{r['launches'][name]} = 224 x {r['forwards']}; decode_tok_s "
+                f"{r['decode_tok_s']:.1f}, prefill_tok_s {r['prefill_tok_s']:.1f} (phase 4 "
+                f"{ref_runs[impl]['decode_tok_s']:.1f}, {ref_runs[impl]['prefill_tok_s']:.1f}); "
+                f"plans at N 4 {row['tiles_n4']}")
+    if pathlib.Path(cold.path).exists():
+        raise AssertionError(f"autotune: serving with the empty cache wrote {cold.path}")
+    del model, weights
+    torch.cuda.empty_cache()
+
+    # (e) whisper's encoder under the tuned plans
+    _, wmodel, _ = encdec_model(torch)
+    enc_lins = packed_linears(wmodel.encoder)
+    n = ENCDEC_BATCH * ENCDEC_FRAMES
+    winner = {(r["kernel"], r["fused"], r["m"], r["kg"], r["n"]): r["winner"] for r in rows}
+    for lin in enc_lins:
+        for impl in IMPLS:
+            for fused in (True, False):
+                want = [winner[impl, fused, lin.pw.M, packed.shape[1], n]
+                        for packed, _, _, _ in ops._segments(lin.pw)]
+                got = ops.launch_tiles(lin.pw, n, impl, fusion="fused" if fused else "unfused")
+                if got != want:
+                    raise AssertionError(f"autotune: encoder launch plans {got}, tuned {want}")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    enc = {**forward_launch_ms(torch, enc_lins, n, gen, yardsticks=False),
+           **int_forward_launch_ms(torch, enc_lins, n, gen, yardsticks=False)}
+    before = {**encdec["kernels"]["forward_ms"]["encoder"],
+              **encdec["kernels"]["int_forward_ms"]["encoder"]}
+    names = [*fused_kernels(), *int_kernels()]
+    encoder = {nm: {"ms": enc[nm]["ms"], "phase15_ms": before[nm]["ms"]} for nm in names}
+    encoder["launches"] = enc["launches"]
+    if enc["launches"] != ENCDEC_LAUNCHES["encoder"]:
+        raise AssertionError(f"autotune: whisper's encoder timed {enc['launches']} launches")
+    log(f"autotune: (e) whisper's encoder, {enc['launches']} launches at N {n} under tuned plans: "
+        + ", ".join(f"{nm} {encoder[nm]['ms']:.4f} ms (phase 15 {encoder[nm]['phase15_ms']:.4f})"
+                    for nm in names))
+    del wmodel, enc_lins
+    torch.cuda.empty_cache()
+
+    for name, fn in counters.items():
+        fn.launches = saved[name]
+    out = {"tuned": rows, "tune_s": tune_s, "cache": str(tuned_path.relative_to(ROOT)),
+           "serve": serving, "encoder": encoder,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"autotune: phase 17 took {out['seconds']:.1f} s (tuning {tune_s:.1f} s)")
+    return out
+
 
 def main() -> int:
     import torch
@@ -4606,7 +4891,7 @@ def main() -> int:
         import numpy as np
 
         from repro_torch.configs import get_config
-        from repro_torch.kernels import _build
+        from repro_torch.kernels import _build, autotune
         from repro_torch.kernels import ternary_decode_gemm as tdg
         from repro_torch.kernels import vlut_lookup_gemm as vlg
         from repro_torch.kernels.flash_attention import flash_attention
@@ -4626,6 +4911,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    # phases 3-16 launch the heuristic plans: an empty plan cache under
+    # build/ (never the user's), and no inline tuning
+    shutil.rmtree(PLANS_DIR, ignore_errors=True)
+    os.environ.pop(autotune.TUNE_ENV, None)
+    autotune.reset_default_cache(str(PLANS_DIR / "cold.json"))
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        phase_s[name] = time.perf_counter() - t_phase
+        log(f"phase {name} took {phase_s[name]:.1f} s")
+        t_phase = time.perf_counter()
 
     # 1. device
     card = device_line()
@@ -4657,8 +4955,11 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"model: {cfg.name} {cfg.dtype}, {cfg.n_layers} layers, packed in {time.perf_counter() - t0:.1f} s")
 
+    phase_done("1-2 and the model")
+
     # 3. kernels
     max_err, per_n, weights, fused_traps = check_kernels(torch, model, cfg)
+    phase_done("3")
 
     # 4. serve
     rng = np.random.default_rng(0)
@@ -4715,20 +5016,26 @@ def main() -> int:
     log(f"serve: prefill_tok_s={r['prefill_tok_s']:.1f} decode_tok_s={r['decode_tok_s']:.1f} "
         f"ttft_p50_ms={r['ttft_p50_ms']:.2f} wall_s={r['wall_s']:.3f}")
 
+    phase_done("4")
+
     # 5. unfused
     unfused = check_unfused(torch, model, cfg, weights, prompts, counters, runs, per_n)
+    phase_done("5")
 
     # 8. multi-token serving (on phase 4's model, before it is freed)
     multi, multi_tokens = check_multi_token(torch, model, cfg, weights, prompts, counters,
                                             runs["decode"]["tokens"])
+    phase_done("8")
 
     # 9. paged KV cache (on phase 4's model, after phase 8)
     paged, paged_tokens = check_paged(torch, model, cfg, prompts, counters,
                                       runs["decode"]["tokens"], multi_tokens, prof)
+    phase_done("9")
 
     # 14. observability (on phase 4's model, after phase 9)
     observed = check_obs(torch, model, cfg, prompts, counters, runs["decode"]["tokens"],
                          multi_tokens, paged, paged_tokens)
+    phase_done("14")
 
     del model, cpu_model, weights
     torch.cuda.empty_cache()
@@ -4736,28 +5043,41 @@ def main() -> int:
     # 10. MoE FFN: llama4-scout at full width (after phase 9; its model is
     # freed before phase 11)
     moe = check_moe(torch, counters)
+    phase_done("10")
 
     # 11. MLA: deepseek-v3-671b at full width, depth cut (its model is freed
     # before phases 6 and 7)
     mla = check_mla(torch, counters)
+    phase_done("11")
 
     # 12. SSM: mamba2-1.3b at full width and depth; 13. windowed GQA:
     # gemma3-1b at full width and depth (each model freed after its phase)
     ssm = check_ssm(torch, counters)
+    phase_done("12")
     windowed = check_windowed(torch, counters)
+    phase_done("13")
 
     # 15. the encoder-decoder: whisper-medium at full width and depth, its
     # serving steps and its QAT training (its model freed before phase 6)
     encdec = check_encdec(torch, counters)
+    phase_done("15")
 
     # 6. flash
     flash = check_flash(torch)
+    phase_done("6")
 
     # 7. train
     trained = train(torch, counters)
+    phase_done("7")
 
     # 16. dist: the xla impl and the world-1 sharded trainer (after phase 7)
     dist_out = check_dist(torch, counters, unfused, trained)
+    phase_done("16")
+
+    # 17. the measured launch-plan choice (after every other phase: its
+    # plans would change what phases 3-16 launch)
+    tuned = check_autotune(torch, counters, prompts, runs, encdec)
+    phase_done("17")
 
     def kernel_row(name, meta):
         if meta["fusion"] == "fused":
@@ -4829,8 +5149,8 @@ def main() -> int:
         "paged": paged,
         "obs": observed,
         "moe": moe, "mla": mla, "ssm": ssm, "windowed": windowed, "encdec": encdec,
-        "flash": flash, "train": trained, "dist": dist_out,
-        "seconds": time.perf_counter() - t_start,
+        "flash": flash, "train": trained, "dist": dist_out, "autotune": tuned,
+        "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kern_line))

@@ -1,11 +1,13 @@
 """repro_torch.kernels — the Vec-LUT mpGeMM kernels (fused, and the
 unfused pipeline's integer twins, each also grouped over stacked experts)
 and the flash-attention forward (CUDA, built at first use by `_build`),
-their plain PyTorch versions, and the mpGeMM dispatch. Three wrappers stay in their submodules, which keep the
+their plain PyTorch versions, the mpGeMM dispatch and the measured choice
+of their launch plans (`autotune`). Three wrappers stay in their submodules, which keep the
 names: `kernels.flash_attention.flash_attention`,
 `kernels.ternary_decode_gemm.ternary_decode_gemm` and
 `kernels.vlut_lookup_gemm.vlut_lookup_gemm` (the JAX package exports them
 at the package level, shadowing its submodules)."""
+from . import autotune
 from .flash_attention import flash_attention_plain, flash_attention_trainable
 from .ops import (
     DispatchConfig,
@@ -34,6 +36,7 @@ from .vlut_lookup_gemm import (
 )
 
 __all__ = [
+    "autotune",
     "flash_attention_plain", "flash_attention_trainable",
     "DispatchConfig", "configure_dispatch", "dispatch_config",
     "dispatch_override", "segment_mpgemm", "ternary_matmul", "ternary_matmul_batched",

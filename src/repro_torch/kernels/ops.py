@@ -23,9 +23,12 @@ shardable path (its default off the TPU), ported as it computes there:
 no kernel of this package, but the codes decoded to trits and one integer
 product per chunk of 512 K-groups, summed over the chunks in int32
 (`_xla_streamed_decode`). It always runs the unfused pipeline, as in the
-JAX package, and only when asked for. The JAX package's
-`tiles=` override and autotuner (`kernels/autotune.py`) choose TPU VMEM
-tiles; the port's tile selection is still to come (ROADMAP A 7).
+JAX package, and only when asked for.
+
+Each kernel launch takes its plan from `autotune.get_plan` (a measured
+winner from the plan cache, else the heuristic plan); `segment_mpgemm`
+also takes an explicit `plan=`, and `launch_tiles` reports what each
+launch will use without ever tuning.
 
 With an `Obs` installed (`repro_torch.obs.install`, done by an `Engine`
 built with `obs=`), every `ternary_matmul` / `ternary_matmul_batched` call
@@ -48,17 +51,14 @@ from repro_torch import obs as obs_mod
 from repro_torch.core.packing import PackedWeight
 from repro_torch.core.quantize import act_quant_tokens, act_token_scale
 
+from . import autotune
 from .ternary_decode_gemm import (
-    decode_plan,
-    grouped_decode_plan,
     ternary_decode_gemm,
     ternary_decode_gemm_fused,
     ternary_decode_gemm_fused_grouped,
     ternary_decode_gemm_grouped,
 )
 from .vlut_lookup_gemm import (
-    grouped_lut_plan,
-    lut_plan,
     vlut_lookup_gemm,
     vlut_lookup_gemm_fused,
     vlut_lookup_gemm_fused_grouped,
@@ -215,20 +215,23 @@ def _xla_streamed_decode(packed: torch.Tensor, a_q_seg: torch.Tensor, g: int,
 
 
 def _segment_gemm_int(packed: torch.Tensor, a_q_seg: torch.Tensor, g: int,
-                      impl: str, e: int = 0) -> torch.Tensor:
+                      impl: str, e: int = 0, plan=None) -> torch.Tensor:
     """Unfused integer segment: packed (M, KG) uint8 × a_q_seg (K, N) int8
     → (M, N) int32, through the chosen integer kernel; with e > 0 stacked
     packed (E, M, KG) and N = E*C tokens, expert by expert, → (E, M, C)
     through ONE launch of the grouped integer kernel. Nothing is padded:
     the kernels mask ragged edges themselves. "xla" launches no kernel
-    (`_xla_streamed_decode`, batched over the experts)."""
+    (`_xla_streamed_decode`, batched over the experts). `plan`: the integer
+    kernel's, as its wrapper takes it (passed only when given, so a plain
+    version can stand in for the kernel)."""
     if impl == "xla":
         if e:
             k, n = a_q_seg.shape
             return _xla_streamed_decode(packed, a_q_seg.view(k, e, n // e).transpose(0, 1), g)
         return _xla_streamed_decode(packed, a_q_seg, g)
     kernel = _INT_GROUPED_KERNELS[impl] if e else _INT_KERNELS[impl]
-    return kernel(packed, _deinterleave(a_q_seg, g, e), g=g)
+    planned = {} if plan is None else {"plan": plan}
+    return kernel(packed, _deinterleave(a_q_seg, g, e), g=g, **planned)
 
 
 def _mpgemm_unfused(pw: PackedWeight, a: torch.Tensor, impl: str, out_dtype,
@@ -266,54 +269,43 @@ def vlut_mpgemm(pw: PackedWeight, a: torch.Tensor, *, impl: str = "decode",
 
 
 def segment_mpgemm(packed: torch.Tensor, a: torch.Tensor, g: int, impl: str, *,
-                   fused: bool = True, out_dtype=torch.float32) -> torch.Tensor:
+                   fused: bool = True, out_dtype=torch.float32, plan=None) -> torch.Tensor:
     """One homogeneous-g mpGeMM with unit weight scale: packed (M, K//g)
     uint8 × a (K, N) float → (M, N), through the fused kernel or the
-    unfused pipeline. (The JAX version is its autotuner's timing target and
-    also takes `tiles=`; the port has no tile choice yet.)"""
+    unfused pipeline. `plan`: the launch plan of its one kernel launch, as
+    the kernel's wrapper takes it (None: `autotune.get_plan`'s), as the
+    JAX version takes `tiles=`."""
     _check_impl(impl)
     if fused and impl != "xla":
         x = a.T.contiguous()                                         # (N, K)
         ones = torch.ones((1,), dtype=torch.float32, device=a.device)
+        planned = {} if plan is None else {"plan": plan}
         out = _KERNELS[impl](packed, x, act_token_scale(a).contiguous(), ones, g=g,
-                             out_dtype=out_dtype)
+                             out_dtype=out_dtype, **planned)
         return out.T
     a_q, a_scale = act_quant_tokens(a)
-    out = _segment_gemm_int(packed, a_q, g, impl)
+    out = _segment_gemm_int(packed, a_q, g, impl, plan=plan)
     return (out.to(torch.float32) * a_scale[None, :]).to(out_dtype)
 
 
-def launch_tiles(pw: PackedWeight, n: int, impl: str, e: int | None = None) -> list[str]:
+def launch_tiles(pw: PackedWeight, n: int, impl: str, e: int | None = None,
+                 fusion: str = "fused") -> list[str]:
     """The launch plan of each packed segment of one call at N tokens (per
     expert, over `e` experts in one grouped launch; None: a single
     launch), one entry per kernel launch: the dispatch span's `tile`, the
-    counterpart of the JAX package's autotuned TPU tiles. Decode: "g5
-    64x16 s2 k32" (BM x BN, K-splits, K-groups per step), a grouped one's
-    "g5 bm2048 s1 x1" (rows a block, K-splits, experts a block); lookup:
-    "g5 bm128 s2 c64" (BM, K-splits, table chunk), a grouped one's with
-    " x4" (experts per block) after it; "e16 " in front of a grouped
-    launch's.
-    No tokens, or "xla" (no kernel): no launch."""
+    counterpart of the JAX package's autotuned TPU tiles. Each is the plan
+    that launch will use, cached or heuristic (`autotune.get_plan`, never
+    tuning here), as `autotune.describe` writes it; "e16 " in front of a
+    grouped launch's. No tokens, or "xla" (no kernel): no launch."""
     _check_impl(impl)
     if n == 0 or impl == "xla":
         return []
     head = f"e{e} " if e is not None and e > 1 else ""
-    tiles = []
-    for packed, _, _, g in _segments(pw):
-        kg = packed.shape[-1]
-        if impl == "lookup" and e is not None:
-            lp = grouped_lut_plan(pw.M, kg, n, g, e)
-            tiles.append(f"{head}g{g} bm{lp.bm} s{lp.splits} c{lp.chunk} x{lp.ex}")
-        elif impl == "lookup":
-            lp = lut_plan(pw.M, kg, n, g)
-            tiles.append(f"{head}g{g} bm{lp.bm} s{lp.splits} c{lp.chunk}")
-        elif e is not None:
-            gp = grouped_decode_plan(pw.M, kg, n, g, e)
-            tiles.append(f"{head}g{g} bm{gp.bm} s{gp.splits} x{gp.ex}")
-        else:
-            dp = decode_plan(pw.M, kg, n, g)
-            tiles.append(f"{head}g{g} {dp.bm}x{dp.bn} s{dp.splits} k{dp.kstep}")
-    return tiles
+    kernel = impl if e is None else f"{impl}_grouped"
+    return [head + autotune.describe(autotune.get_plan(
+                kernel, g, pw.M, packed.shape[-1], n, e=e, fused=fusion == "fused",
+                device=packed.device, tune_if_missing=False))
+            for packed, _, _, g in _segments(pw)]
 
 
 def ternary_matmul(pw: PackedWeight, x: torch.Tensor, impl: str | None = None,
@@ -335,7 +327,7 @@ def ternary_matmul(pw: PackedWeight, x: torch.Tensor, impl: str | None = None,
     if o is None:
         return _ternary_matmul(pw, x2, impl, fusion).reshape(*x.shape[:-1], pw.M)
     with o.mpgemm_span(m_tokens=x2.shape[0], k=pw.K, n_out=pw.M, impl=impl, fusion=fusion,
-                       tiles=launch_tiles(pw, x2.shape[0], impl)):
+                       tiles=launch_tiles(pw, x2.shape[0], impl, fusion=fusion)):
         return _ternary_matmul(pw, x2, impl, fusion).reshape(*x.shape[:-1], pw.M)
 
 
@@ -372,7 +364,7 @@ def ternary_matmul_batched(pw: PackedWeight, x: torch.Tensor, impl: str | None =
         return _ternary_matmul_batched(pw, x, impl, fusion)
     e, c, _ = x.shape
     with o.mpgemm_span(m_tokens=c, k=pw.K, n_out=pw.M, impl=impl, fusion=fusion,
-                       tiles=launch_tiles(pw, c, impl, e)):
+                       tiles=launch_tiles(pw, c, impl, e, fusion)):
         return _ternary_matmul_batched(pw, x, impl, fusion)
 
 

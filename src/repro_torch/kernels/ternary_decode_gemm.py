@@ -29,7 +29,7 @@ import torch
 from repro_torch.core.packing import unpack_ternary
 from repro_torch.core.quantize import Q_MAX
 
-from . import _build, _splitk
+from . import _build, _splitk, autotune
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -448,11 +448,12 @@ def ternary_decode_gemm_fused_plain(packed, x, a_scale, w_scale, *, g: int,
 
 
 def ternary_decode_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
-                              out_dtype=torch.float32) -> torch.Tensor:
+                              out_dtype=torch.float32, plan=None) -> torch.Tensor:
     """packed (M, KG) uint8 × x (N, KG*g) float → (N, M) out_dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``ternary_decode_gemm_fused.launches``) or raise."""
+    add one to ``ternary_decode_gemm_fused.launches``) or raise. `plan`: a
+    `DecodePlan` launched as it is; None takes `autotune.get_plan`'s."""
     check_fused_args(packed, x, a_scale, w_scale, g, out_dtype)
     if x.device.type == "cpu":
         return ternary_decode_gemm_fused_plain(
@@ -460,11 +461,18 @@ def ternary_decode_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
     if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
                          f"{x.dtype} on {x.device}")
+    return _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan)
+
+
+def _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tensor:
+    """The launch half of `ternary_decode_gemm_fused` (operands checked)."""
     out = torch.empty((x.shape[0], packed.shape[0]), dtype=out_dtype, device=x.device)
     if out.numel() == 0 or packed.shape[1] == 0:
         return out.zero_()
-    codes, acts = fused_aligned(packed, x)
-    plan = decode_plan(*packed.shape, x.shape[0], g, codes_aligned=codes, acts_aligned=acts)
+    if plan is None:
+        codes, acts = fused_aligned(packed, x)
+        plan = autotune.get_plan("decode", g, *packed.shape, x.shape[0], device=x.device,
+                                 codes_aligned=codes, acts_aligned=acts)
     _build.launch_decode(packed, x, a_scale, w_scale, g, out, plan,
                          *_splitk.launch_args(plan, x.device))
     ternary_decode_gemm_fused.launches += 1
@@ -475,7 +483,7 @@ ternary_decode_gemm_fused.launches = 0
 
 
 def ternary_decode_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
-                                      out_dtype=torch.float32) -> torch.Tensor:
+                                      out_dtype=torch.float32, plan=None) -> torch.Tensor:
     """E products of one shape in one launch: packed (E, M, KG) uint8 × x
     (E, C, KG*g) float → (E, C, M) out_dtype, expert e bit for bit
     `ternary_decode_gemm_fused(packed[e], x[e], a_scale[e], w_scale[e])`.
@@ -483,7 +491,9 @@ def ternary_decode_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
     weights (the MoE layers' `linear_batched_apply`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``ternary_decode_gemm_fused_grouped.launches``) or raise."""
+    add one to ``ternary_decode_gemm_fused_grouped.launches``) or raise.
+    `plan`: a `GroupedDecodePlan` launched as it is; None takes
+    `autotune.get_plan`'s."""
     check_grouped_args(packed, x, a_scale, w_scale, g, out_dtype)
     if x.device.type == "cpu":
         return ternary_decode_gemm_fused_plain(
@@ -491,11 +501,17 @@ def ternary_decode_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
     if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
                          f"{x.dtype} on {x.device}")
+    return _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan)
+
+
+def _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tensor:
+    """The launch half of `ternary_decode_gemm_fused_grouped`."""
     e, m, kg = packed.shape
     out = torch.empty((e, x.shape[1], m), dtype=out_dtype, device=x.device)
     if out.numel() == 0 or kg == 0:
         return out.zero_()
-    plan = grouped_decode_plan(m, kg, x.shape[1], g, e)
+    if plan is None:
+        plan = autotune.get_plan("decode_grouped", g, m, kg, x.shape[1], e=e, device=x.device)
     _build.launch_decode_grouped(packed, x, a_scale, w_scale, g, out, plan,
                                  *_splitk.launch_args(plan, x.device))
     ternary_decode_gemm_fused_grouped.launches += 1
@@ -518,21 +534,29 @@ def ternary_decode_gemm_plain(packed, a_r, *, g: int) -> torch.Tensor:
     return (w @ a_q).to(torch.int32)
 
 
-def ternary_decode_gemm(packed, a_r, *, g: int) -> torch.Tensor:
+def ternary_decode_gemm(packed, a_r, *, g: int, plan=None) -> torch.Tensor:
     """packed (M, KG) uint8 × a_r (g, KG, N) int8 → (M, N) int32, exact.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``ternary_decode_gemm.launches``) or raise."""
+    add one to ``ternary_decode_gemm.launches``) or raise. `plan`: a
+    `DecodePlan` launched as it is; None takes `autotune.get_plan`'s."""
     check_int_args(packed, a_r, g)
     if a_r.device.type == "cpu":
         return ternary_decode_gemm_plain(packed, a_r, g=g)
     if a_r.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    return _launch_int(packed, a_r, g, plan)
+
+
+def _launch_int(packed, a_r, g, plan) -> torch.Tensor:
+    """The launch half of `ternary_decode_gemm`."""
     out = torch.empty((packed.shape[0], a_r.shape[2]), dtype=torch.int32, device=a_r.device)
     if out.numel() == 0 or packed.shape[1] == 0:
         return out.zero_()
-    codes, acts = int_aligned(packed, a_r)
-    plan = decode_plan(*packed.shape, a_r.shape[2], g, codes_aligned=codes, acts_aligned=acts)
+    if plan is None:
+        codes, acts = int_aligned(packed, a_r)
+        plan = autotune.get_plan("decode", g, *packed.shape, a_r.shape[2], fused=False,
+                                 device=a_r.device, codes_aligned=codes, acts_aligned=acts)
     _build.launch_decode_int(packed, a_r, g, out, plan, *_splitk.launch_args(plan, a_r.device))
     ternary_decode_gemm.launches += 1
     return out
@@ -541,7 +565,7 @@ def ternary_decode_gemm(packed, a_r, *, g: int) -> torch.Tensor:
 ternary_decode_gemm.launches = 0
 
 
-def ternary_decode_gemm_grouped(packed, a_r, *, g: int) -> torch.Tensor:
+def ternary_decode_gemm_grouped(packed, a_r, *, g: int, plan=None) -> torch.Tensor:
     """E integer products of one shape in one launch: packed (E, M, KG)
     uint8 × a_r (E, g, KG, N) int8 → (E, M, N) int32, expert e bit for bit
     `ternary_decode_gemm(packed[e], a_r[e])`. The counterpart of the TPU
@@ -549,17 +573,25 @@ def ternary_decode_gemm_grouped(packed, a_r, *, g: int) -> torch.Tensor:
     unfused pipeline).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``ternary_decode_gemm_grouped.launches``) or raise."""
+    add one to ``ternary_decode_gemm_grouped.launches``) or raise. `plan`: a
+    `GroupedDecodePlan` launched as it is; None takes `autotune.get_plan`'s."""
     check_int_grouped_args(packed, a_r, g)
     if a_r.device.type == "cpu":
         return ternary_decode_gemm_plain(packed, a_r, g=g)
     if a_r.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    return _launch_int_grouped(packed, a_r, g, plan)
+
+
+def _launch_int_grouped(packed, a_r, g, plan) -> torch.Tensor:
+    """The launch half of `ternary_decode_gemm_grouped`."""
     e, m, kg = packed.shape
     out = torch.empty((e, m, a_r.shape[3]), dtype=torch.int32, device=a_r.device)
     if out.numel() == 0 or kg == 0:
         return out.zero_()
-    plan = grouped_decode_plan(m, kg, a_r.shape[3], g, e)
+    if plan is None:
+        plan = autotune.get_plan("decode_grouped", g, m, kg, a_r.shape[3], e=e, fused=False,
+                                 device=a_r.device)
     _build.launch_decode_int_grouped(packed, a_r, g, out, plan,
                                      *_splitk.launch_args(plan, a_r.device))
     ternary_decode_gemm_grouped.launches += 1

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.core.vlut import sign_matrix_on
 
-from . import _build, _splitk
+from . import _build, _splitk, autotune
 from .ternary_decode_gemm import (
     _KERNEL_DTYPES,
     check_fused_args,
@@ -138,16 +138,30 @@ def lut_plan(m: int, kg: int, n: int, g: int) -> LutPlan:
     cap = next(bm for most, bm in BM_MAX if most is None or n <= most)
     bm = min(cap, -(-m // BM_UNIT) * BM_UNIT)
     tiles = -(-m // bm) * -(-n // BN)
-    fit = max(1, (SMEM_BUDGET - 48) // (3 ** g * bnt * 2 + g * bnt + bm))
     splits = 1 if tiles >= WAVE else min(kg, 2 * WAVE // tiles)
-    longest = max(_split_bound(z + 1, kg, splits) - _split_bound(z, kg, splits)
-                  for z in range(splits))
-    chunk = min(longest, fit)
+    chunk = lut_chunk(g, bm, kg, splits, bnt)
+    return LutPlan(m, kg, n, g, bm, splits, chunk, lut_smem_bytes(g, bm, chunk, bnt))
+
+
+def word_chunk(chunk: int, kg: int, splits: int) -> int:
+    """A chunk above 4 K-groups rounded down to a multiple of 4 where the
+    splits start on code words (KG % 4 == 0 and S <= KG/4); at least 1."""
     if chunk > 4 and kg % 4 == 0 and 4 * splits <= kg:
         chunk -= chunk % 4
-    while chunk > 1 and lut_smem_bytes(g, bm, chunk, bnt) > SMEM_BUDGET:
+    return max(1, chunk)
+
+
+def lut_chunk(g: int, bm: int, kg: int, splits: int, bnt: int, budget: int = SMEM_BUDGET) -> int:
+    """`lut_plan`'s chunk for BM rows and S splits: the K-groups one block's
+    shared memory holds within `budget` (on code words where the splits
+    are), at most the longest K-slice."""
+    fit = max(1, (budget - 48) // (3 ** g * bnt * 2 + g * bnt + bm))
+    longest = max(_split_bound(z + 1, kg, splits) - _split_bound(z, kg, splits)
+                  for z in range(splits))
+    chunk = word_chunk(min(longest, fit), kg, splits)
+    while chunk > 1 and lut_smem_bytes(g, bm, chunk, bnt) > budget:
         chunk -= 1
-    return LutPlan(m, kg, n, g, bm, splits, chunk, lut_smem_bytes(g, bm, chunk, bnt))
+    return chunk
 
 
 # The grouped plan's constants (`vlut_grouped_kernel` in the kernel's source)
@@ -297,11 +311,12 @@ def vlut_lookup_gemm_fused_plain(packed, x, a_scale, w_scale, *, g: int,
 
 
 def vlut_lookup_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
-                           out_dtype=torch.float32) -> torch.Tensor:
+                           out_dtype=torch.float32, plan=None) -> torch.Tensor:
     """packed (M, KG) uint8 × x (N, KG*g) float → (N, M) out_dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``vlut_lookup_gemm_fused.launches``) or raise."""
+    add one to ``vlut_lookup_gemm_fused.launches``) or raise. `plan`: a
+    `LutPlan` launched as it is; None takes `autotune.get_plan`'s."""
     check_fused_args(packed, x, a_scale, w_scale, g, out_dtype)
     if x.device.type == "cpu":
         return vlut_lookup_gemm_fused_plain(
@@ -309,10 +324,16 @@ def vlut_lookup_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
     if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
                          f"{x.dtype} on {x.device}")
+    return _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan)
+
+
+def _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tensor:
+    """The launch half of `vlut_lookup_gemm_fused` (operands checked)."""
     out = torch.empty((x.shape[0], packed.shape[0]), dtype=out_dtype, device=x.device)
     if out.numel() == 0 or packed.shape[1] == 0:
         return out.zero_()
-    plan = lut_plan(*packed.shape, x.shape[0], g)
+    if plan is None:
+        plan = autotune.get_plan("lookup", g, *packed.shape, x.shape[0], device=x.device)
     _build.launch_lut(packed, x, a_scale, w_scale, g, out, plan, *_launch_args(plan, x.device))
     vlut_lookup_gemm_fused.launches += 1
     return out
@@ -322,7 +343,7 @@ vlut_lookup_gemm_fused.launches = 0
 
 
 def vlut_lookup_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
-                                   out_dtype=torch.float32) -> torch.Tensor:
+                                   out_dtype=torch.float32, plan=None) -> torch.Tensor:
     """E products of one shape in one launch: packed (E, M, KG) uint8 × x
     (E, C, KG*g) float → (E, C, M) out_dtype, expert e bit for bit
     `vlut_lookup_gemm_fused(packed[e], x[e], a_scale[e], w_scale[e])`.
@@ -330,7 +351,9 @@ def vlut_lookup_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
     weights (the MoE layers' `linear_batched_apply`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``vlut_lookup_gemm_fused_grouped.launches``) or raise."""
+    add one to ``vlut_lookup_gemm_fused_grouped.launches``) or raise.
+    `plan`: a `GroupedLutPlan` launched as it is; None takes
+    `autotune.get_plan`'s."""
     check_grouped_args(packed, x, a_scale, w_scale, g, out_dtype)
     if x.device.type == "cpu":
         return vlut_lookup_gemm_fused_plain(
@@ -338,11 +361,17 @@ def vlut_lookup_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
     if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
                          f"{x.dtype} on {x.device}")
+    return _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan)
+
+
+def _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tensor:
+    """The launch half of `vlut_lookup_gemm_fused_grouped`."""
     e, m, kg = packed.shape
     out = torch.empty((e, x.shape[1], m), dtype=out_dtype, device=x.device)
     if out.numel() == 0 or kg == 0:
         return out.zero_()
-    plan = grouped_lut_plan(m, kg, x.shape[1], g, e)
+    if plan is None:
+        plan = autotune.get_plan("lookup_grouped", g, m, kg, x.shape[1], e=e, device=x.device)
     _build.launch_lut_grouped(packed, x, a_scale, w_scale, g, out, plan,
                               *_launch_args(plan, x.device))
     vlut_lookup_gemm_fused_grouped.launches += 1
@@ -363,20 +392,28 @@ def vlut_lookup_gemm_plain(packed, a_r, *, g: int) -> torch.Tensor:
     return _lut_gather_int(q, packed, g).T.contiguous()
 
 
-def vlut_lookup_gemm(packed, a_r, *, g: int) -> torch.Tensor:
+def vlut_lookup_gemm(packed, a_r, *, g: int, plan=None) -> torch.Tensor:
     """packed (M, KG) uint8 × a_r (g, KG, N) int8 → (M, N) int32, exact.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``vlut_lookup_gemm.launches``) or raise."""
+    add one to ``vlut_lookup_gemm.launches``) or raise. `plan`: a `LutPlan`
+    launched as it is; None takes `autotune.get_plan`'s."""
     check_int_args(packed, a_r, g)
     if a_r.device.type == "cpu":
         return vlut_lookup_gemm_plain(packed, a_r, g=g)
     if a_r.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    return _launch_int(packed, a_r, g, plan)
+
+
+def _launch_int(packed, a_r, g, plan) -> torch.Tensor:
+    """The launch half of `vlut_lookup_gemm`."""
     out = torch.empty((packed.shape[0], a_r.shape[2]), dtype=torch.int32, device=a_r.device)
     if out.numel() == 0 or packed.shape[1] == 0:
         return out.zero_()
-    plan = lut_plan(*packed.shape, a_r.shape[2], g)
+    if plan is None:
+        plan = autotune.get_plan("lookup", g, *packed.shape, a_r.shape[2], fused=False,
+                                 device=a_r.device)
     _build.launch_lut_int(packed, a_r, g, out, plan, *_launch_args(plan, a_r.device))
     vlut_lookup_gemm.launches += 1
     return out
@@ -385,7 +422,7 @@ def vlut_lookup_gemm(packed, a_r, *, g: int) -> torch.Tensor:
 vlut_lookup_gemm.launches = 0
 
 
-def vlut_lookup_gemm_grouped(packed, a_r, *, g: int) -> torch.Tensor:
+def vlut_lookup_gemm_grouped(packed, a_r, *, g: int, plan=None) -> torch.Tensor:
     """E integer products of one shape in one launch: packed (E, M, KG)
     uint8 × a_r (E, g, KG, N) int8 → (E, M, N) int32, expert e bit for bit
     `vlut_lookup_gemm(packed[e], a_r[e])`. The counterpart of the TPU
@@ -393,17 +430,25 @@ def vlut_lookup_gemm_grouped(packed, a_r, *, g: int) -> torch.Tensor:
     unfused pipeline).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``vlut_lookup_gemm_grouped.launches``) or raise."""
+    add one to ``vlut_lookup_gemm_grouped.launches``) or raise. `plan`: a
+    `GroupedLutPlan` launched as it is; None takes `autotune.get_plan`'s."""
     check_int_grouped_args(packed, a_r, g)
     if a_r.device.type == "cpu":
         return vlut_lookup_gemm_plain(packed, a_r, g=g)
     if a_r.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    return _launch_int_grouped(packed, a_r, g, plan)
+
+
+def _launch_int_grouped(packed, a_r, g, plan) -> torch.Tensor:
+    """The launch half of `vlut_lookup_gemm_grouped`."""
     e, m, kg = packed.shape
     out = torch.empty((e, m, a_r.shape[3]), dtype=torch.int32, device=a_r.device)
     if out.numel() == 0 or kg == 0:
         return out.zero_()
-    plan = grouped_lut_plan(m, kg, a_r.shape[3], g, e)
+    if plan is None:
+        plan = autotune.get_plan("lookup_grouped", g, m, kg, a_r.shape[3], e=e, fused=False,
+                                 device=a_r.device)
     _build.launch_lut_int_grouped(packed, a_r, g, out, plan, *_launch_args(plan, a_r.device))
     vlut_lookup_gemm_grouped.launches += 1
     return out

@@ -215,6 +215,60 @@ def test_lut_refused_plan_raises(cuda, impl):
         launch(packed, a_r, 5, out, bad, *_splitk.launch_args(bad, a_r.device))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,fused,e", [("decode", True, None), ("lookup", False, None),
+                                            ("decode_grouped", False, 3),
+                                            ("lookup_grouped", True, 3)])
+def test_tune_times_the_kernel_and_persists(cuda, kernel, fused, e, tmp_path):
+    """`tune` with the default benchmark on a small problem: every candidate
+    launched and held bit-equal to the heuristic plan's output, a positive
+    time each, the winner persisted and served by `get_plan` without timing,
+    and a tuned launch bit-equal to the plain version."""
+    from repro_torch.kernels import autotune
+
+    cache = autotune.PlanCache(str(tmp_path / "plans.json"))
+    g, m, kg, n = 5, 300, 77, 17
+    res = autotune.tune(kernel, g, m, kg, n, e=e, fused=fused, device=cuda, cache=cache)
+    cands = autotune.candidate_plans(kernel, g, m, kg, n, e=e)
+    assert len(res.trials) == len(cands) > 1 and all(s > 0 for _, s in res.trials)
+    trials = autotune.tune.trials
+    hit = autotune.get_plan(kernel, g, m, kg, n, e=e, fused=fused, device=cuda, cache=cache,
+                            tune_if_missing=True)
+    assert autotune.fields_of(kernel, hit) == autotune.fields_of(kernel, res.plan)
+    assert autotune.tune.trials == trials
+    rng = np.random.default_rng(11)
+    lead = () if e is None else (e,)
+    packed = torch.tensor(rng.integers(0, 3 ** g, (*lead, m, kg)).astype(np.uint8), device=cuda)
+    wrapper = autotune._wrapper(kernel, fused)
+    if fused:
+        x = torch.tensor(rng.standard_normal((*lead, n, kg * g)).astype(np.float32), device=cuda)
+        args = (x, act_token_scale(x.reshape(-1, kg * g).T).reshape(*lead, n).contiguous(),
+                torch.ones((*lead, m), device=cuda))
+        plain = tdg.ternary_decode_gemm_fused_plain
+    else:
+        args = (torch.tensor(rng.integers(-127, 128, (*lead, g, kg, n)).astype(np.int8),
+                             device=cuda),)
+        plain = tdg.ternary_decode_gemm_plain
+    assert torch.equal(wrapper(packed, *args, g=g, plan=hit), plain(packed, *args, g=g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["decode", "lookup"])
+def test_segment_mpgemm_launches_the_given_plan(cuda, impl):
+    """`segment_mpgemm(plan=)` launches each legal candidate, fused and
+    unfused, bit-equal to its launch with the plan `get_plan` gives."""
+    from repro_torch.kernels import autotune
+
+    rng = np.random.default_rng(12)
+    packed = torch.tensor(rng.integers(0, 243, (960, 192)).astype(np.uint8), device=cuda)
+    a = torch.tensor(rng.standard_normal((960, 4)).astype(np.float32), device=cuda)
+    for fused in (True, False):
+        want = ops.segment_mpgemm(packed, a, 5, impl, fused=fused)
+        for plan in autotune.candidate_plans(impl, 5, 960, 192, 4):
+            got = ops.segment_mpgemm(packed, a, 5, impl, fused=fused, plan=plan)
+            assert torch.equal(got, want), plan
+
+
 GROUPED = {
     "decode": (tdg.ternary_decode_gemm_fused_grouped, tdg.ternary_decode_gemm_fused_plain),
     "lookup": (vlg.vlut_lookup_gemm_fused_grouped, vlg.vlut_lookup_gemm_fused_plain),

@@ -61,6 +61,11 @@ def test_walk_covers_the_dist_slice():
             "src/repro_torch/roofline/analysis.py"} <= rels
 
 
+def test_walk_covers_the_autotune_slice():
+    rels = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "src/repro_torch/kernels/autotune.py" in rels
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -203,13 +203,14 @@ def test_plan_shared_memory_fits_a_block(g):
                 assert p.bm * bnt <= 8 * 256 * 4, p
 
 
-def _tiled_plain(packed, a_r, g):
-    """The kernel's decomposition on the CPU: per block of the plan, the
-    plain table gather of its rows, tokens and K-groups (chunk by chunk),
-    summed into one int32 output in block order."""
+def _tiled_plain(packed, a_r, g, p=None):
+    """The kernel's decomposition on the CPU: per block of the plan (`p`,
+    default `lut_plan`'s), the plain table gather of its rows, tokens and
+    K-groups (chunk by chunk), summed into one int32 output in block
+    order."""
     m, kg = packed.shape
     n = a_r.shape[2]
-    p = vlg.lut_plan(m, kg, n, g)
+    p = p or vlg.lut_plan(m, kg, n, g)
     out = torch.zeros((m, n), dtype=torch.int32)
     for x in range(p.m_tiles):
         r0, r1 = p.rows(x)
