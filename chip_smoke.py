@@ -380,6 +380,28 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (f) Each winner one `repro:mpgemm_kernel_seconds` sample of the
    installed `Obs`. The launch counters are restored at the end; rows
    under `autotune`.
+18. steps, after phase 16 (and before 17): the step statistics
+   (`roofline.hlo_stats`) of smollm-360m at published width and depth
+   (seed 0, phase 4's weights). (a) Three steps traced on fake cuda
+   tensors (`trace_step`): the decode step (4 slots, cache 256), the
+   prefill step (one prompt at phase 4's bucket) and one QAT training step
+   (B 8 x S 512, flash, phase 7's settings); each one's statistics, its
+   launches by kernel and its trace seconds logged. (b) Each step run once
+   for real (after a warm-up run): each kernel's traced launches equal its
+   counter's delta, and the trace's dot FLOPs equal `FlopCounterMode`'s
+   count of the real step's products, exactly. (c) The trace's argument +
+   temp bytes against the card's arguments plus `max_memory_allocated` -
+   the memory allocated before the step (after
+   `reset_peak_memory_stats`), net of the split-K workspace's growth (the
+   library's workspaces were allocated by the warm-up run): within
+   `STEP_MEM_RTOL`. (d) Each step's bound, max(traffic / 3.35 TB/s, FLOPs
+   / 989 TFLOP/s), beside its device ms (the profiler, the device alone;
+   the training step's from phase 7's profile) and their ratio: no gate.
+   (e) The operator hop's host cost: µs a call of #1 launched directly
+   and through ``torch.ops.repro_torch.ternary_decode_gemm_fused`` (in
+   turns, the same output), and phase 4's serving, impl="decode", both
+   ways (the same tokens, 224 launches a forward), decode tok/s logged.
+   Rows under `steps`.
 
 Each log line starts with the seconds since the script began; each
 phase's seconds are logged and kept under `phase_seconds`.
@@ -655,6 +677,12 @@ PLANS_DIR = ROOT / "build" / "chip_smoke_plans"
 AUTOTUNE_TOKENS = (DECODE_N, 64)        # smollm-360m's segments are tuned at these N
 AUTOTUNE_C = 4                          # llama4-scout's expert rows, tuned at C 4
 DIST_STEPS = 3
+# Phase 18 (the step statistics): the trace's argument + temp bytes against
+# the card's peak over the real step, net of what a trace cannot see (the
+# split-K workspace's growth; the library's workspaces are allocated by the
+# warm-up run, before the measured one)
+STEP_MEM_RTOL = 0.10
+HOP_CALLS = 2000          # launches a route, timed on the host, of phase 18 (e)
 # bf16 model, 32 layers, QAT: the CPU and the card round bf16 intermediates
 # after sums in another order, and an int8 activation code at a rounding
 # boundary can move by one; the mean CE over 256 tokens moves far less than
@@ -4881,6 +4909,236 @@ def check_autotune(torch, counters, prompts, ref_runs, encdec) -> dict:
     return out
 
 
+def splitk_bytes(torch) -> int:
+    from repro_torch.kernels import _splitk
+
+    return sum(ws.numel() * ws.element_size() + cnt.numel() * cnt.element_size()
+               for ws, cnt in _splitk._WORKSPACE.values())
+
+
+def traced_vs_real(torch, name, step, fake_args, real_args, counters, device_ms_fn=None) -> dict:
+    """Phase 18 (a)-(d) for one step: trace it on fake cuda tensors, run it
+    once for real (after a warm-up run) under `FlopCounterMode`, and hold
+    the trace's launches, dot FLOPs and argument + temp bytes against the
+    counters, the flop counter and the card's peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS
+    from repro_torch.roofline.hlo_stats import step_stats, storage_bytes, trace_step
+
+    trace, _ = trace_step(step, *fake_args)
+    st = step_stats(trace)
+    step(*real_args)                                    # warm-up: the library's workspaces
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    args_real = storage_bytes(real_args)
+    ws0 = splitk_bytes(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        out = step(*real_args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    launches = {n: fn.launches for n, fn in counters.items()}
+    want = {n: st.launches.get(n, 0) for n in counters}
+    if launches != want:
+        raise AssertionError(f"steps ({name}): the trace's launches {want} differ from the "
+                             f"real step's {launches}")
+    real_flops = fc.get_total_flops()
+    if st.dot_flops != real_flops:
+        raise AssertionError(f"steps ({name}): the trace's dot FLOPs {st.dot_flops} differ from "
+                             f"FlopCounterMode's {real_flops}")
+    mem = st.memory
+    splitk = splitk_bytes(torch) - ws0
+    measured = args_real + (peak - base) - splitk
+    traced = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    rel = abs(traced - measured) / measured
+    row = {"trace_s": trace.seconds, "ops": len(trace.ops), "stats": st.row(),
+           "launches": launches, "dot_flops_real": real_flops,
+           "memory": {"argument_traced": mem["argument_size_in_bytes"],
+                      "argument_real": args_real, "temp_traced": mem["temp_size_in_bytes"],
+                      "peak_minus_base": peak - base, "splitk_growth": splitk,
+                      "traced": traced, "measured": measured, "rel_diff": rel}}
+    log(f"steps ({name}): trace {trace.seconds:.2f} s, {len(trace.ops)} ops; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (= the trace's); dot FLOPs "
+        f"{st.dot_flops:.6g} (= FlopCounterMode's), kernel FLOPs {st.kernel_flops:.6g}, "
+        f"traffic {st.traffic_bytes / 1e9:.4f} GB, kernel bytes {st.kernel_bytes / 1e9:.4f} GB")
+    log(f"steps ({name}): memory: argument {mem['argument_size_in_bytes'] / 1e6:.2f} MB "
+        f"(real {args_real / 1e6:.2f}), temp {mem['temp_size_in_bytes'] / 1e6:.2f} MB against "
+        f"the card's peak - base {(peak - base) / 1e6:.2f} MB (split-K workspace growth "
+        f"{splitk / 1e6:.2f} MB subtracted); argument + temp {traced / 1e6:.2f} MB vs "
+        f"{measured / 1e6:.2f} MB: {100 * rel:.2f}% apart")
+    if rel > STEP_MEM_RTOL:
+        raise AssertionError(f"steps ({name}): argument + temp {traced} B is {100 * rel:.1f}% "
+                             f"from the card's {measured} B (bound {100 * STEP_MEM_RTOL:.0f}%)")
+    t_bytes, t_ops = st.traffic_bytes / HBM_BW, st.flops / PEAK_FLOPS
+    row["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if device_ms_fn is not None:
+        row["device_ms"] = device_ms_fn()
+        row["bound_ratio"] = row["device_ms"] / row["bound_ms"]
+        log(f"steps ({name}): bound {row['bound_ms']:.4f} ms ({row['bound_by']}: traffic / "
+            f"3.35 TB/s, FLOPs / 989 TFLOP/s) vs device {row['device_ms']:.4f} ms: "
+            f"{row['bound_ratio']:.2f}x")
+    return row
+
+
+def profiled_device_ms(torch, fn) -> float:
+    """Device busy ms of one call of `fn` (the profiler, the device alone)."""
+    from torch.profiler import profile
+
+    torch.cuda.synchronize()
+    with profile(activities=device_only()) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ms for ms, _ in device_time_by_kernel(prof.key_averages(), 1))
+
+
+def hop_cost(torch, model, cfg, prompts, counters) -> dict:
+    """Phase 18 (e): the host's cost of the dispatcher's hop into the
+    operator: µs a call of #1's wrapper (launching directly) and of the same
+    checks then ``torch.ops.repro_torch.ternary_decode_gemm_fused`` (the
+    operator's CUDA implementation: the same launch function), at N 4 on
+    smollm's (960, 960) q projection, in turns; then phase 4's serving,
+    impl="decode", directly and through the operator (same tokens)."""
+    from repro_torch.core.quantize import act_token_scale
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+
+    op = torch.ops.repro_torch.ternary_decode_gemm_fused
+    pw = model.layers[0].mixer.wq.pw
+    packed, x = pw.packed5, torch.randn((DECODE_N, pw.K), device="cuda").to(torch.bfloat16)
+    a_scale = act_token_scale(x.T).contiguous()
+
+    def through_op(packed, x, a_scale, w_scale, *, g, out_dtype=torch.float32, plan=None):
+        tdg.check_fused_args(packed, x, a_scale, w_scale, g, out_dtype)
+        return op(packed, x, a_scale, w_scale, g, out_dtype, None)
+
+    def per_call_us(fn) -> float:
+        fn(packed, x, a_scale, pw.scale, g=5, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOP_CALLS):
+            fn(packed, x, a_scale, pw.scale, g=5, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / HOP_CALLS * 1e6
+
+    direct = tdg.ternary_decode_gemm_fused
+    same = torch.equal(direct(packed, x, a_scale, pw.scale, g=5, out_dtype=torch.bfloat16),
+                       through_op(packed, x, a_scale, pw.scale, g=5, out_dtype=torch.bfloat16))
+    if not same:
+        raise AssertionError("steps (e): the operator's launch differs from the direct one")
+    times = [per_call_us(direct), per_call_us(through_op), per_call_us(through_op),
+             per_call_us(direct)]
+    out = {"direct_us": (times[0] + times[3]) / 2, "operator_us": (times[1] + times[2]) / 2,
+           "turns_us": times}
+    out["hop_us"] = out["operator_us"] - out["direct_us"]
+    runs = {"direct": serve(torch, model, cfg, "decode", prompts, counters)}
+    with planted(ops, "_KERNELS", {**ops._KERNELS, "decode": through_op}):
+        runs["operator"] = serve(torch, model, cfg, "decode", prompts, counters)
+    if runs["operator"]["tokens"] != runs["direct"]["tokens"]:
+        raise AssertionError("steps (e): serving through the operator changed the tokens")
+    for route, r in runs.items():
+        want = 224 * r["forwards"]
+        if r["launches"]["ternary_decode_gemm_fused"] != want:
+            raise AssertionError(f"steps (e): {route}: {r['launches']} launches, want {want}")
+        out[f"{route}_decode_tok_s"] = r["decode_tok_s"]
+    log(f"steps (e): #1 at N {DECODE_N}, {HOP_CALLS} calls a turn: direct "
+        f"{out['direct_us']:.2f} µs a call, through the operator {out['operator_us']:.2f} "
+        f"(turns {', '.join(f'{t:.2f}' for t in times)}): the hop {out['hop_us']:.2f} µs; "
+        f"phase 4's serving decode tok/s direct {out['direct_decode_tok_s']:.1f}, through "
+        f"the operator {out['operator_decode_tok_s']:.1f} (same tokens)")
+    return out
+
+
+def check_steps(torch, counters, prompts, trained) -> dict:
+    """Phase 18: the step statistics (`roofline.hlo_stats`) of smollm-360m
+    at published width and depth, traced on fake cuda tensors and held
+    against the same steps run on the card: (a)-(d) for the decode step (4
+    slots, cache 256), the prefill step (one prompt at phase 4's bucket)
+    and one QAT training step (B 8 x S 512, flash; its device ms is phase
+    7's profile of the same step), then (e) the operator hop's host cost."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import (
+        make_decode_step,
+        make_prefill_step,
+        make_train_step,
+        meta_model,
+    )
+    from repro_torch.models import init_cache, init_lm, pack_params, prefill_bucket, stacked_shapes
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.roofline.hlo_stats import fake_module
+
+    t0 = time.perf_counter()
+    cfg = get_config("smollm-360m")
+    cdt = getattr(torch, cfg.dtype)
+    model = pack_params(init_lm(cfg, torch.Generator(device="cuda").manual_seed(0)), cfg)
+    out = {}
+    mode = FakeTensorMode()
+    fmodel = fake_module(meta_model(cfg, packed=True), "cuda", mode)
+
+    # the decode step: 4 slots, cache 256 (phase 4's engine)
+    decode = make_decode_step(cfg)
+    cache = init_cache(cfg, 4, 256, dtype=cdt, device="cuda")
+    tok = torch.randint(0, cfg.vocab, (4, 1), dtype=torch.int32, device="cuda")
+    with mode:
+        fcache = init_cache(cfg, 4, 256, dtype=cdt, device="cuda")
+        ftok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    out["decode"] = traced_vs_real(
+        torch, "decode", decode, (fmodel, fcache, ftok), (model, cache, tok), counters,
+        lambda: profiled_device_ms(torch, lambda: decode(model, cache, tok)))
+
+    # the prefill step: one prompt at phase 4's bucket
+    s = prefill_bucket(len(prompts[0]), 256)
+    prefill = make_prefill_step(cfg)
+    pcache = init_cache(cfg, 1, 256, dtype=cdt, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, s), dtype=torch.int32, device="cuda")}
+    with mode:
+        fpcache = init_cache(cfg, 1, 256, dtype=cdt, device="cuda")
+        fbatch = {"tokens": torch.zeros((1, s), dtype=torch.int32, device="cuda")}
+    out["prefill"] = traced_vs_real(
+        torch, f"prefill S {s}", prefill, (fmodel, fpcache, fbatch), (model, pcache, batch),
+        counters, lambda: profiled_device_ms(torch, lambda: prefill(model, pcache, batch)))
+    del fmodel, fcache, fpcache
+
+    # one QAT training step, phase 7's settings
+    tcfg = cfg.with_(attn_impl="flash")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS)
+    train_step = make_train_step(tcfg, opt_cfg)
+    tmodel = init_lm(tcfg, torch.Generator(device="cuda").manual_seed(0)).requires_grad_(True)
+    params = dict(tmodel.named_parameters())
+    state = {"params": params, "opt": adamw_init(params, opt_cfg, stacked_shapes(tmodel, tcfg))}
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    tbatch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(dc).batch_at(0).items()}
+    ftmodel = fake_module(meta_model(tcfg), "cuda", mode).requires_grad_(True)
+    with mode:
+        fparams = dict(ftmodel.named_parameters())
+        fstate = {"params": fparams,
+                  "opt": adamw_init(fparams, opt_cfg, stacked_shapes(ftmodel, tcfg))}
+        ftbatch = {k: torch.zeros(v.shape, dtype=v.dtype, device="cuda") for k, v in tbatch.items()}
+    row = traced_vs_real(torch, f"train B {TRAIN_BATCH} x S {TRAIN_SEQ}", train_step,
+                         (ftmodel, fstate, ftbatch), (tmodel, state, tbatch), counters)
+    row["device_ms"] = trained["profile"]["device_ms"]
+    row["bound_ratio"] = row["device_ms"] / row["bound_ms"]
+    log(f"steps (train): bound {row['bound_ms']:.4f} ms ({row['bound_by']}) vs phase 7's "
+        f"profiled device {row['device_ms']:.4f} ms: {row['bound_ratio']:.2f}x")
+    out["train"] = row
+    del tmodel, state, params, ftmodel, fstate, fparams
+    torch.cuda.empty_cache()
+
+    out["hop"] = hop_cost(torch, model, cfg, prompts, counters)
+    for fn in counters.values():
+        fn.launches = 0
+    out["seconds"] = time.perf_counter() - t0
+    log(f"steps: phase 18 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5074,6 +5332,12 @@ def main() -> int:
     dist_out = check_dist(torch, counters, unfused, trained)
     phase_done("16")
 
+    # 18. the step statistics: smollm-360m's steps traced on fake tensors
+    # against the same steps on the card (after phase 7, whose profile of
+    # the training step it reads)
+    steps = check_steps(torch, counters, prompts, trained)
+    phase_done("18")
+
     # 17. the measured launch-plan choice (after every other phase: its
     # plans would change what phases 3-16 launch)
     tuned = check_autotune(torch, counters, prompts, runs, encdec)
@@ -5150,6 +5414,7 @@ def main() -> int:
         "obs": observed,
         "moe": moe, "mla": mla, "ssm": ssm, "windowed": windowed, "encdec": encdec,
         "flash": flash, "train": trained, "dist": dist_out, "autotune": tuned,
+        "steps": steps,
         "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

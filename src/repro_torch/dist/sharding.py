@@ -420,6 +420,144 @@ def dispatch_blocks(t: int) -> int:
     return nb if nb > 1 and t % nb == 0 else 1
 
 
+def unstrided(t: torch.Tensor) -> torch.Tensor:
+    """`t` with a DTensor's strided shards gathered (a plain tensor as it
+    is). Flattening dims whose inner one is sharded (tokens: batch and
+    sequence, or experts and their rows) leaves the flat dim sharded with
+    a stride, and DTensor gets the local shape of unflattening it back
+    wrong: gather it first."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    if not isinstance(t, DTensor):
+        return t
+    placements = [Replicate() if isinstance(p, _StridedShard) else p for p in t.placements]
+    return t if placements == list(t.placements) else t.redistribute(t.device_mesh, placements)
+
+
+def fit_sharding(t: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """`t` (a DTensor; a plain tensor as it is) with the sharding of its dim
+    `dim` kept, mesh dim by mesh dim, while the shards' product divides
+    `parts`, the leading factor the dim is about to be split into (or was
+    merged from), and gathered over the rest: DTensor cannot split or
+    merge an unevenly sharded dim (JAX's partitioner gathers it
+    implicitly), and gets the local shape wrong where the dim's shards
+    outnumber its leading factor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    dim, sizes, kept = dim % t.ndim, t.device_mesh.shape, 1
+    placements = []
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            if parts % (kept * sizes[i]):
+                pl = Replicate()
+            else:
+                kept *= sizes[i]
+        placements.append(pl)
+    if placements == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
+
+
+def unflatten_tokens(y: torch.Tensor, lead) -> torch.Tensor:
+    """(N, ...) → (*lead, ...), N the product of `lead`. On a DTensor the
+    token dim's strided or surplus shards are gathered first (`unstrided`,
+    `fit_sharding`: shards kept while they divide lead[0])."""
+    from torch.distributed.tensor import DTensor
+
+    if lead and isinstance(y, DTensor):
+        y = fit_sharding(unstrided(y), 0, lead[0])
+    return y.reshape(*lead, *y.shape[1:])
+
+
+class _FlattenTokens(torch.autograd.Function):
+    """(B, S, ...) → (B·S, ...) whose gradient is unflattened back with its
+    token shards fitted to B first (`unstrided`, `fit_sharding`)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.lead = tuple(x.shape[:2])
+        return x.reshape(-1, *x.shape[2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return fit_sharding(unstrided(g), 0, ctx.lead[0]).reshape(*ctx.lead, *g.shape[1:])
+
+
+def flatten_tokens(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, ...) → (B·S, ...). On a DTensor the gradient coming back may
+    shard the token dim over more ranks than B has rows (the batch axes and
+    "model"), which DTensor unflattens into a wrong local shape: it is
+    fitted to B first. A plain tensor is reshaped as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x.reshape(-1, *x.shape[2:])
+    return _FlattenTokens.apply(x)
+
+
+def write_rows(leaf: torch.Tensor, slots: torch.Tensor, values: torch.Tensor,
+               keep: torch.Tensor | None = None, bidx: torch.Tensor | None = None) -> None:
+    """``leaf[b, slots[b, i]] = values[b, i]`` in place, slots in [0, L)
+    (a serving cache's write); with `keep`, (B, S) bool, a dropped entry
+    writes the slot's current content back (JAX's scatter with
+    mode="drop", no host sync). `bidx`: ``arange(B)[:, None]`` where the
+    caller has it.
+
+    On a DTensor leaf (a sharded cache: batch over the batch axes, heads
+    over "model", or the sequence over "data" when B = 1) each device
+    writes its own block, as a partitioned scatter does: `slots` and
+    `values` are redistributed to the leaf's batch and head placements,
+    and where the sequence is sharded each device keeps the slots in its
+    own range, shifted by its offset (the others are the other devices'
+    writes). Every dropped entry there lands on local slot 0 and writes
+    the content slot 0 ends with (a kept entry's value where one lands
+    there, else its current one), so the duplicate indices agree, as an
+    index_put with duplicates needs. DTensor has no in-place rule for a
+    scatter into a sharded buffer."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(leaf, DTensor):
+        if bidx is None:
+            bidx = torch.arange(slots.shape[0], device=slots.device)[:, None]
+        if keep is not None:
+            values = torch.where(_wide(keep, values), values, leaf[bidx, slots])
+        leaf[bidx, slots] = values
+        return
+    mesh, placements = leaf.device_mesh, leaf.placements
+    # the step's S positions are never sharded like the cache's L slots
+    rows = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in placements)
+    two = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in placements)
+    local = leaf.to_local()
+    sl = slots.redistribute(mesh, two).to_local() if isinstance(slots, DTensor) else slots
+    vl = values.redistribute(mesh, rows).to_local() if isinstance(values, DTensor) else values
+    kl = keep.redistribute(mesh, two).to_local() if isinstance(keep, DTensor) else keep
+    seq_axes = [i for i, p in enumerate(placements) if isinstance(p, Shard) and p.dim == 1]
+    if seq_axes:
+        offset = 0
+        for i in seq_axes:
+            offset = offset * mesh.size(i) + mesh.get_local_rank(i)
+        offset *= local.shape[1]
+        sl = sl - offset
+        inside = (sl >= 0) & (sl < local.shape[1])
+        kl = inside if kl is None else kl & inside
+        sl = torch.where(kl, sl, 0)
+        bidx = torch.arange(sl.shape[0], device=sl.device)[:, None]
+        hit = kl & (sl == 0)
+        lands = vl[bidx, hit.to(torch.int8).argmax(1, keepdim=True)]     # (B, 1, ...)
+        slot0 = torch.where(_wide(hit.any(1, keepdim=True), vl), lands, local[:, :1])
+        write_rows(local, sl, torch.where(_wide(kl, vl), vl, slot0), bidx=bidx)
+        return
+    write_rows(local, sl, vl, kl)
+
+
+def _wide(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`mask` with trailing unit dims up to `like`'s rank."""
+    return mask.reshape(*mask.shape, *(1,) * (like.ndim - mask.ndim))
+
+
 def local_bytes(tree, shardings) -> int:
     """Bytes of `tree`'s leaves on one device under `shardings` (JAX's
     `_per_device_bytes`): each leaf's local shard shape times its itemsize."""

@@ -17,7 +17,9 @@ C entry recomputes the shared bytes and refuses a plan that disagrees.
 
 As in the JAX package there is no backward kernel: the gradient of
 `flash_attention_trainable` is re-derived through the plain version under
-autograd (recompute-style), as `_fa_bwd` does.
+autograd (recompute-style), as `_fa_bwd` does. The forward is also the
+operator ``repro_torch::flash_attention`` (`_library`), the route of fake
+tensors, so that a trace sees each launch as one operation.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import functools
 import torch
 from torch.distributed.tensor import DTensor
 
-from . import _build
+from . import _build, _library
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -200,28 +202,53 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     laid out like q.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``flash_attention.launches``) or raise."""
+    add one to ``flash_attention.launches``) or raise; fake tensors
+    (a trace) go through the operator ``repro_torch::flash_attention``."""
     check_attention_args(q, k, v, window)
     if any(isinstance(t, DTensor) for t in (q, k, v)):
         raise TypeError("the flash kernel takes local tensors; a DTensor reached it "
                         "(run it on local shards through local_map)")
-    if q.device.type == "cpu":
+    traced = _library.traced(q)
+    if q.device.type == "cpu" and not traced:
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
-    if q.device.type != "cuda" or q.dtype not in _KERNEL_DTYPES:
+    if not (q.device.type == "cuda" or traced) or q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
                          f"{q.dtype} on {q.device}")
     b, h, sq, d = q.shape
     if not (b <= 65535 and h <= 65535):
         raise ValueError(f"batch {b} or heads {h} exceed the kernel's grid")
+    if traced:
+        return _FLASH_OP(q, k, v, bool(causal), int(window), float(softcap))
+    return _launch(q, k, v, causal, window, softcap)
+
+
+def _launch(q, k, v, causal, window, softcap) -> torch.Tensor:
+    """The launch half of `flash_attention` (operands checked), reached
+    directly or by the operator's CUDA implementation."""
     out = torch.empty_like(q)   # q's strides: (B, S, H, D) memory for a transposed view
     plan = plan_for(q, k, v, out, causal=causal, window=window)
     _build.launch_flash(q, k, v, out, plan, causal=causal, window=window,
-                        scale=float(d) ** -0.5, softcap=float(softcap))
+                        scale=float(q.shape[-1]) ** -0.5, softcap=float(softcap))
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def _plain_like_q(q, k, v, causal, window, softcap) -> torch.Tensor:
+    """The operator's CPU implementation: the plain version, laid out like
+    q as the kernel writes it."""
+    out = torch.empty_like(q)
+    return out.copy_(flash_attention_plain(q, k, v, causal=causal, window=window,
+                                           softcap=softcap))
+
+
+_FLASH_OP = _library.define(
+    "flash_attention",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window, float softcap) -> Tensor",
+    cpu=_plain_like_q, cuda=_launch,
+    fake=lambda q, k, v, causal, window, softcap: torch.empty_like(q))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -29,7 +29,7 @@ import torch
 from repro_torch.core.packing import unpack_ternary
 from repro_torch.core.quantize import Q_MAX
 
-from . import _build, _splitk, autotune
+from . import _build, _library, _splitk, autotune
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -452,23 +452,41 @@ def ternary_decode_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
     """packed (M, KG) uint8 × x (N, KG*g) float → (N, M) out_dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``ternary_decode_gemm_fused.launches``) or raise. `plan`: a
+    add one to ``ternary_decode_gemm_fused.launches``) or raise; fake
+    tensors (a trace) go through the operator
+    ``repro_torch::ternary_decode_gemm_fused`` (`_library`). `plan`: a
     `DecodePlan` launched as it is; None takes `autotune.get_plan`'s."""
     check_fused_args(packed, x, a_scale, w_scale, g, out_dtype)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _library.traced(x):
         return ternary_decode_gemm_fused_plain(
             packed, x, a_scale, w_scale, g=g, out_dtype=out_dtype)
-    if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
-                         f"{x.dtype} on {x.device}")
+    check_kernel_device(x, float_only=True)
     return _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan)
 
 
+def check_kernel_device(t: torch.Tensor, *, float_only: bool) -> None:
+    """A kernel launch (or a traced one) takes CUDA tensors, f32/bf16
+    activations where `float_only`."""
+    if not (t.device.type == "cuda" or _library.traced(t)) or (
+            float_only and t.dtype not in _KERNEL_DTYPES):
+        raise ValueError(f"the CUDA kernel takes {'f32/bf16 ' if float_only else ''}CUDA "
+                         f"tensors, got {t.dtype} on {t.device}")
+
+
+def _fused_out(packed, x, out_dtype) -> torch.Tensor:
+    """The fused kernels' (N, M) output, unwritten."""
+    return x.new_empty((x.shape[0], packed.shape[0]), dtype=out_dtype)
+
+
 def _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tensor:
-    """The launch half of `ternary_decode_gemm_fused` (operands checked)."""
-    out = torch.empty((x.shape[0], packed.shape[0]), dtype=out_dtype, device=x.device)
-    if out.numel() == 0 or packed.shape[1] == 0:
-        return out.zero_()
+    """The launch half of `ternary_decode_gemm_fused` (operands checked),
+    reached directly or by the operator's CUDA implementation: an empty
+    product launches nothing; a traced one is one operator."""
+    if x.shape[0] * packed.shape[0] == 0 or packed.shape[1] == 0:
+        return _fused_out(packed, x, out_dtype).zero_()
+    if _library.traced(x):
+        return _FUSED_OP(packed, x, a_scale, w_scale, g, out_dtype, _library.plan_fields(plan))
+    out = _fused_out(packed, x, out_dtype)
     if plan is None:
         codes, acts = fused_aligned(packed, x)
         plan = autotune.get_plan("decode", g, *packed.shape, x.shape[0], device=x.device,
@@ -480,6 +498,16 @@ def _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tens
 
 
 ternary_decode_gemm_fused.launches = 0
+_FUSED_SCHEMA = ("(Tensor packed, Tensor x, Tensor a_scale, Tensor w_scale, int g, "
+                 "ScalarType out_dtype, int[]? plan=None) -> Tensor")
+_FUSED_OP = _library.define(
+    "ternary_decode_gemm_fused", _FUSED_SCHEMA,
+    cpu=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
+        ternary_decode_gemm_fused_plain(packed, x, a_scale, w_scale, g=g, out_dtype=out_dtype),
+    cuda=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None: _launch_fused(
+        packed, x, a_scale, w_scale, g, out_dtype, _library.plan_from(DecodePlan, plan)),
+    fake=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
+        _fused_out(packed, x, out_dtype))
 
 
 def ternary_decode_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
@@ -491,25 +519,33 @@ def ternary_decode_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
     weights (the MoE layers' `linear_batched_apply`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``ternary_decode_gemm_fused_grouped.launches``) or raise.
+    add one to ``ternary_decode_gemm_fused_grouped.launches``) or raise;
+    fake tensors go through the operator of the same name.
     `plan`: a `GroupedDecodePlan` launched as it is; None takes
     `autotune.get_plan`'s."""
     check_grouped_args(packed, x, a_scale, w_scale, g, out_dtype)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _library.traced(x):
         return ternary_decode_gemm_fused_plain(
             packed, x, a_scale, w_scale, g=g, out_dtype=out_dtype)
-    if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
-                         f"{x.dtype} on {x.device}")
+    check_kernel_device(x, float_only=True)
     return _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan)
 
 
+def _grouped_out(packed, x, out_dtype) -> torch.Tensor:
+    """The grouped fused kernels' (E, C, M) output, unwritten."""
+    return x.new_empty((packed.shape[0], x.shape[1], packed.shape[1]), dtype=out_dtype)
+
+
 def _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tensor:
-    """The launch half of `ternary_decode_gemm_fused_grouped`."""
+    """The launch half of `ternary_decode_gemm_fused_grouped` (as
+    `_launch_fused`)."""
     e, m, kg = packed.shape
-    out = torch.empty((e, x.shape[1], m), dtype=out_dtype, device=x.device)
-    if out.numel() == 0 or kg == 0:
-        return out.zero_()
+    if e * x.shape[1] * m == 0 or kg == 0:
+        return _grouped_out(packed, x, out_dtype).zero_()
+    if _library.traced(x):
+        return _FUSED_GROUPED_OP(packed, x, a_scale, w_scale, g, out_dtype,
+                                 _library.plan_fields(plan))
+    out = _grouped_out(packed, x, out_dtype)
     if plan is None:
         plan = autotune.get_plan("decode_grouped", g, m, kg, x.shape[1], e=e, device=x.device)
     _build.launch_decode_grouped(packed, x, a_scale, w_scale, g, out, plan,
@@ -519,6 +555,14 @@ def _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan) -> to
 
 
 ternary_decode_gemm_fused_grouped.launches = 0
+_FUSED_GROUPED_OP = _library.define(
+    "ternary_decode_gemm_fused_grouped", _FUSED_SCHEMA,
+    cpu=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
+        ternary_decode_gemm_fused_plain(packed, x, a_scale, w_scale, g=g, out_dtype=out_dtype),
+    cuda=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None: _launch_fused_grouped(
+        packed, x, a_scale, w_scale, g, out_dtype, _library.plan_from(GroupedDecodePlan, plan)),
+    fake=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
+        _grouped_out(packed, x, out_dtype))
 
 
 def ternary_decode_gemm_plain(packed, a_r, *, g: int) -> torch.Tensor:
@@ -538,21 +582,29 @@ def ternary_decode_gemm(packed, a_r, *, g: int, plan=None) -> torch.Tensor:
     """packed (M, KG) uint8 × a_r (g, KG, N) int8 → (M, N) int32, exact.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``ternary_decode_gemm.launches``) or raise. `plan`: a
+    add one to ``ternary_decode_gemm.launches``) or raise; fake
+    tensors go through the operator of the same name. `plan`: a
     `DecodePlan` launched as it is; None takes `autotune.get_plan`'s."""
     check_int_args(packed, a_r, g)
-    if a_r.device.type == "cpu":
+    if a_r.device.type == "cpu" and not _library.traced(a_r):
         return ternary_decode_gemm_plain(packed, a_r, g=g)
-    if a_r.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    check_kernel_device(a_r, float_only=False)
     return _launch_int(packed, a_r, g, plan)
 
 
+def _int_out(packed, a_r) -> torch.Tensor:
+    """The integer kernels' (..., M, N) int32 output, unwritten (a leading
+    expert axis for the grouped kernels)."""
+    return a_r.new_empty((*packed.shape[:-1], a_r.shape[-1]), dtype=torch.int32)
+
+
 def _launch_int(packed, a_r, g, plan) -> torch.Tensor:
-    """The launch half of `ternary_decode_gemm`."""
-    out = torch.empty((packed.shape[0], a_r.shape[2]), dtype=torch.int32, device=a_r.device)
-    if out.numel() == 0 or packed.shape[1] == 0:
-        return out.zero_()
+    """The launch half of `ternary_decode_gemm` (as `_launch_fused`)."""
+    if packed.shape[0] * a_r.shape[2] == 0 or packed.shape[1] == 0:
+        return _int_out(packed, a_r).zero_()
+    if _library.traced(a_r):
+        return _INT_OP(packed, a_r, g, _library.plan_fields(plan))
+    out = _int_out(packed, a_r)
     if plan is None:
         codes, acts = int_aligned(packed, a_r)
         plan = autotune.get_plan("decode", g, *packed.shape, a_r.shape[2], fused=False,
@@ -563,6 +615,13 @@ def _launch_int(packed, a_r, g, plan) -> torch.Tensor:
 
 
 ternary_decode_gemm.launches = 0
+_INT_SCHEMA = "(Tensor packed, Tensor a_r, int g, int[]? plan=None) -> Tensor"
+_INT_OP = _library.define(
+    "ternary_decode_gemm", _INT_SCHEMA,
+    cpu=lambda packed, a_r, g, plan=None: ternary_decode_gemm_plain(packed, a_r, g=g),
+    cuda=lambda packed, a_r, g, plan=None: _launch_int(
+        packed, a_r, g, _library.plan_from(DecodePlan, plan)),
+    fake=lambda packed, a_r, g, plan=None: _int_out(packed, a_r))
 
 
 def ternary_decode_gemm_grouped(packed, a_r, *, g: int, plan=None) -> torch.Tensor:
@@ -573,22 +632,24 @@ def ternary_decode_gemm_grouped(packed, a_r, *, g: int, plan=None) -> torch.Tens
     unfused pipeline).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``ternary_decode_gemm_grouped.launches``) or raise. `plan`: a
+    add one to ``ternary_decode_gemm_grouped.launches``) or raise; fake
+    tensors go through the operator of the same name. `plan`: a
     `GroupedDecodePlan` launched as it is; None takes `autotune.get_plan`'s."""
     check_int_grouped_args(packed, a_r, g)
-    if a_r.device.type == "cpu":
+    if a_r.device.type == "cpu" and not _library.traced(a_r):
         return ternary_decode_gemm_plain(packed, a_r, g=g)
-    if a_r.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    check_kernel_device(a_r, float_only=False)
     return _launch_int_grouped(packed, a_r, g, plan)
 
 
 def _launch_int_grouped(packed, a_r, g, plan) -> torch.Tensor:
-    """The launch half of `ternary_decode_gemm_grouped`."""
+    """The launch half of `ternary_decode_gemm_grouped` (as `_launch_fused`)."""
     e, m, kg = packed.shape
-    out = torch.empty((e, m, a_r.shape[3]), dtype=torch.int32, device=a_r.device)
-    if out.numel() == 0 or kg == 0:
-        return out.zero_()
+    if e * m * a_r.shape[3] == 0 or kg == 0:
+        return _int_out(packed, a_r).zero_()
+    if _library.traced(a_r):
+        return _INT_GROUPED_OP(packed, a_r, g, _library.plan_fields(plan))
+    out = _int_out(packed, a_r)
     if plan is None:
         plan = autotune.get_plan("decode_grouped", g, m, kg, a_r.shape[3], e=e, fused=False,
                                  device=a_r.device)
@@ -599,3 +660,9 @@ def _launch_int_grouped(packed, a_r, g, plan) -> torch.Tensor:
 
 
 ternary_decode_gemm_grouped.launches = 0
+_INT_GROUPED_OP = _library.define(
+    "ternary_decode_gemm_grouped", _INT_SCHEMA,
+    cpu=lambda packed, a_r, g, plan=None: ternary_decode_gemm_plain(packed, a_r, g=g),
+    cuda=lambda packed, a_r, g, plan=None: _launch_int_grouped(
+        packed, a_r, g, _library.plan_from(GroupedDecodePlan, plan)),
+    fake=lambda packed, a_r, g, plan=None: _int_out(packed, a_r))

@@ -31,13 +31,18 @@ import torch
 
 from repro_torch.core.vlut import sign_matrix_on
 
-from . import _build, _splitk, autotune
+from . import _build, _library, _splitk, autotune
 from .ternary_decode_gemm import (
-    _KERNEL_DTYPES,
+    _FUSED_SCHEMA,
+    _INT_SCHEMA,
+    _fused_out,
+    _grouped_out,
+    _int_out,
     check_fused_args,
     check_grouped_args,
     check_int_args,
     check_int_grouped_args,
+    check_kernel_device,
     epilogue,
     quantize_tokens,
 )
@@ -315,23 +320,27 @@ def vlut_lookup_gemm_fused(packed, x, a_scale, w_scale, *, g: int,
     """packed (M, KG) uint8 × x (N, KG*g) float → (N, M) out_dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``vlut_lookup_gemm_fused.launches``) or raise. `plan`: a
-    `LutPlan` launched as it is; None takes `autotune.get_plan`'s."""
+    add one to ``vlut_lookup_gemm_fused.launches``) or raise; fake
+    tensors (a trace) go through the operator of the same name
+    (`_library`). `plan`: a `LutPlan` launched as it is; None takes
+    `autotune.get_plan`'s."""
     check_fused_args(packed, x, a_scale, w_scale, g, out_dtype)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _library.traced(x):
         return vlut_lookup_gemm_fused_plain(
             packed, x, a_scale, w_scale, g=g, out_dtype=out_dtype)
-    if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
-                         f"{x.dtype} on {x.device}")
+    check_kernel_device(x, float_only=True)
     return _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan)
 
 
 def _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tensor:
-    """The launch half of `vlut_lookup_gemm_fused` (operands checked)."""
-    out = torch.empty((x.shape[0], packed.shape[0]), dtype=out_dtype, device=x.device)
-    if out.numel() == 0 or packed.shape[1] == 0:
-        return out.zero_()
+    """The launch half of `vlut_lookup_gemm_fused` (operands checked),
+    reached directly or by the operator's CUDA implementation: an empty
+    product launches nothing; a traced one is one operator."""
+    if x.shape[0] * packed.shape[0] == 0 or packed.shape[1] == 0:
+        return _fused_out(packed, x, out_dtype).zero_()
+    if _library.traced(x):
+        return _FUSED_OP(packed, x, a_scale, w_scale, g, out_dtype, _library.plan_fields(plan))
+    out = _fused_out(packed, x, out_dtype)
     if plan is None:
         plan = autotune.get_plan("lookup", g, *packed.shape, x.shape[0], device=x.device)
     _build.launch_lut(packed, x, a_scale, w_scale, g, out, plan, *_launch_args(plan, x.device))
@@ -340,6 +349,14 @@ def _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tens
 
 
 vlut_lookup_gemm_fused.launches = 0
+_FUSED_OP = _library.define(
+    "vlut_lookup_gemm_fused", _FUSED_SCHEMA,
+    cpu=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
+        vlut_lookup_gemm_fused_plain(packed, x, a_scale, w_scale, g=g, out_dtype=out_dtype),
+    cuda=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None: _launch_fused(
+        packed, x, a_scale, w_scale, g, out_dtype, _library.plan_from(LutPlan, plan)),
+    fake=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
+        _fused_out(packed, x, out_dtype))
 
 
 def vlut_lookup_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
@@ -351,25 +368,26 @@ def vlut_lookup_gemm_fused_grouped(packed, x, a_scale, w_scale, *, g: int,
     weights (the MoE layers' `linear_batched_apply`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``vlut_lookup_gemm_fused_grouped.launches``) or raise.
-    `plan`: a `GroupedLutPlan` launched as it is; None takes
-    `autotune.get_plan`'s."""
+    add one to ``vlut_lookup_gemm_fused_grouped.launches``) or raise; fake
+    tensors go through the operator of the same name. `plan`: a
+    `GroupedLutPlan` launched as it is; None takes `autotune.get_plan`'s."""
     check_grouped_args(packed, x, a_scale, w_scale, g, out_dtype)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _library.traced(x):
         return vlut_lookup_gemm_fused_plain(
             packed, x, a_scale, w_scale, g=g, out_dtype=out_dtype)
-    if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the CUDA kernel takes f32/bf16 CUDA tensors, got "
-                         f"{x.dtype} on {x.device}")
+    check_kernel_device(x, float_only=True)
     return _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan)
 
 
 def _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tensor:
-    """The launch half of `vlut_lookup_gemm_fused_grouped`."""
+    """The launch half of `vlut_lookup_gemm_fused_grouped` (as `_launch_fused`)."""
     e, m, kg = packed.shape
-    out = torch.empty((e, x.shape[1], m), dtype=out_dtype, device=x.device)
-    if out.numel() == 0 or kg == 0:
-        return out.zero_()
+    if e * x.shape[1] * m == 0 or kg == 0:
+        return _grouped_out(packed, x, out_dtype).zero_()
+    if _library.traced(x):
+        return _FUSED_GROUPED_OP(packed, x, a_scale, w_scale, g, out_dtype,
+                                 _library.plan_fields(plan))
+    out = _grouped_out(packed, x, out_dtype)
     if plan is None:
         plan = autotune.get_plan("lookup_grouped", g, m, kg, x.shape[1], e=e, device=x.device)
     _build.launch_lut_grouped(packed, x, a_scale, w_scale, g, out, plan,
@@ -379,6 +397,14 @@ def _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan) -> to
 
 
 vlut_lookup_gemm_fused_grouped.launches = 0
+_FUSED_GROUPED_OP = _library.define(
+    "vlut_lookup_gemm_fused_grouped", _FUSED_SCHEMA,
+    cpu=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
+        vlut_lookup_gemm_fused_plain(packed, x, a_scale, w_scale, g=g, out_dtype=out_dtype),
+    cuda=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None: _launch_fused_grouped(
+        packed, x, a_scale, w_scale, g, out_dtype, _library.plan_from(GroupedLutPlan, plan)),
+    fake=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
+        _grouped_out(packed, x, out_dtype))
 
 
 def vlut_lookup_gemm_plain(packed, a_r, *, g: int) -> torch.Tensor:
@@ -396,21 +422,23 @@ def vlut_lookup_gemm(packed, a_r, *, g: int, plan=None) -> torch.Tensor:
     """packed (M, KG) uint8 × a_r (g, KG, N) int8 → (M, N) int32, exact.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``vlut_lookup_gemm.launches``) or raise. `plan`: a `LutPlan`
+    add one to ``vlut_lookup_gemm.launches``) or raise; fake
+    tensors go through the operator of the same name. `plan`: a `LutPlan`
     launched as it is; None takes `autotune.get_plan`'s."""
     check_int_args(packed, a_r, g)
-    if a_r.device.type == "cpu":
+    if a_r.device.type == "cpu" and not _library.traced(a_r):
         return vlut_lookup_gemm_plain(packed, a_r, g=g)
-    if a_r.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    check_kernel_device(a_r, float_only=False)
     return _launch_int(packed, a_r, g, plan)
 
 
 def _launch_int(packed, a_r, g, plan) -> torch.Tensor:
-    """The launch half of `vlut_lookup_gemm`."""
-    out = torch.empty((packed.shape[0], a_r.shape[2]), dtype=torch.int32, device=a_r.device)
-    if out.numel() == 0 or packed.shape[1] == 0:
-        return out.zero_()
+    """The launch half of `vlut_lookup_gemm` (as `_launch_fused`)."""
+    if packed.shape[0] * a_r.shape[2] == 0 or packed.shape[1] == 0:
+        return _int_out(packed, a_r).zero_()
+    if _library.traced(a_r):
+        return _INT_OP(packed, a_r, g, _library.plan_fields(plan))
+    out = _int_out(packed, a_r)
     if plan is None:
         plan = autotune.get_plan("lookup", g, *packed.shape, a_r.shape[2], fused=False,
                                  device=a_r.device)
@@ -420,6 +448,12 @@ def _launch_int(packed, a_r, g, plan) -> torch.Tensor:
 
 
 vlut_lookup_gemm.launches = 0
+_INT_OP = _library.define(
+    "vlut_lookup_gemm", _INT_SCHEMA,
+    cpu=lambda packed, a_r, g, plan=None: vlut_lookup_gemm_plain(packed, a_r, g=g),
+    cuda=lambda packed, a_r, g, plan=None: _launch_int(
+        packed, a_r, g, _library.plan_from(LutPlan, plan)),
+    fake=lambda packed, a_r, g, plan=None: _int_out(packed, a_r))
 
 
 def vlut_lookup_gemm_grouped(packed, a_r, *, g: int, plan=None) -> torch.Tensor:
@@ -430,22 +464,24 @@ def vlut_lookup_gemm_grouped(packed, a_r, *, g: int, plan=None) -> torch.Tensor:
     unfused pipeline).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    add one to ``vlut_lookup_gemm_grouped.launches``) or raise. `plan`: a
+    add one to ``vlut_lookup_gemm_grouped.launches``) or raise; fake
+    tensors go through the operator of the same name. `plan`: a
     `GroupedLutPlan` launched as it is; None takes `autotune.get_plan`'s."""
     check_int_grouped_args(packed, a_r, g)
-    if a_r.device.type == "cpu":
+    if a_r.device.type == "cpu" and not _library.traced(a_r):
         return vlut_lookup_gemm_plain(packed, a_r, g=g)
-    if a_r.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_r.device}")
+    check_kernel_device(a_r, float_only=False)
     return _launch_int_grouped(packed, a_r, g, plan)
 
 
 def _launch_int_grouped(packed, a_r, g, plan) -> torch.Tensor:
-    """The launch half of `vlut_lookup_gemm_grouped`."""
+    """The launch half of `vlut_lookup_gemm_grouped` (as `_launch_fused`)."""
     e, m, kg = packed.shape
-    out = torch.empty((e, m, a_r.shape[3]), dtype=torch.int32, device=a_r.device)
-    if out.numel() == 0 or kg == 0:
-        return out.zero_()
+    if e * m * a_r.shape[3] == 0 or kg == 0:
+        return _int_out(packed, a_r).zero_()
+    if _library.traced(a_r):
+        return _INT_GROUPED_OP(packed, a_r, g, _library.plan_fields(plan))
+    out = _int_out(packed, a_r)
     if plan is None:
         plan = autotune.get_plan("lookup_grouped", g, m, kg, a_r.shape[3], e=e, fused=False,
                                  device=a_r.device)
@@ -455,3 +491,9 @@ def _launch_int_grouped(packed, a_r, g, plan) -> torch.Tensor:
 
 
 vlut_lookup_gemm_grouped.launches = 0
+_INT_GROUPED_OP = _library.define(
+    "vlut_lookup_gemm_grouped", _INT_SCHEMA,
+    cpu=lambda packed, a_r, g, plan=None: vlut_lookup_gemm_plain(packed, a_r, g=g),
+    cuda=lambda packed, a_r, g, plan=None: _launch_int_grouped(
+        packed, a_r, g, _library.plan_from(GroupedLutPlan, plan)),
+    fake=lambda packed, a_r, g, plan=None: _int_out(packed, a_r))

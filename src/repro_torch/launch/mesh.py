@@ -10,9 +10,15 @@ sharding rules and the dry run take either.
 A JAX mesh's ``.shape`` is a dict by name; a `DeviceMesh`'s is a tuple in
 dim order. `mesh_axes` reads either as ``{name: size}``, and `batch_axes` /
 `axis_size` read sizes by name through it.
+
+`fake_mesh(shape)` is the real `DeviceMesh` of a `ShapeMesh` in one
+process, over a fake process group of the mesh's world size: collectives
+run nowhere (and on fake tensors are never called), so DTensor code runs
+as rank 0 of a 256- or 512-device mesh would, for the dry run's traces.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 PRODUCTION_SHAPE = {"data": 16, "model": 16}
@@ -76,6 +82,45 @@ def _device_mesh(shape: ShapeMesh, device_type: str | None):
     if device_type is None:
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
     return init_device_mesh(device_type, shape.shape, mesh_dim_names=shape.mesh_dim_names)
+
+
+def _register_fake_backend() -> None:
+    """Register c10d's "fake" backend (`FakeProcessGroup`: every
+    collective a no-op) unless it is: the port's own copy of what
+    ``torch.testing``'s fake process group does."""
+    import torch.distributed as dist
+    from torch._C._distributed_c10d import FakeProcessGroup
+
+    if "FAKE" in getattr(dist.Backend, "_plugins", {}):
+        return
+
+    def create(common_opts, backend_opts):
+        if hasattr(FakeProcessGroup, "_create_internal"):
+            return FakeProcessGroup._create_internal(common_opts.group_rank,
+                                                     common_opts.group_size, backend_opts)
+        return FakeProcessGroup(common_opts.group_rank, common_opts.group_size)
+
+    dist.Backend.register_backend("fake", create, extended_api=True, devices=["cpu", "cuda"])
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: ShapeMesh, device_type: str | None = None):
+    """The `DeviceMesh` of `shape` (named dims) on `device_type` (default:
+    cuda where there is one, else cpu) over a fake process group of
+    ``shape.size()`` ranks, this process rank 0; the group is destroyed on
+    exit, so a sweep enters one context a cell (world sizes 256, 512, 8)
+    and nothing is left for later code in the process. Refuses to run
+    where a process group already exists."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a process group is already initialized")
+    _register_fake_backend()
+    dist.init_process_group("fake", rank=0, world_size=shape.size(), store=dist.HashStore())
+    try:
+        yield _device_mesh(shape, device_type)
+    finally:
+        dist.destroy_process_group()
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):

@@ -66,6 +66,21 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
     return train_step
 
 
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The next tokens, argmax over the last dim, as int32. Logits sharded
+    over the vocabulary (a DTensor under a mesh) are gathered along it
+    first: DTensor's own argmax over a sharded dim reads its offsets from
+    the data, which a fake trace cannot."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if isinstance(logits, DTensor):
+        last = logits.ndim - 1
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == last else p
+            for p in logits.placements])
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def make_prefill_step(cfg: ModelConfig, *, device="cuda"):
     """→ ``prefill_step(model, cache, batch) -> (next tokens (B,) int32,
     new_cache)``; batch: "tokens" (B, S) int and, for an enc-dec model,
@@ -81,7 +96,7 @@ def make_prefill_step(cfg: ModelConfig, *, device="cuda"):
             enc_out = encode(model, batch["frames"].to(device), cfg, mode="serve")
             dec = model.decoder
         logits, new_cache = model_prefill(dec, tokens, cache, cfg, enc_out=enc_out)
-        return torch.argmax(logits, dim=-1).to(torch.int32), new_cache
+        return greedy(logits), new_cache
 
     return prefill_step
 
@@ -96,7 +111,7 @@ def make_decode_step(cfg: ModelConfig, *, device="cuda"):
     def decode_step(model, cache, tokens):
         dec = model.decoder if is_encdec else model
         logits, new_cache = model_decode(dec, tokens.to(device), cache, cfg)
-        return torch.argmax(logits, dim=-1).to(torch.int32), new_cache
+        return greedy(logits), new_cache
 
     return decode_step
 

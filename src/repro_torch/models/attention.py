@@ -34,7 +34,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.dist.sharding import shard_act
+from repro_torch.dist.sharding import fit_sharding, shard_act, write_rows
 from repro_torch.kernels.flash_attention import flash_attention_trainable
 from repro_torch.launch.mesh import axis_size, batch_axes, mesh_axes
 
@@ -74,7 +74,7 @@ def sdpa(q, k, v, q_pos, kv_pos, *, causal: bool = True, window: int = 0,
     dv = v.shape[-1]
     kv = k.shape[2]
     g = h // kv
-    qg = q.reshape(b, sq, kv, g, d)
+    qg = fit_sharding(q, 2, kv).reshape(b, sq, kv, g, d)
     scale = d ** -0.5
 
     if k.shape[1] <= dense_max or k.shape[1] % chunk:
@@ -128,18 +128,18 @@ def tree_step_gate(tree, start: torch.Tensor, s: int, length: int) -> torch.Tens
 
 
 def split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
-    """(..., n*d) → (..., n, d). DTensor cannot split a dim sharded over a
-    mesh dim whose size does not divide the n heads (JAX's partitioner
-    gathers it implicitly): such a dim is gathered first."""
-    if isinstance(t, DTensor):
-        from torch.distributed.tensor import Replicate, Shard
-
-        sizes, last = t.device_mesh.shape, t.ndim - 1
-        placements = [Replicate() if isinstance(pl, Shard) and pl.dim == last and n % sizes[i]
-                      else pl for i, pl in enumerate(t.placements)]
-        if placements != list(t.placements):
-            t = t.redistribute(t.device_mesh, placements)
+    """(..., n*d) → (..., n, d), a dim sharded unevenly over the n heads
+    gathered first (`dist.sharding.fit_sharding`)."""
+    t = fit_sharding(t, -1, n)
     return t.reshape(*t.shape[:-1], n, d)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., n, d) → (..., n*d), `split_heads`' inverse, an unevenly
+    sharded heads dim gathered first."""
+    n, d = t.shape[-2:]
+    t = fit_sharding(t, -2, n)
+    return t.reshape(*t.shape[:-2], n * d)
 
 
 def _flash(q, k, v, causal: bool, window: int, softcap: float) -> torch.Tensor:
@@ -336,9 +336,9 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
             # prefill longer than the buffer: keep the trailing `buf` tokens
             src = s - buf + torch.arange(buf, device=x.device)
             dst = torch.remainder(start[:, None].long() + src[None, :], buf)
-            ck[bidx, dst] = k[:, src].to(ck.dtype)
-            cv[bidx, dst] = v[:, src].to(cv.dtype)
-            sp[bidx, dst] = positions[:, src]
+            write_rows(ck, dst, bidx=bidx, values=k[:, src].to(ck.dtype))
+            write_rows(cv, dst, bidx=bidx, values=v[:, src].to(cv.dtype))
+            write_rows(sp, dst, bidx=bidx, values=positions[:, src])
         else:
             # torch.remainder follows the sign of the divisor, as jnp's %,
             # so negative pad positions wrap into [0, buf) (and stay masked
@@ -359,9 +359,9 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
                 kw = torch.where(keep[..., None, None], kw, ck[bidx, slots])
                 vw = torch.where(keep[..., None, None], vw, cv[bidx, slots])
                 pw = torch.where(keep, pw, sp[bidx, slots])
-            ck[bidx, slots] = kw
-            cv[bidx, slots] = vw
-            sp[bidx, slots] = pw
+            write_rows(ck, slots, kw, bidx=bidx)
+            write_rows(cv, slots, vw, bidx=bidx)
+            write_rows(sp, slots, pw, bidx=bidx)
         new_cache = {"k": shard_act(ck, "kv_cache"), "v": shard_act(cv, "kv_cache"),
                      "slot_pos": sp, "idx": start + s}
         if s == 1 or verify:
@@ -373,8 +373,7 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
         else:
             # prefill: attend within the incoming (fresh) sequence itself
             out = sdpa(q, k, v, positions, positions, **attn)
-    b_, s_, h, hd = out.shape
-    return linear_apply(p.wo, out.reshape(b_, s_, h * hd), mode), new_cache
+    return linear_apply(p.wo, merge_heads(out), mode), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -409,4 +408,4 @@ def cross_attn_apply(p: Attention, x: torch.Tensor, k, v, cfg, mode: str) -> tor
     kv_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
     out = sdpa(q, k, v, q_pos, kv_pos, causal=False, window=0,
                chunk=cfg.attn_chunk, dense_max=cfg.attn_dense_max)
-    return linear_apply(p.wo, out.reshape(b, s, h * hd), mode)
+    return linear_apply(p.wo, merge_heads(out), mode)

@@ -15,9 +15,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.packing import PackedWeight
 from repro_torch.core.quantize import fake_act_quant, fake_ternary_cols
+from repro_torch.dist.sharding import fit_sharding, unflatten_tokens
 from repro_torch.kernels.ops import ternary_matmul, ternary_matmul_batched
 
 
@@ -89,8 +91,14 @@ def linear_init(k_in: int, m_out: int, cfg, *, generator: torch.Generator,
 
 
 def linear_apply(p: nn.Module, x: torch.Tensor, mode: str = "serve") -> torch.Tensor:
-    """x: (..., K) → (..., M). mode: 'train' | 'eval' | 'serve'."""
+    """x: (..., K) → (..., M). mode: 'train' | 'eval' | 'serve'. A sharded
+    x (a DTensor: the dry run's serving steps, the "xla" impl) enters the
+    packed path with its tokens flattened here and leaves with their shards
+    fitted back (`dist.sharding.unflatten_tokens`)."""
     if isinstance(p, PackedLinear):  # packed serving path → the paper's kernel
+        if isinstance(x, DTensor):
+            return unflatten_tokens(ternary_matmul(p.pw, x.reshape(-1, x.shape[-1])),
+                                    x.shape[:-1])
         return ternary_matmul(p.pw, x)
     if isinstance(p, QLinear):
         wq = fake_ternary_cols(p.qw).to(x.dtype)
@@ -106,9 +114,11 @@ def linear_batched_apply(p: nn.Module, x: torch.Tensor, mode: str = "serve") -> 
     """Stacked expert linears: the module's weight has a leading E axis
     (QLinear / Linear (E, K, M), PackedLinear (E, M, KG)); x (E, C, K) →
     (E, C, M). As in the JAX package, the QAT fake-quant runs in 'train'
-    and 'eval' only: unconverted 'serve' weights take the dense product."""
+    and 'eval' only: unconverted 'serve' weights take the dense product.
+    The packed path flattens (E, C): a sharded x (a DTensor) has its C dim
+    gathered first, as DTensor cannot split a flat dim sharded over both."""
     if isinstance(p, PackedLinear):
-        return ternary_matmul_batched(p.pw, x)
+        return ternary_matmul_batched(p.pw, fit_sharding(x, 1, 1))
     w = p.qw if isinstance(p, QLinear) else p.w
     if isinstance(p, QLinear) and mode in ("train", "eval"):
         wq = fake_ternary_cols(w)                       # (E, K, M), no transpose

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.quantize import fake_ternary_cols
-from repro_torch.dist.sharding import shard_act
+from repro_torch.dist.sharding import shard_act, write_rows
 
 from .attention import NEG_INF, sdpa, tree_step_gate
 from .common import (
@@ -145,10 +145,8 @@ def _write_dense(leaf: torch.Tensor, slots: torch.Tensor, values: torch.Tensor) 
     (S <= L), so writing that slot's current content back is the drop, with
     no host sync."""
     length = leaf.shape[1]
-    bidx = torch.arange(slots.shape[0], device=slots.device)[:, None]
     wrapped = torch.remainder(slots.long(), length)
-    keep = (slots < length)[..., None]
-    leaf[bidx, wrapped] = torch.where(keep, values.to(leaf.dtype), leaf[bidx, wrapped])
+    write_rows(leaf, wrapped, values.to(leaf.dtype), slots < length)
 
 
 def mla_apply(p: MLA, x: torch.Tensor, *, cfg, spec, mode: str = "serve",

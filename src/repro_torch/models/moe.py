@@ -21,7 +21,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.dist.sharding import dispatch_blocks, shard_act
+from repro_torch.dist.sharding import (
+    dispatch_blocks,
+    fit_sharding,
+    flatten_tokens,
+    shard_act,
+    unstrided,
+)
 from repro_torch.launch.mesh import axis_size, batch_axes, mesh_axes
 
 from .common import Linear, linear_apply, linear_batched_apply, linear_init
@@ -201,7 +207,7 @@ def moe_apply(p: MoEFFN, x: torch.Tensor, cfg, mode: str = "serve",
     mc = cfg.moe
     b, s, d = x.shape
     t = b * s
-    xt = x.reshape(t, d)
+    xt = flatten_tokens(x)
     e, k = mc.n_experts, mc.top_k
     nb = n_blocks if n_blocks is not None else dispatch_blocks(t)
     mesh = isinstance(xt, DTensor)
@@ -244,4 +250,4 @@ def moe_apply(p: MoEFFN, x: torch.Tensor, cfg, mode: str = "serve",
         aux = aux + zloss
     else:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return out.reshape(b, s, d).to(x.dtype), aux
+    return fit_sharding(unstrided(out), 0, b).reshape(b, s, d).to(x.dtype), aux

@@ -1,17 +1,18 @@
 """Analytic cost model (ported from `repro.roofline.analysis`): the FLOPs
 and HBM bytes of one packed mpGeMM dispatch (`mpgemm_cost`, for the
-achieved-rate gauges of `repro_torch.obs`), the parameter counts and model
-FLOPs of an architecture (`count_params`, `model_flops`), and the dry run's
-three-term roofline (`Roofline`).
+achieved-rate gauges of `repro_torch.obs` and the step statistics), the
+parameter counts and model FLOPs of an architecture (`count_params`,
+`model_flops`), the bytes of each collective kind in a traced step
+(`collective_bytes`) and the dry run's three-term roofline (`Roofline`).
 
 The roofline's peaks are one NVIDIA H100 SXM's, from NVIDIA's data sheet
 (dense, at the 700 W limit): 989 TFLOP/s bf16 on the tensor cores, 3.35
 TB/s of HBM, 450 GB/s of NVLink each way. The JAX package's figures are a
-TPU's and its per-device FLOPs and bytes come from compiled HLO; the port
-has no compiler to ask, so the dry run feeds it the model's FLOPs spread
-over the devices and each device's state bytes (`launch.dryrun`), and its
-collective term stays unknown (None) until a collective count exists
-(`collective_bytes` parses HLO and is not ported).
+TPU's and its per-device FLOPs, bytes and collectives come from compiled
+HLO; the port has no compiler, so the dry run reads them from a trace of
+its own step (`hlo_stats.trace_step`, `hlo_stats.step_stats`), and
+`collective_bytes` reads that trace's op list where the JAX function reads
+HLO text.
 """
 from __future__ import annotations
 
@@ -37,6 +38,23 @@ def mpgemm_cost(m: int, k: int, n: int, g: int, *,
     if not fused:
         bytes_ += 2.0 * k * n + 2.0 * 4.0 * m * n        # int8 A, int32 out
     return flops, bytes_
+
+
+def collective_bytes(ops) -> dict[str, dict[str, float]]:
+    """Result bytes and count of each collective kind (JAX's names, every
+    kind present) in a recorded op list (`hlo_stats.Trace.ops`): the
+    counterpart of `repro.roofline.analysis.collective_bytes(hlo_text)`,
+    whose HLO collectives are the trace's functional collectives
+    (`hlo_stats.collective_kind`); waits are not collectives."""
+    from .hlo_stats import COLLECTIVE_KINDS, collective_kind, nbytes
+
+    out = {k: {"bytes": 0, "count": 0} for k in COLLECTIVE_KINDS}
+    for op in ops:
+        kind = collective_kind(op)
+        if kind is not None:
+            out[kind]["bytes"] += nbytes(op["out"])
+            out[kind]["count"] += 1
+    return out
 
 
 @dataclass

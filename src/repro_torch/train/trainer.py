@@ -93,7 +93,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, tc: TrainConfig):
 
     def grads_of(model, params, batch):
         loss, metrics = loss_fn(model, batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        # a parameter the loss does not reach (deepseek-v3's router bias:
+        # it only picks the top-k) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                    materialize_grads=True)
         # a sharded parameter's gradient comes back partial or otherwise
         # placed: reduce it onto the parameter's own placements
         grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g

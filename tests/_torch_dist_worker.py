@@ -72,7 +72,7 @@ def main(rank: int, port: int, workdir: str) -> None:
         inp = torch.load(work / "inputs.pt", weights_only=False)
         res = {}
         for check in (trainer_check, placement_faults_check, flash_check, compression_check,
-                      moe_check, psum_check, restore_check):
+                      moe_check, psum_check, restore_check, seq_cache_check):
             res.update(check(rank, inp, work))
         torch.save(res, work / f"rank{rank}.pt")
     except BaseException:
@@ -366,3 +366,44 @@ def restore_check(rank, inp, work) -> dict:
         "restore41_placements": pl41,
         "restore_plain": {n: p.detach().clone() for n, p in plain["params"].items()},
     }
+
+
+def seq_cache_check(rank, inp, work) -> dict:
+    """B = 1 prefill writes of S = 12 tokens into caches of L = 32 slots
+    sharded over their sequence (blocks of 8 over a (4, 1) mesh's "data",
+    as `cache_spec` places a B = 1 cache), by `write_rows`, each against
+    the same write into the unsharded cache: from slot 0 (a real write
+    lands on rank 0's local slot 0, other ranks' entries after it), around
+    the ring's end, and with MLA's dropped slots (`keep`); a (B, L, H, D)
+    k cache and a (B, L) slot-position cache."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.dist.sharding import cache_spec, to_placements, write_rows
+
+    mesh = _mesh(4, 1)
+    big, s = 32, 12
+    gen = torch.Generator().manual_seed(11)
+    out = {}
+    for case, start, drop in (("from0", 0, False), ("ring", 26, False), ("drop", 26, True)):
+        pos = start + torch.arange(s)[None, :]
+        slots, keep = (pos % big, pos < big) if drop else (pos % big, None)
+        for name, shape in (("k", (1, big, 2, 4)), ("slot_pos", (1, big))):
+            spec = cache_spec(["layers", "0", "mixer", name], shape, mesh, inp["cfg"])
+            placements = to_placements(spec, mesh)
+            assert tuple(placements) == (Shard(1), Replicate()), (name, placements)
+            if name == "k":
+                old = torch.randn(shape, generator=gen)
+                vals = torch.randn((1, s, *shape[2:]), generator=gen)
+            else:
+                old = torch.randint(-5, 0, shape, generator=gen, dtype=torch.int32)
+                vals = pos.to(torch.int32)
+            want = old.clone()
+            write_rows(want, slots, vals, keep)
+            leaf = distribute_tensor(old.clone(), mesh, placements)
+            rep = [Replicate(), Replicate()]
+            write_rows(leaf, distribute_tensor(slots, mesh, rep),
+                       distribute_tensor(vals, mesh, rep),
+                       None if keep is None else distribute_tensor(keep, mesh, rep))
+            out[f"{case}.{name}"] = (_full(leaf), want)
+    return {"seq_cache": out}
+

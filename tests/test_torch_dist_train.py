@@ -15,6 +15,8 @@ JAX references are computed here.
   * `compressed_psum` against JAX's blockwise quantizer summed over ranks;
   * elastic restore: the (2, 2) checkpoint onto a (4, 1) mesh and onto no
     mesh;
+  * B = 1 prefill writes into caches sharded over their sequence
+    (`dist.sharding.write_rows`), bit for bit the unsharded writes;
   * planted faults, one call each (a rule that replicates qw; shard_act
     dropped at the "btd" site), read as faults by the checks above.
 """
@@ -174,6 +176,15 @@ def test_moe_block_dispatch_matches_unsharded(run):
 
         for w in ("w1", "w3", "w2"):
             assert res["moe_placements"][f"experts.{w}.qw"] == (Shard(1), Shard(0))
+
+
+def test_sequence_sharded_cache_writes_match_unsharded(run):
+    """`write_rows` into a cache sharded over its sequence, B = 1 prefills
+    longer than a block: bit for bit the unsharded cache's write."""
+    for res in run["ranks"]:
+        assert len(res["seq_cache"]) == 6
+        for name, (got, want) in res["seq_cache"].items():
+            assert torch.equal(got, want), name
 
 
 def _jax_roundtrip(rank):

@@ -1,5 +1,7 @@
 """The port stands alone: no module of `src/repro_torch` and not
-`chip_smoke.py` imports JAX or anything of the JAX package `repro`."""
+`chip_smoke.py` imports JAX or anything of the JAX package `repro`, nor
+PyTorch's test-only helpers (`torch.testing._internal`: the fake process
+group's backend is registered by the port's own code)."""
 import ast
 import pathlib
 
@@ -11,7 +13,7 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smo
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro") or name.startswith("torch.testing._internal")
 
 
 def _imports(tree: ast.AST):
@@ -66,6 +68,12 @@ def test_walk_covers_the_autotune_slice():
     assert "src/repro_torch/kernels/autotune.py" in rels
 
 
+def test_walk_covers_the_step_statistics_slice():
+    rels = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"src/repro_torch/roofline/hlo_stats.py", "src/repro_torch/kernels/_library.py",
+            "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/dryrun.py"} <= rels
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -79,3 +87,12 @@ def test_detector_flags_forbidden_imports():
            "importlib.import_module('repro.configs')\n")
     found = [name for _, name in _imports(ast.parse(src)) if _forbidden(name)]
     assert found == ["jax", "jax.numpy", "repro.core", "repro.configs"]
+
+
+def test_detector_flags_torch_testing_internal():
+    src = ("from torch.testing._internal.distributed.fake_pg import FakeStore\n"
+           "import torch.testing._internal.common_utils\nimport torch.testing\n"
+           "from torch._C._distributed_c10d import FakeProcessGroup\n")
+    found = [name for _, name in _imports(ast.parse(src)) if _forbidden(name)]
+    assert found == ["torch.testing._internal.distributed.fake_pg",
+                     "torch.testing._internal.common_utils"]

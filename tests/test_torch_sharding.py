@@ -335,14 +335,18 @@ def test_count_params_and_model_flops_match_jax(arch):
             jcfg, JSHAPES[name], *want)
 
 
-def test_dryrun_cells_and_cli(tmp_path, capsys):
+def test_dryrun_cells_and_cli(tmp_path, capsys, monkeypatch):
     """The registry of cells equals JAX's; a cell's record carries the
-    bytes and roofline, nulls where JAX reads a compiled module; the CLI
-    appends one JSON line a cell."""
+    bytes and roofline, the trace's memory analysis and collective term,
+    nulls where JAX reads a compiler's output; the CLI appends one JSON
+    line a cell (the traces saved under the working directory's
+    results/graphs/): a full-width training cell, its step traced forward,
+    backward and AdamW on the small mesh (~100 s)."""
     import json
 
     from repro_torch.launch import dryrun
 
+    monkeypatch.chdir(tmp_path)
     assert list(SHAPES) == list(JSHAPES)
     for arch in ARCHS:
         for name in SHAPES:
@@ -351,7 +355,10 @@ def test_dryrun_cells_and_cli(tmp_path, capsys):
     assert rec["status"] == "skipped"
     rec = run_cell("mamba2-1.3b", "long_500k", multi_pod=True, verbose=False)
     assert rec["status"] == "ok" and rec["chips"] == 512
-    assert rec["memory_analysis"] is None and rec["roofline"]["collective_s"] is None
+    assert rec["memory_analysis"]["temp_size_in_bytes"] > 0
+    assert rec["memory_analysis"]["argument_size_in_bytes"] > 0
+    assert isinstance(rec["roofline"]["collective_s"], float)
+    assert rec["compile_s"] is None and rec["xla_cost_analysis"] is None and rec["lower_s"] > 0
     assert rec["state_bytes_per_device"] == rec["bytes_per_device"]["params"] + \
         rec["bytes_per_device"]["cache"]
     out = tmp_path / "d.jsonl"
@@ -362,6 +369,10 @@ def test_dryrun_cells_and_cli(tmp_path, capsys):
     (line,) = out.read_text().splitlines()
     row = json.loads(line)
     assert row["mesh"] == "small" and row["status"] == "ok" and row["chips"] == 8
+    assert row["memory_analysis"]["temp_size_in_bytes"] > 0
+    assert isinstance(row["roofline"]["collective_s"], float) and row["lower_s"] > 0
+    assert row["state_bytes_per_device"] == row["bytes_per_device"]["params"] + \
+        row["bytes_per_device"]["opt"]
     assert "[OK] smollm-360m" in capsys.readouterr().out
 
 
