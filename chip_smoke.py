@@ -402,6 +402,27 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    turns, the same output), and phase 4's serving, impl="decode", both
    ways (the same tokens, 224 launches a forward), decode tok/s logged.
    Rows under `steps`.
+19. lint, after phase 18 (and before 17, so the heuristic plans still
+   hold), on phase 18's smollm-360m model and traces
+   (`repro_torch.lint`). (a) The IR registry (`default_entries(full=True)`:
+   the mpGeMM impls at M 1-256 and every `step_entries()` surface of the
+   smoke engines) traced on fake cuda tensors: the passes I1-I4 report 0
+   findings and each I5 hash equals the committed snapshot
+   (`tests/torch_ir_snapshots/cuda/` where committed, else `cpu/`; the
+   card's set is written under `chiprun_out/torch_ir_snapshots/` either
+   way). (b) Phase 18's three full-width traces (decode, prefill, the QAT
+   step) through I1-I4: 0 findings. (c) Every registry entry run on real
+   cuda tensors (the smoke models from seed 0), once to warm up and once
+   under ``torch.cuda.set_sync_debug_mode("error")``: no sync error, and
+   each kernel's counter delta equals the trace's launches. (d)
+   `CompileGuard(guard_entries(engine))` over an engine on phase 18's
+   model (4 slots, chunk 64, chain k 4): armed after warm-up, 20 mixed
+   steady-state ticks (chunked prefill, decode, chain speculation) grow
+   nothing; one tick of an engine at a new chunk (a new N) grows the
+   plans (the guard's positive control). (e) One full-width decode step
+   under `enable_sanitizers()` (rank and dtype promotion raise,
+   debug-NaNs): no error, the tokens of the step without it. Rows under
+   `lint`.
 
 Each log line starts with the seconds since the script began; each
 phase's seconds are logged and kept under `phase_seconds`.
@@ -683,6 +704,11 @@ DIST_STEPS = 3
 # warm-up run, before the measured one)
 STEP_MEM_RTOL = 0.10
 HOP_CALLS = 2000          # launches a route, timed on the host, of phase 18 (e)
+# Phase 19 (lint): the steady-state guard's engine (phase 4's slots and
+# cache, chunk 64, chain k 4), its steady ticks, and the control's chunk:
+# 37, so that the control's N (4 x 37) is one no earlier phase plans
+# (prefill buckets and chunks are multiples of 16; verify steps 20 and 60)
+LINT_CHUNK, LINT_SPEC_K, LINT_TICKS, LINT_NEW_CHUNK = 64, 4, 20, 37
 # bf16 model, 32 layers, QAT: the CPU and the card round bf16 intermediates
 # after sums in another order, and an int8 activation code at a rounding
 # boundary can move by one; the mean CE over 256 tokens moves far less than
@@ -4916,17 +4942,20 @@ def splitk_bytes(torch) -> int:
                for ws, cnt in _splitk._WORKSPACE.values())
 
 
-def traced_vs_real(torch, name, step, fake_args, real_args, counters, device_ms_fn=None) -> dict:
-    """Phase 18 (a)-(d) for one step: trace it on fake cuda tensors, run it
-    once for real (after a warm-up run) under `FlopCounterMode`, and hold
-    the trace's launches, dot FLOPs and argument + temp bytes against the
-    counters, the flop counter and the card's peak."""
+def traced_vs_real(torch, name, step, fake_args, real_args, counters, traces,
+                   device_ms_fn=None) -> dict:
+    """Phase 18 (a)-(d) for one step: trace it on fake cuda tensors (kept in
+    `traces` by name, for phase 19), run it once for real (after a warm-up
+    run) under `FlopCounterMode`, and hold the trace's launches, dot FLOPs
+    and argument + temp bytes against the counters, the flop counter and
+    the card's peak."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS
     from repro_torch.roofline.hlo_stats import step_stats, storage_bytes, trace_step
 
     trace, _ = trace_step(step, *fake_args)
+    traces[name] = trace
     st = step_stats(trace)
     step(*real_args)                                    # warm-up: the library's workspaces
     torch.cuda.synchronize()
@@ -5053,13 +5082,15 @@ def hop_cost(torch, model, cfg, prompts, counters) -> dict:
     return out
 
 
-def check_steps(torch, counters, prompts, trained) -> dict:
+def check_steps(torch, counters, prompts, trained) -> tuple:
     """Phase 18: the step statistics (`roofline.hlo_stats`) of smollm-360m
     at published width and depth, traced on fake cuda tensors and held
     against the same steps run on the card: (a)-(d) for the decode step (4
     slots, cache 256), the prefill step (one prompt at phase 4's bucket)
     and one QAT training step (B 8 x S 512, flash; its device ms is phase
-    7's profile of the same step), then (e) the operator hop's host cost."""
+    7's profile of the same step), then (e) the operator hop's host cost.
+    → (rows, {"model", "cfg", "traces"}: the packed model and the three
+    traces, for phase 19)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import get_config
@@ -5078,7 +5109,7 @@ def check_steps(torch, counters, prompts, trained) -> dict:
     cfg = get_config("smollm-360m")
     cdt = getattr(torch, cfg.dtype)
     model = pack_params(init_lm(cfg, torch.Generator(device="cuda").manual_seed(0)), cfg)
-    out = {}
+    out, traces = {}, {}
     mode = FakeTensorMode()
     fmodel = fake_module(meta_model(cfg, packed=True), "cuda", mode)
 
@@ -5090,7 +5121,7 @@ def check_steps(torch, counters, prompts, trained) -> dict:
         fcache = init_cache(cfg, 4, 256, dtype=cdt, device="cuda")
         ftok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
     out["decode"] = traced_vs_real(
-        torch, "decode", decode, (fmodel, fcache, ftok), (model, cache, tok), counters,
+        torch, "decode", decode, (fmodel, fcache, ftok), (model, cache, tok), counters, traces,
         lambda: profiled_device_ms(torch, lambda: decode(model, cache, tok)))
 
     # the prefill step: one prompt at phase 4's bucket
@@ -5103,7 +5134,7 @@ def check_steps(torch, counters, prompts, trained) -> dict:
         fbatch = {"tokens": torch.zeros((1, s), dtype=torch.int32, device="cuda")}
     out["prefill"] = traced_vs_real(
         torch, f"prefill S {s}", prefill, (fmodel, fpcache, fbatch), (model, pcache, batch),
-        counters, lambda: profiled_device_ms(torch, lambda: prefill(model, pcache, batch)))
+        counters, traces, lambda: profiled_device_ms(torch, lambda: prefill(model, pcache, batch)))
     del fmodel, fcache, fpcache
 
     # one QAT training step, phase 7's settings
@@ -5122,7 +5153,7 @@ def check_steps(torch, counters, prompts, trained) -> dict:
                   "opt": adamw_init(fparams, opt_cfg, stacked_shapes(ftmodel, tcfg))}
         ftbatch = {k: torch.zeros(v.shape, dtype=v.dtype, device="cuda") for k, v in tbatch.items()}
     row = traced_vs_real(torch, f"train B {TRAIN_BATCH} x S {TRAIN_SEQ}", train_step,
-                         (ftmodel, fstate, ftbatch), (tmodel, state, tbatch), counters)
+                         (ftmodel, fstate, ftbatch), (tmodel, state, tbatch), counters, traces)
     row["device_ms"] = trained["profile"]["device_ms"]
     row["bound_ratio"] = row["device_ms"] / row["bound_ms"]
     log(f"steps (train): bound {row['bound_ms']:.4f} ms ({row['bound_by']}) vs phase 7's "
@@ -5136,6 +5167,195 @@ def check_steps(torch, counters, prompts, trained) -> dict:
         fn.launches = 0
     out["seconds"] = time.perf_counter() - t0
     log(f"steps: phase 18 took {out['seconds']:.1f} s")
+    return out, {"model": model, "cfg": cfg, "traces": traces}
+
+
+def lint_registry(torch) -> tuple:
+    """Phase 19 (a): the IR registry traced on fake cuda tensors, I1-I4 and
+    the I5 hashes against the committed snapshots (cuda/ where committed,
+    else cpu/); the card's snapshots written under chiprun_out. → (rows,
+    entries)."""
+    from repro_torch.lint import ir
+    from repro_torch.lint.ir.snapshots import SNAPSHOT_ROOT, signature, write_snapshot
+
+    t0 = time.perf_counter()
+    entries = ir.default_entries(full=True, device="cuda")
+    trace_s = time.perf_counter() - t0
+    findings = ir.run_passes(entries, select={"I1", "I2", "I3", "I4"})
+    cuda_dir = pathlib.Path(SNAPSHOT_ROOT) / "cuda"
+    want_dir = cuda_dir if cuda_dir.is_dir() else pathlib.Path(SNAPSHOT_ROOT) / "cpu"
+    out_root = ROOT / "chiprun_out" / "torch_ir_snapshots"
+    differ = []
+    for e in entries:
+        write_snapshot(e, str(out_root))
+        path = want_dir / (e.name.replace("/", "__") + ".json")
+        want = json.loads(path.read_text())["hash"] if path.exists() else None
+        if signature(e.trace)[0] != want:
+            differ.append(e.name)
+    rows = {"entries": len(entries), "trace_s": trace_s, "snapshots": str(want_dir.relative_to(ROOT)),
+            "findings": [f.format() for f in findings], "hash_differs": differ,
+            "ops": {e.name: len(e.trace.ops) for e in entries}}
+    log(f"lint (a): {len(entries)} entries traced on fake cuda in {trace_s:.1f} s; I1-I4: "
+        f"{len(findings)} finding(s); I5 against {rows['snapshots']}: {len(differ)} hash(es) "
+        f"differ{(': ' + ', '.join(differ)) if differ else ''}")
+    for f in findings:
+        log(f"lint (a): {f.format()}")
+    if findings:
+        raise AssertionError(f"lint (a): the IR passes found {len(findings)} finding(s)")
+    if differ:
+        raise AssertionError(f"lint (a): {len(differ)} trace(s) differ from the committed "
+                             f"snapshots (the card's set is under {out_root})")
+    return rows, entries
+
+
+def lint_real_entries(torch, counters, entries) -> dict:
+    """Phase 19 (c): every registry entry run on real cuda tensors, once to
+    warm up, then under the sync debug mode "error": no sync, and each
+    kernel's launches equal the trace's."""
+    from repro_torch.lint.ir import registry
+    from repro_torch.roofline.hlo_stats import step_stats
+
+    traced = {e.name: e for e in entries}
+    launched: dict = {}
+    rows = {}
+    with registry.pinned_trace_env():
+        cases = [(name, fn, args) for name, fn, args, _ in
+                 registry.mpgemm_cases(full=True, device="cuda")]
+        cases += [(name, fn, args) for name, _, fn, args, _ in
+                  registry.engine_cases(full=True, device="cuda")]
+        for name, fn, args in cases:
+            fn(*args)                                   # warm-up: plans, workspaces, constants
+            torch.cuda.synchronize()
+            for f in counters.values():
+                f.launches = 0
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            got = {n: f.launches for n, f in counters.items() if f.launches}
+            want = step_stats(traced[name].trace).launches
+            if got != want:
+                raise AssertionError(f"lint (c): {name}: launches {got}, the trace's {want}")
+            rows[name] = got
+            for n, c in got.items():
+                launched[n] = launched.get(n, 0) + c
+    for f in counters.values():
+        f.launches = 0
+    log(f"lint (c): {len(cases)} entries run on the card under sync debug mode \"error\": no "
+        f"sync; launches = the traces' in each; kernels launched {launched}")
+    return {"entries": rows, "launched": launched}
+
+
+def lint_guard(torch, model, cfg, prompts) -> dict:
+    """Phase 19 (d): the steady-state guard over an engine on phase 18's
+    model: armed after warm-up, `LINT_TICKS` mixed ticks grow nothing; one
+    tick at a new N (an engine at another chunk) grows the plans."""
+    import numpy as np
+
+    from repro_torch.lint import CompileGuard, guard_entries
+    from repro_torch.serve import Engine, Request
+    from repro_torch.spec import SpecConfig
+
+    rng = np.random.default_rng(19)
+    long_prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(100, 200))).astype(np.int32)
+                    for _ in range(16)]
+
+    def engine(chunk):
+        return Engine(model, cfg, max_slots=4, max_len=256, prefill_chunk=chunk,
+                      spec=SpecConfig(k=LINT_SPEC_K, drafter="ngram"), device="cuda")
+
+    eng = engine(LINT_CHUNK)
+    queue = [Request(rid=i, prompt=p, max_new_tokens=12) for i, p in enumerate(long_prompts)]
+
+    def tick():
+        while queue and eng.add(queue[0]):
+            queue.pop(0)
+        kinds = (bool(eng.prefilling), bool(eng.active.any()))
+        eng.step()
+        return kinds
+
+    guard = CompileGuard(guard_entries(eng))
+    warm = 1
+    while tick() != (True, True):           # warm up to a tick with a chunk and a spec step
+        warm += 1
+        if warm > 12:
+            raise AssertionError("lint (d): no warm-up tick ran a chunk step and a spec step")
+    torch.cuda.synchronize()
+    base = guard.arm()
+    kinds = [tick() for _ in range(LINT_TICKS)]
+    torch.cuda.synchronize()
+    grew = guard.new_compiles()
+    guard.assert_steady(f"{LINT_TICKS} steady-state ticks")
+    other = engine(LINT_NEW_CHUNK)
+    other.add(Request(rid=99, prompt=long_prompts[0], max_new_tokens=4))
+    other.step()
+    torch.cuda.synchronize()
+    control = guard.new_compiles()
+    if not control:
+        raise AssertionError("lint (d): a tick at a new N grew nothing: the guard is blind")
+    row = {"warmup_ticks": warm, "ticks": LINT_TICKS, "baseline": base, "steady_growth": grew,
+           "tick_kinds": {"chunk": sum(k[0] for k in kinds), "decode_or_spec": sum(k[1] for k in kinds)},
+           "control_growth": control}
+    log(f"lint (d): guard armed after {warm} warm-up tick(s) at {base}; {LINT_TICKS} ticks "
+        f"({row['tick_kinds']['chunk']} with a chunk step, {row['tick_kinds']['decode_or_spec']} "
+        f"with a spec step) grew nothing; one tick at chunk {LINT_NEW_CHUNK} grew {control}")
+    return row
+
+
+def lint_sanitized_decode(torch, model, cfg) -> dict:
+    """Phase 19 (e): one full-width decode step under the sanitizers gives
+    the tokens of the same step without them."""
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.lint import enable_sanitizers, restore_sanitizers
+    from repro_torch.models import init_cache
+
+    cdt = getattr(torch, cfg.dtype)
+    decode = make_decode_step(cfg)
+    tok = torch.randint(0, cfg.vocab, (4, 1), dtype=torch.int32, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(19))
+    plain, _ = decode(model, init_cache(cfg, 4, 256, dtype=cdt, device="cuda"), tok)
+    cache = init_cache(cfg, 4, 256, dtype=cdt, device="cuda")
+    t0 = time.perf_counter()
+    prev = enable_sanitizers()
+    try:
+        sanitized, _ = decode(model, cache, tok)
+    finally:
+        restore_sanitizers(prev)
+    seconds = time.perf_counter() - t0
+    if not torch.equal(plain, sanitized):
+        raise AssertionError(f"lint (e): sanitized tokens {sanitized.tolist()} differ from "
+                             f"{plain.tolist()}")
+    log(f"lint (e): a full-width decode step under the sanitizers ran clean in {seconds:.2f} s "
+        f"(tokens {sanitized.tolist()}, equal to the step without them)")
+    return {"seconds": seconds, "tokens": sanitized.tolist()}
+
+
+def check_lint(torch, counters, prompts, steps_ctx) -> dict:
+    """Phase 19: `repro_torch.lint` on the card, (a)-(e) (module docstring),
+    on phase 18's model and traces."""
+    from repro_torch.lint import ir
+
+    t0 = time.perf_counter()
+    out = {}
+    out["registry"], entries = lint_registry(torch)
+    steps = [ir.IREntry(name=f"steps/{n}", trace=t, kind="step", device="cuda")
+             for n, t in steps_ctx["traces"].items()]
+    findings = ir.run_passes(steps, select={"I1", "I2", "I3", "I4"})
+    out["steps"] = {"entries": [e.name for e in steps], "ops": [len(e.trace.ops) for e in steps],
+                    "findings": [f.format() for f in findings]}
+    log(f"lint (b): phase 18's traces {out['steps']['entries']} ({out['steps']['ops']} ops) "
+        f"through I1-I4: {len(findings)} finding(s)")
+    if findings:
+        raise AssertionError(f"lint (b): {[f.format() for f in findings]}")
+    out["real"] = lint_real_entries(torch, counters, entries)
+    out["guard"] = lint_guard(torch, steps_ctx["model"], steps_ctx["cfg"], prompts)
+    out["sanitized"] = lint_sanitized_decode(torch, steps_ctx["model"], steps_ctx["cfg"])
+    for fn in counters.values():
+        fn.launches = 0
+    out["seconds"] = time.perf_counter() - t0
+    log(f"lint: phase 19 took {out['seconds']:.1f} s")
     return out
 
 
@@ -5335,8 +5555,16 @@ def main() -> int:
     # 18. the step statistics: smollm-360m's steps traced on fake tensors
     # against the same steps on the card (after phase 7, whose profile of
     # the training step it reads)
-    steps = check_steps(torch, counters, prompts, trained)
+    steps, steps_ctx = check_steps(torch, counters, prompts, trained)
     phase_done("18")
+
+    # 19. lint: the IR registry on fake cuda tensors, phase 18's traces, the
+    # registry's entries run under the sync debug mode, the steady-state
+    # guard and the sanitizers (on phase 18's model, before phase 17)
+    linted = check_lint(torch, counters, prompts, steps_ctx)
+    del steps_ctx
+    torch.cuda.empty_cache()
+    phase_done("19")
 
     # 17. the measured launch-plan choice (after every other phase: its
     # plans would change what phases 3-16 launch)
@@ -5414,7 +5642,7 @@ def main() -> int:
         "obs": observed,
         "moe": moe, "mla": mla, "ssm": ssm, "windowed": windowed, "encdec": encdec,
         "flash": flash, "train": trained, "dist": dist_out, "autotune": tuned,
-        "steps": steps,
+        "steps": steps, "lint": linted,
         "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

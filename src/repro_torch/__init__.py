@@ -18,3 +18,14 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
             "pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def module_to(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+    """`module.to(device)` in place, unless every parameter and buffer is
+    on `device` already (then nothing to move: a model of fake tensors, as
+    `repro_torch.lint.ir` traces, cannot have its tensors swapped)."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if all(t.device == device for t in [*module.parameters(), *module.buffers()]):
+        return module
+    return module.to(device)

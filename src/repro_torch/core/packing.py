@@ -58,13 +58,13 @@ def pack_ternary(w: torch.Tensor, g: int) -> torch.Tensor:
     if K % g:
         raise ValueError(f"K={K} not divisible by group size g={g}")
     wg = w.reshape(*w.shape[:-1], K // g, g).to(torch.int32) + 1
-    return (wg * _places(g, w.device)).sum(-1).to(torch.uint8)
+    return (wg * _places(g, w.device)[(None,) * (wg.dim() - 1)]).sum(-1).to(torch.uint8)
 
 
 def unpack_ternary(packed: torch.Tensor, g: int) -> torch.Tensor:
     """Inverse of :func:`pack_ternary` → int8 ternary values (..., KG*g)."""
     idx = packed.to(torch.int32)
-    trits = torch.div(idx[..., None], _places(g, packed.device),
+    trits = torch.div(idx[..., None], _places(g, packed.device)[(None,) * idx.dim()],
                       rounding_mode="floor") % _R - 1
     return trits.reshape(*packed.shape[:-1], packed.shape[-1] * g).to(torch.int8)
 

@@ -169,6 +169,7 @@ def build() -> pathlib.Path:
     if lib.exists():
         return lib
     nvcc = _nvcc()
+    build.compiles += 1
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = pathlib.Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix=".tmp-"))
     try:
@@ -204,6 +205,9 @@ def build() -> pathlib.Path:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return lib
+
+
+build.compiles = 0              # nvcc runs of this process (the steady-state guard's)
 
 
 def build_log() -> str:

@@ -178,6 +178,15 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     full softmax over -1e30-masked scores, an f32 p @ v, one cast to q's
     dtype. Differentiable under autograd."""
     b, h, sq, d = q.shape
+    p = attention_probs(q, k, causal=causal, window=window, softcap=softcap)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def attention_probs(q, k, *, causal: bool, window: int, softcap: float) -> torch.Tensor:
+    """The plain version's f32 probabilities (B, KV, H/KV, Sq, Sk): the
+    scores, softcap, mask and softmax, before the product with v."""
+    b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     qg = q.reshape(b, kv, h // kv, sq, d).to(torch.float32)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32)) * (d ** -0.5)
@@ -191,9 +200,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     if window:
         mask = mask & (q_pos - k_pos < window)
     s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    return torch.softmax(s, dim=-1)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -253,7 +260,10 @@ _FLASH_OP = _library.define(
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel (the plain version on the CPU). Backward: the VJP
-    of the plain version, recomputed under autograd."""
+    of the plain version. Its probabilities are recomputed under autograd;
+    the product with v is differentiated by hand (dp = dout·vᵀ, dv = pᵀ·dout,
+    in f32), so the backward never recomputes the output itself, which no
+    gradient reads."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
@@ -263,10 +273,16 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        b, h, sq, d = q.shape
         with torch.enable_grad():
-            q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-            out = flash_attention_plain(q, k, v, **ctx.opts)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+            qg, kg = q.detach().requires_grad_(), k.detach().requires_grad_()
+            p = attention_probs(qg, kg, **ctx.opts)
+        g = dout.reshape(b, k.shape[1], h // k.shape[1], sq, d).to(torch.float32)
+        vf = v.to(torch.float32)
+        dp = torch.einsum("bkgqd,bksd->bkgqs", g, vf)
+        dv = torch.einsum("bkgqs,bkgqd->bksd", p.detach(), g).to(v.dtype)
+        dq, dk = torch.autograd.grad(p, (qg, kg), dp)
         return dq, dk, dv, None, None, None
 
 

@@ -119,7 +119,9 @@ def tree_step_gate(tree, start: torch.Tensor, s: int, length: int) -> torch.Tens
     positions are start+depth(i), shared between siblings. Inside that slot
     window a node attends only its ancestors (itself included); outside it
     the gate is True and the position mask stands alone."""
-    anc = torch.as_tensor(tree.ancestors, device=start.device)               # (S, S)
+    from repro_torch.spec.tree import device_array
+
+    anc = device_array(tree, "ancestors", start.device)                       # (S, S)
     o = (torch.arange(length, device=start.device)[None, :]
          - start[:, None].long())                                             # (B, L)
     in_step = (o >= 0) & (o < s)
@@ -291,7 +293,9 @@ def attn_apply(p: Attention, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
     start = (cache["idx"] if cache is not None
              else torch.zeros((b,), dtype=torch.int32, device=x.device))
     if tree is not None:
-        offsets = torch.as_tensor(tree.depths, dtype=torch.int32, device=x.device)
+        from repro_torch.spec.tree import device_array
+
+        offsets = device_array(tree, "depths", x.device, torch.int32)
     else:
         offsets = torch.arange(s, dtype=torch.int32, device=x.device)
     positions = start[:, None] + offsets[None, :]

@@ -142,7 +142,7 @@ def rmsnorm_init(d: int, device) -> RMSNorm:
 def rmsnorm_apply(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * p.scale).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * p.scale[(None,) * (xf.dim() - 1)]).to(x.dtype)
 
 
 def gated_rmsnorm_apply(p: RMSNorm, x: torch.Tensor, gate: torch.Tensor,
@@ -159,7 +159,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     """x: (B, S, H, D) with D even; positions: (B, S) int."""
     d = x.shape[-1]
     freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
-    ang = positions.to(torch.float32)[..., None] * freqs             # (B,S,D/2)
+    ang = positions.to(torch.float32)[..., None] * freqs[(None,) * positions.dim()]  # (B,S,D/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
@@ -184,5 +184,7 @@ def embed_init(vocab: int, d: int, cfg, *, generator: torch.Generator, device) -
 def embed_apply(p: Embedding, tokens: torch.Tensor, cfg) -> torch.Tensor:
     x = p.table[tokens.to(torch.long)]
     if cfg.emb_scale_by_dim:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+        # the scale rounded to x's dtype first, as JAX's jnp.asarray(., x.dtype),
+        # filled on the device (no host-to-device copy)
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x

@@ -346,12 +346,14 @@ def prefill_bucket(n: int, max_len: int | None = None) -> int:
 
 
 def prefill_into_slot(model: LM, cache: list, slot: int, prompt, cfg, *,
-                      max_len: int, exact_len: bool = False):
+                      max_len: int, exact_len: bool = False, prefill_fn=None):
     """Admit one prompt into batched slot `slot`: a B=1 bucketed,
     left-padded prefill into a fresh cache (pad positions negative, set via
     `rollback_cache`), then copied into the slot of the batched cache.
     exact_len skips the bucket (SSM layers cannot mask pads inside the
-    scan): no padding and no rollback. → (logits (1, V), cache, padded_len)."""
+    scan): no padding and no rollback. `prefill_fn(model, cache, tokens)`
+    runs the prefill (an engine's "prefill1" step entry; default `prefill`).
+    → (logits (1, V), cache, padded_len)."""
     device = cache[0]["idx"].device
     n = len(prompt)
     bucket = n if exact_len else prefill_bucket(n, max_len)
@@ -360,7 +362,11 @@ def prefill_into_slot(model: LM, cache: list, slot: int, prompt, cfg, *,
         single = rollback_cache(single, torch.tensor([n - bucket], dtype=torch.int32, device=device))
     tok = np.zeros((1, bucket), np.int32)
     tok[0, bucket - n:] = prompt
-    logits, single = prefill(model, torch.from_numpy(tok).to(device), single, cfg)
+    tok = torch.from_numpy(tok).to(device)
+    if prefill_fn is None:
+        logits, single = prefill(model, tok, single, cfg)
+    else:
+        logits, single = prefill_fn(model, single, tok)
     return logits, scatter_slot_cache(cache, single, slot), bucket
 
 
@@ -370,6 +376,7 @@ def scatter_slot_cache(full_cache: list, single_cache: list, slot: int) -> list:
     history and state, idx)."""
     for full, one in zip(full_cache, single_cache):
         for key, leaf in full.items():
+            # lint: disable=R1 -- slot is a host int, a free slot's index
             leaf[slot:slot + 1] = one[key].to(leaf.dtype)
     return full_cache
 

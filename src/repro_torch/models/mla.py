@@ -181,7 +181,9 @@ def mla_apply(p: MLA, x: torch.Tensor, *, cfg, spec, mode: str = "serve",
     start = (cache["idx"] if cache is not None
              else torch.zeros((b,), dtype=torch.int32, device=dev))
     if tree is not None:
-        offsets = torch.as_tensor(tree.depths, dtype=torch.int32, device=dev)
+        from repro_torch.spec.tree import device_array
+
+        offsets = device_array(tree, "depths", dev, torch.int32)
     else:
         offsets = torch.arange(s, dtype=torch.int32, device=dev)
     positions = start[:, None] + offsets[None, :]

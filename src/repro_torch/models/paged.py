@@ -107,7 +107,9 @@ def scrub_pages(cache: list, pages: torch.Tensor) -> list:
         if "slot_pos" not in layer:
             continue
         sp = layer["slot_pos"]
-        sp[pages.clamp(max=pool_pages(sp))] = -1
+        # a fill takes its value as a scalar (an index write of -1 copies
+        # it to the device first: a host sync)
+        sp.index_fill_(0, pages.clamp(max=pool_pages(sp)).long(), -1)
     return cache
 
 

@@ -57,6 +57,17 @@ module's fields where they mean the same thing:
 ``n_whiles`` and ``unknown_trip_whiles`` have no counterpart and are None:
 an eager trace unrolls the Python loop over the layers, so every op is
 already counted as often as it runs and there is no trip count to find.
+
+For the dataflow passes of `repro_torch.lint.ir`, each op record also
+carries ``"ids"``: ``{"in": [[tensor id, storage id, device], ...], "out":
+[...]}``, its tensor operands (in the order of their flattened arguments)
+and results, numbered per trace over tensor objects and storages (a view
+shares its base's storage id; an in-place op returns its operand's tensor
+id). `Trace.arguments` and `Trace.outputs` number the step's own tensors
+the same way, and `Trace.stopped` names the op at which a trace on fake
+tensors stopped (`trace_step_partial`: a data-dependent op, which a fake
+tensor cannot answer). `step_stats` reads none of these: a record without
+them (an older `Trace.to_json`) gives the same statistics.
 """
 from __future__ import annotations
 
@@ -69,9 +80,17 @@ from collections import Counter
 
 import numpy as np
 import torch
-from torch._subclasses.fake_tensor import FakeTensor
+from torch._subclasses.fake_tensor import (
+    DataDependentOutputException,
+    DynamicOutputShapeException,
+    FakeTensor,
+)
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+from torch.utils.weak import WeakIdKeyDictionary
+
+#: what stops a trace on fake tensors: an op whose result depends on data
+DATA_DEPENDENT = (DataDependentOutputException, DynamicOutputShapeException)
 
 #: ops whose result aliases an operand (no bytes moved), besides the
 #: schema's own view flag
@@ -146,13 +165,18 @@ class Trace:
     schema's name, e.g. "aten::mm" —, "args", "out", "view", "inplace"),
     its memory summary (bytes: "argument", "output", "alias", "peak_temp":
     the peak of live bytes less the arguments)
-    and the trace's wall seconds."""
+    and the trace's wall seconds; the step's argument and result tensors
+    ([tensor id, storage id, device, shape, dtype] each), and the op a
+    partial trace stopped at (module docstring)."""
     ops: list
     memory: dict
     seconds: float = 0.0
+    arguments: list = dataclasses.field(default_factory=list)
+    outputs: list = dataclasses.field(default_factory=list)
+    stopped: dict | None = None
 
     def to_json(self) -> str:
-        return json.dumps({"ops": self.ops, "memory": self.memory, "seconds": self.seconds})
+        return json.dumps(dataclasses.asdict(self))
 
     @classmethod
     def from_json(cls, text: str) -> "Trace":
@@ -218,10 +242,31 @@ class _Recorder(TorchDispatchMode):
         self.live: dict = {}
         self.live_bytes = 0
         self.on = True
+        self.stopped = None
+        self._tids = WeakIdKeyDictionary()
+        self._sids: dict = {}
+        self._n_tids = self._n_sids = 0
         for t in arg_tensors:
             self._track(t.untyped_storage())
         self.args = dict(self.live)
         self.peak = self.live_bytes
+        self.arguments = [[*self.ids(t), list(t.shape), str(t.dtype).removeprefix("torch.")]
+                          for t in arg_tensors]
+
+    def ids(self, t: torch.Tensor) -> list:
+        """[tensor id, storage id, device] of `t`, numbered in this trace."""
+        tid = self._tids.get(t)
+        if tid is None:
+            tid = self._tids[t] = self._n_tids
+            self._n_tids += 1
+        st = t.untyped_storage()
+        key = st._cdata
+        sid = self._sids.get(key)
+        if sid is None:
+            sid = self._sids[key] = self._n_sids
+            self._n_sids += 1
+            weakref.finalize(st, self._sids.pop, key, None)
+        return [tid, sid, str(t.device)]
 
     def _track(self, st) -> None:
         key = st._cdata
@@ -241,8 +286,12 @@ class _Recorder(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
         schema = func._schema
+        try:
+            out = func(*args, **kwargs)
+        except DATA_DEPENDENT as e:
+            self.stopped = {"op": schema.name, "error": type(e).__name__}
+            raise
         ns, _, name = schema.name.partition("::")
         if ns == "prim" or not any(isinstance(t, FakeTensor)
                                    for t in tree_flatten((args, kwargs, out))[0]):
@@ -257,7 +306,11 @@ class _Recorder(TorchDispatchMode):
         self.ops.append({"op": schema.name, "args": _desc(list(args)),
                          "kwargs": {k: _desc(v) for k, v in kwargs.items()},
                          "out": _desc(out), "view": bool(func.is_view) or name in _VIEWS,
-                         "inplace": inplace})
+                         "inplace": inplace,
+                         "ids": {"in": [self.ids(t) for t in tree_flatten((args, kwargs))[0]
+                                        if isinstance(t, torch.Tensor)],
+                                 "out": [self.ids(t) for t in tree_flatten(out)[0]
+                                         if isinstance(t, torch.Tensor)]}})
         for t in tree_flatten(out)[0]:
             if isinstance(t, torch.Tensor):
                 self._track(t.untyped_storage())
@@ -287,27 +340,46 @@ def fake_mode_of(tensors):
     return mode
 
 
-def trace_step(fn, *args, **kwargs) -> tuple[Trace, object]:
-    """Run ``fn(*args, **kwargs)`` on its fake arguments and record it:
-    → (`Trace`, fn's result). The arguments' tensors (module parameters
-    and buffers, dicts, lists, dataclasses, DTensors' local shards) are
-    the step's arguments: live from the start, until the step drops its
-    last reference (temp = the peak less the arguments)."""
+def _trace(fn, args, kwargs, partial: bool) -> tuple[Trace, object]:
     arg_tensors = _leaf_tensors((args, kwargs))
     mode = fake_mode_of(arg_tensors)
     rec = _Recorder(arg_tensors)
     del arg_tensors                  # the step alone decides what its arguments outlive
     arg_bytes = sum(rec.args.values())
     t0 = time.perf_counter()
-    with mode, rec:
-        result = fn(*args, **kwargs)
+    result = None
+    try:
+        with mode, rec:
+            result = fn(*args, **kwargs)
+    except DATA_DEPENDENT:
+        if not partial:
+            raise
     seconds = time.perf_counter() - t0
     rec.on = False
     out_bytes = storage_bytes(result)
     alias = sum(n for k, n in rec.args.items() if k in rec.written)
     memory = {"argument": arg_bytes, "output": out_bytes, "alias": alias,
               "peak_temp": rec.peak - arg_bytes}
-    return Trace(rec.ops, memory, seconds), result
+    outputs = [[*rec.ids(t), list(t.shape), str(t.dtype).removeprefix("torch.")]
+               for t in _leaf_tensors(result)]
+    return Trace(rec.ops, memory, seconds, rec.arguments, outputs, rec.stopped), result
+
+
+def trace_step(fn, *args, **kwargs) -> tuple[Trace, object]:
+    """Run ``fn(*args, **kwargs)`` on its fake arguments and record it:
+    → (`Trace`, fn's result). The arguments' tensors (module parameters
+    and buffers, dicts, lists, dataclasses, DTensors' local shards) are
+    the step's arguments: live from the start, until the step drops its
+    last reference (temp = the peak less the arguments)."""
+    return _trace(fn, args, kwargs, partial=False)
+
+
+def trace_step_partial(fn, *args, **kwargs) -> tuple[Trace, object]:
+    """`trace_step`, except that a data-dependent op (``.item()``,
+    ``nonzero``, a boolean mask: what a fake tensor cannot answer) ends
+    the trace instead of raising: → (the ops up to it, with
+    `Trace.stopped` naming it, None)."""
+    return _trace(fn, args, kwargs, partial=True)
 
 
 # --------------------------------------------------------------------------

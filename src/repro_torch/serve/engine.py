@@ -64,11 +64,12 @@ import numpy as np
 import torch
 
 from repro_torch import obs as obs_mod
-from repro_torch import resolve_device
+from repro_torch import module_to, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import compact_tree_cache, gather_page, init_cache
 from repro_torch.models import decode_step as model_decode
+from repro_torch.models import prefill as model_prefill
 from repro_torch.models import prefill_bucket, prefill_into_slot, reset_slot_idx
 from repro_torch.models import restore_page, rollback_cache, scrub_pages, set_block_tables
 from repro_torch.models import verify_step as model_verify
@@ -194,7 +195,7 @@ class Engine:
                     "clobber (the ring overwrites in place, so it is "
                     "genuinely non-pageable too)")
         self.device = resolve_device(device)
-        self.params = params.to(self.device) if params is not None else None
+        self.params = module_to(params, self.device) if params is not None else None
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
@@ -246,6 +247,25 @@ class Engine:
                     "sample (chain mode is exact; see sampling.accept_tree)",
                     stacklevel=2,
                 )
+        # the step entries every device step dispatches through, by name
+        # (`step_entries`: what `repro_torch.lint.ir` traces and the
+        # steady-state guard watches), the JAX engine's jitted callables
+        self._prefill1 = lambda p, c, t: model_prefill(p, t, c, cfg)
+        self._decode = lambda p, c, t: model_decode(p, t, c, cfg)
+        # the chunk step, and a paged engine's whole-prompt admission (a wide
+        # in-place verify pass)
+        self._chunk_verify = None
+        if prefill_chunk or paged_kv is not None:
+            self._chunk_verify = lambda p, c, t, col: model_verify(
+                p, t, c, cfg, prefill_resume=True, logit_cols=col)
+        self._verify = self._compact = None
+        if spec is not None:
+            self._verify = lambda p, c, t: model_verify(p, t, c, cfg, tree=self._tree)
+            if self._tree is not None:
+                self._compact = compact_tree_cache
+        self._set_tab = self._scrub = None
+        if self.pager is not None:
+            self._set_tab, self._scrub = set_block_tables, scrub_pages
         # per-slot adaptive-K state: acceptance EWMA (optimistic 1.0 on
         # admission), the skip streak that triggers a cold slot's probe, and
         # the last k_eff the policy chose
@@ -367,7 +387,7 @@ class Engine:
         with kernel_ops.dispatch_override(**self._mpgemm):
             logits, self.cache, padded = prefill_into_slot(
                 self.params, self.cache, slot, req.prompt, self.cfg,
-                max_len=self.max_len, exact_len=has_ssm,
+                max_len=self.max_len, exact_len=has_ssm, prefill_fn=self._prefill1,
             )
         self.prefill_tokens += len(req.prompt)
         self.prefill_pad_tokens += padded - len(req.prompt)
@@ -391,8 +411,8 @@ class Engine:
         new_idx = self._idx_vector()
         new_idx[slot] = len(req.prompt)
         with kernel_ops.dispatch_override(**self._mpgemm):
-            rows, cache = model_verify(self.params, self._dev(tokens), self.cache, self.cfg,
-                                       prefill_resume=True, logit_cols=self._dev(col))
+            rows, cache = self._chunk_verify(self.params, self.cache, self._dev(tokens),
+                                             self._dev(col))
         self.cache = rollback_cache(cache, self._dev(new_idx))
         self.prefill_tokens += len(rem)
         self.prefill_pad_tokens += bucket - len(rem)
@@ -454,8 +474,8 @@ class Engine:
         tab, fresh = self.pager.take_flush()
         buf = self._dev(np.concatenate([tab.reshape(-1), np.asarray(fresh, np.int32)]))
         if fresh:
-            scrub_pages(self.cache, buf[tab.size:])
-        set_block_tables(self.cache, buf[:tab.size].view(tab.shape))
+            self._scrub(self.cache, buf[tab.size:])
+        self._set_tab(self.cache, buf[:tab.size].view(tab.shape))
 
     def _slot_exhausted(self, req: Request) -> bool:
         """True when the slot's next step would write past max_len (the
@@ -555,8 +575,8 @@ class Engine:
                 new_idx[slot] += 1          # _idx_vector holds last_token's pos
                 decode_slots.append(slot)
         with kernel_ops.dispatch_override(**self._mpgemm):
-            rows, cache = model_verify(self.params, self._dev(tokens), self.cache, self.cfg,
-                                       prefill_resume=True, logit_cols=self._dev(col))
+            rows, cache = self._chunk_verify(self.params, self.cache, self._dev(tokens),
+                                             self._dev(col))
         nxt = np.asarray(self._sample(rows).cpu())       # one host copy per tick
         now = time.perf_counter()
         self.chunk_steps += 1
@@ -607,8 +627,8 @@ class Engine:
             new_idx = self._idx_vector()
             new_idx[self.active] += 1               # decode wrote last_token
         with kernel_ops.dispatch_override(**self._mpgemm):
-            logits, self.cache = model_decode(self.params, self._dev(self.last_token), self.cache,
-                                              self.cfg)
+            logits, self.cache = self._decode(self.params, self.cache,
+                                              self._dev(self.last_token))
         nxt = np.asarray(self._sample(logits).cpu())   # one host copy per tick
         self.last_token = nxt[:, None].astype(np.int32)
         now = time.perf_counter()
@@ -690,7 +710,7 @@ class Engine:
                 draft = self.drafter.propose(contexts, k, slot_k=k_eff)
             mask = np.arange(k)[None, :] < k_eff[:, None]                # (B, K)
             tokens = self._dev(np.concatenate([self.last_token, np.asarray(draft, np.int32)], 1))
-            logits, cache = model_verify(self.params, tokens, self.cache, self.cfg)
+            logits, cache = self._verify(self.params, self.cache, tokens)
         n_acc_dev, out_dev = accept_speculative(
             tokens[:, 1:], logits, self.generator, temperature=self.temperature,
             draft_probs=draft_probs, draft_mask=self._dev(mask))
@@ -744,7 +764,7 @@ class Engine:
         with kernel_ops.dispatch_override(**self._mpgemm):
             draft = self.drafter.propose(contexts, self.spec.k, tree=tree)
             tokens = self._dev(np.concatenate([self.last_token, np.asarray(draft, np.int32)], 1))
-            logits, cache = model_verify(self.params, tokens, self.cache, self.cfg, tree=tree)
+            logits, cache = self._verify(self.params, self.cache, tokens)
         n_acc_dev, out_dev, path_dev = accept_tree(
             tokens, logits, tree, self.generator, temperature=self.temperature)
         # one host copy per tick: n_acc, then the k+1 emitted tokens, then the
@@ -791,11 +811,32 @@ class Engine:
         sel[:, 1:tree.k + 1] = np.where(
             np.arange(1, tree.k + 1)[None, :] <= n_acc[:, None], path[:, 1:],
             sel[:, 1:tree.k + 1])
-        compact_tree_cache(cache, self._dev(base), self._dev(sel), self._dev(take_arr))
+        self._compact(cache, self._dev(base), self._dev(sel), self._dev(take_arr))
         self.cache = rollback_cache(cache, self._dev(new_idx))
         if self.obs.enabled:
             self.obs.step_event("tree_verify", _t0, m_real=_m_active * n_nodes,
                                 m_padded=self.max_slots * n_nodes, n_nodes=n_nodes)
+
+    def step_entries(self) -> dict:
+        """Every step callable this engine dispatches its device work
+        through, by name (the JAX engine's `jit_entries`: "prefill1",
+        "decode", "chunk_verify", "set_tab", "scrub", "verify", "compact",
+        and the drafter's prefixed "drafter."): what `repro_torch.lint.ir`
+        traces and `repro_torch.lint.guard_entries` guards."""
+        entries = {"prefill1": self._prefill1, "decode": self._decode}
+        if self._chunk_verify is not None:
+            entries["chunk_verify"] = self._chunk_verify
+        if self.pager is not None:
+            entries["set_tab"] = self._set_tab
+            entries["scrub"] = self._scrub
+        if self._verify is not None:
+            entries["verify"] = self._verify
+        if self._compact is not None:
+            entries["compact"] = self._compact
+        probe = getattr(self.drafter, "step_entries", None)
+        if callable(probe):
+            entries.update({f"drafter.{k}": v for k, v in probe().items()})
+        return entries
 
     def reset_stats(self) -> None:
         """Zero the token and acceptance counters (e.g. after a warmup run).

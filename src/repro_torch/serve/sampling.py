@@ -154,8 +154,10 @@ def accept_tree(tokens: torch.Tensor, target_logits: torch.Tensor, tree,
     greedy-filtered, not the target's (as in the JAX package)."""
     b, n, v = target_logits.shape
     dev = target_logits.device
-    parents = torch.as_tensor(tree.parents, dtype=torch.long, device=dev)       # (N,)
-    paths = torch.as_tensor(tree.leaf_paths, dtype=torch.long, device=dev)      # (L, K+1)
+    from repro_torch.spec.tree import device_array
+
+    parents = device_array(tree, "parents", dev, torch.long)                   # (N,)
+    paths = device_array(tree, "leaf_paths", dev, torch.long)                  # (L, K+1)
     k = paths.shape[1] - 1
     tgt = torch.argmax(target_logits, dim=-1).to(torch.int32)                  # (B, N)
     match = tokens.to(torch.int32) == tgt[:, parents]

@@ -34,10 +34,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import module_to, resolve_device
 from repro_torch.models import (
     decode_step,
     init_cache,
+    prefill,
     prefill_into_slot,
     rollback_cache,
     verify_step,
@@ -61,19 +62,22 @@ class ModelDrafter(Drafter):
             raise ValueError("ModelDrafter needs a rollbackable cache; the "
                              "draft config has windowed (ring-cache) layers")
         self.device = resolve_device(device)
-        self.params = params.to(self.device)
+        self.params = module_to(params, self.device)
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
         self.cache = init_cache(cfg, max_slots, max_len, device=self.device)
         #: per-slot count of context tokens the draft cache has absorbed
         self.synced = np.zeros(max_slots, np.int64)
+        # the step entries (`step_entries`), the JAX drafter's jitted callables
+        self._prefill = lambda p, c, t: prefill(p, t, c, cfg)
+        self._verify = lambda p, c, t: verify_step(p, t, c, cfg)
+        self._decode = lambda p, c, t: decode_step(p, t, c, cfg)
 
-    def _verify(self, cache, tokens):
-        return verify_step(self.params, tokens, cache, self.cfg)
-
-    def _decode(self, cache, tokens):
-        return decode_step(self.params, tokens, cache, self.cfg)
+    def step_entries(self) -> dict:
+        """The step callables this drafter dispatches through (the JAX
+        drafter's `jit_entries`), for `Engine.step_entries`."""
+        return {"prefill": self._prefill, "verify": self._verify, "decode": self._decode}
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -84,7 +88,8 @@ class ModelDrafter(Drafter):
         # the same bucketed admission as Engine.add, so the draft cache's
         # positions can never drift from the target's
         _, self.cache, _ = prefill_into_slot(
-            self.params, self.cache, slot, prompt, self.cfg, max_len=self.max_len)
+            self.params, self.cache, slot, prompt, self.cfg, max_len=self.max_len,
+            prefill_fn=self._prefill)
         self.synced[slot] = len(prompt)
 
     # ------------------------------------------------------------------
@@ -129,7 +134,7 @@ class ModelDrafter(Drafter):
             delta[i] = d
             tokens[i, :d] = ctx[self.synced[i]:]
             tokens[i, d:] = ctx[-1]     # pad; rolled back below
-        logits, cache = self._verify(self.cache, self._dev(tokens))
+        logits, cache = self._verify(self.params, self.cache, self._dev(tokens))
         row = logits[torch.arange(b, device=self.device), self._dev(delta - 1)]   # (B, V)
         # keep only the real (accepted) tokens in the cache; free slots keep
         # their stale synced value rather than being scribbled on
@@ -159,7 +164,7 @@ class ModelDrafter(Drafter):
             max((int(slot_k[i]) for i in range(b) if active[i]), default=0))
         for j in range(1, k):
             if j < k_hi:
-                step_logits, cache = self._decode(cache, cols[-1][:, None])
+                step_logits, cache = self._decode(self.params, cache, cols[-1][:, None])
                 tok, qj = self._pick(step_logits, generator, temperature, return_probs)
             else:
                 tok = cols[-1]
@@ -189,7 +194,7 @@ class ModelDrafter(Drafter):
         # argmax chain token
         cand: list = [top_candidates(row, int(tree.branching[0])).to(torch.int32)]
         for d in range(2, k + 1):
-            step_logits, cache = self._decode(cache, cand[-1][:, :1])
+            step_logits, cache = self._decode(self.params, cache, cand[-1][:, :1])
             cand.append(top_candidates(step_logits, int(tree.branching[d - 1])).to(torch.int32))
         self.cache = rollback_cache(cache, self._dev(self.synced))
         # one host copy: every depth's candidates side by side

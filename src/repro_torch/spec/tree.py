@@ -21,6 +21,8 @@ exactly the chain-mode proposal.
 
 The structure is static per SpecConfig — everything here is host-side numpy
 that the verify step, acceptance and cache compaction read as constants.
+They reach a device through `device_array`, which copies each once per
+device, so a tree step makes no host-to-device copy after its first.
 """
 from __future__ import annotations
 
@@ -48,6 +50,8 @@ class DraftTree:
                mask of the verify pass.
     leaf_paths (n_leaves, k+1) node indices of every root-to-leaf path,
                column d = the path's depth-d node — acceptance scans these.
+    consts     the device copies `device_array` made (not part of the
+               layout: never compared).
     """
 
     k: int
@@ -58,6 +62,7 @@ class DraftTree:
     ranks: np.ndarray
     ancestors: np.ndarray
     leaf_paths: np.ndarray
+    consts: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def n_draft(self) -> int:
@@ -126,3 +131,19 @@ def build_tree(k: int, branching: tuple) -> DraftTree:
         ancestors=anc,
         leaf_paths=paths,
     )
+
+
+def device_array(tree: DraftTree, name: str, device, dtype=None):
+    """``tree.<name>`` as a tensor of `dtype` on `device`, copied there on
+    its first use and kept in ``tree.consts`` (a fake tensor, made while a
+    step is traced, is not kept)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    key = (name, str(device), dtype)
+    t = tree.consts.get(key)
+    if t is None:
+        t = torch.as_tensor(getattr(tree, name), dtype=dtype, device=device)
+        if not isinstance(t, FakeTensor):
+            tree.consts[key] = t
+    return t

@@ -74,6 +74,16 @@ def test_walk_covers_the_step_statistics_slice():
             "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/dryrun.py"} <= rels
 
 
+def test_walk_covers_the_lint_slice():
+    rels = {p.relative_to(ROOT).as_posix() for p in FILES}
+    lint = "src/repro_torch/lint/"
+    assert {f"{lint}{m}.py" for m in ("__init__", "__main__", "core", "rules_hostsync",
+                                      "rules_launch", "rules_recompile", "rules_scatter",
+                                      "rules_timing", "sanitize")} <= rels
+    assert {f"{lint}ir/{m}.py" for m in ("__init__", "core", "deadcode", "dtype_flow",
+                                         "effects", "registry", "snapshots", "traffic")} <= rels
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))

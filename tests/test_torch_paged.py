@@ -501,6 +501,7 @@ class TestPagedPrimitives:
         before = [{k: v.clone() for k, v in layer.items()} for layer in tc]
         for layer in tc:                      # the page is recycled meanwhile
             layer["k"][3] = 7.0
+            # lint: disable=R1 -- page 3 of a CPU test pool
             layer["slot_pos"][3] = 99
         tm.restore_page(tc, 5, data)          # paged back in elsewhere
         jc = jpaged.restore_page(jc, 5, jpaged.gather_page(jc, 3))
@@ -545,7 +546,7 @@ class TestPagedEngineAdmission:
         assert eng.add(a) and not eng.add(b)
         assert "waiting for free KV pages" in b.error
         del eng.prefilling[a.slot]
-        eng.slot_free[a.slot] = True
+        eng.slot_free[a.slot] = True           # lint: disable=R1 -- the engine's host list
         eng.pager.release(a.slot, a.prompt)
         assert eng.add(b) and b.error == ""
 
@@ -555,6 +556,7 @@ class TestPagedEngineAdmission:
         eng = ts.Engine(None, served[1], max_slots=1, max_len=64, prefill_chunk=16, device="cpu",
                         paged_kv=ts.PagedKVConfig(page_size=16, prefix_sharing=False))
         for layer in eng.cache:
+            # lint: disable=R1 -- a CPU test pool's pages, in bounds
             layer["slot_pos"][1:] = 5                  # a previous owner's positions
         assert eng.add(ts.Request(rid=0, prompt=np.arange(17, dtype=np.int32),
                                   max_new_tokens=16))
