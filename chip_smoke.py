@@ -149,21 +149,23 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    busy share, and the device time of the gathers (`aten::index`: the
    `page_view` reads) and the scatters (`aten::index_put_`).
 10. moe: the MoE FFN on `llama4-scout-17b-a16e` at its published widths
-   and depth (48 layers, d 5120, 40/8 heads, 16 experts top-1 + 1 shared,
-   d_ff 8192, vocab 202048, bf16), random weights from a seeded generator
-   on the card, built and packed layer by layer (`init_lm(packed=True)`:
-   the dense bf16 weights, ~211 GB, do not fit), after phase 9 (phase
-   4's model freed first). (a) Both grouped kernels
-   (`ternary_decode_gemm_fused_grouped`, `vlut_lookup_gemm_fused_grouped`:
-   16 experts of one shape in one launch) at layer 0's expert weights (w1:
-   M 8192, K 5120, all g=5; w2: M 5120, K 8192 = 1636 g=5 + 3 g=4 groups,
-   so both segments run), C in {4, 16, 64} rows per expert with a zero
+   (d 5120, 40/8 heads, 16 experts top-1 + 1 shared, d_ff 8192, vocab
+   202048, bf16), depth cut from 48 to 12 layers (the script's time limit:
+   48 packed layers, ~25 GB, fit the card), random weights from a seeded
+   generator on the card, built and packed layer by layer
+   (`init_lm(packed=True)`: the dense bf16 weights of all 48 layers,
+   ~211 GB, would not fit), after phase 9 (phase 4's model freed first).
+   (a) Both grouped kernels (`ternary_decode_gemm_fused_grouped`,
+   `vlut_lookup_gemm_fused_grouped`: 16 experts of one shape in one
+   launch) at layer 0's expert weights (w1: M 8192, K 5120, all g=5; w2: M
+   5120, K 8192 = 1636 g=5 + 3 g=4 groups, so both segments run), C in
+   {4, 16, 64} rows per expert with a zero
    padding row (its output must be 0), bf16 (and f32 at C 16), against
    their plain versions and 16 single launches: expected difference 0;
    grouped split-K traps (odd E, M off the tiles, C 5 and 17) launched
    twice and replayed 3 times in a CUDA graph. (b) Device ms per grouped
    launch at C 4 and 16 beside the bound (bytes / 3.35 TB/s), 16 single
-   launches, the plain version and a bf16 `torch.bmm` against the
+   launches, the plain version (eager) and a bf16 `torch.bmm` against the
    dequantized experts (a yardstick only). (c) Serving 8 greedy requests
    (prompts 16-64, 16 new tokens, 4 slots) with impl="decode" and
    "lookup" (identical tokens), then chunk 64 + chain k 4 (n-gram; the
@@ -194,17 +196,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 11. mla: the MLA mixer on `deepseek-v3-671b` at its published widths (d
    7168, 128 heads, q/kv latent ranks 1536/512, rope 64, 256 experts top-8
    + 1 shared, d_ff 2048 and 18432 dense, vocab 129280, bf16), depth cut
-   from 61 to 16 layers (its 3 dense + 13 MoE: the packed model, ~34 GB,
-   fits the card; 61 layers, ~138 GB, do not), random weights from a
-   seeded generator on the card, drawn and packed layer by layer, after
-   phase 10 (its model freed first). (a) All four grouped kernels (fused
-   and integer, both impls) at the first MoE layer's expert weights (E
-   256; w1 M 2048, K 7168 = 1432 g=5 + 2 g=4 groups; w2 M 7168, K 2048 =
-   408 + 2), C 16, bf16, a zero padding row, against their plain versions
-   (16 experts at a time): expected difference 0; the grouped vector-LUT
-   geometry traps at 256 experts (LUT_GEOMETRY_TRAPS_E256) and the grouped
-   decode ones (DECODE_GEOMETRY_TRAPS_E256: several experts a block, 133
-   experts just over a wave), as phase 10's.
+   from 61 to 8 layers (its 3 dense + 5 MoE; 61 layers, ~138 GB packed, do
+   not fit the card, and the script's time limit allows 8), random
+   weights from a seeded generator on the card, drawn and packed layer by
+   layer, after phase 10 (its model freed first). (a) All four grouped
+   kernels (fused and integer, both impls) at the first MoE layer's
+   expert weights (E 256; w1 M 2048, K 7168 = 1432 g=5 + 2 g=4 groups; w2
+   M 7168, K 2048 = 408 + 2), C 16, bf16, a zero padding row, against
+   their plain versions (16 experts at a time): expected difference 0; the
+   grouped vector-LUT geometry traps at 256 experts
+   (LUT_GEOMETRY_TRAPS_E256) and the grouped decode ones
+   (DECODE_GEOMETRY_TRAPS_E256: several experts a block, 133 experts just
+   over a wave), as phase 10's.
    (b) Device ms per linear's grouped launches (their plans logged) and
    per layer's 6, beside the bound (bytes /
    3.35 TB/s), 256 single launches, the plain version (eager), a decode
@@ -244,7 +247,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    150-250: more than one chunk, a padded last chunk; exact-length
    admission), 4 slots, 16 new tokens: fused decode, fused lookup
    (identical tokens) and unfused decode (identical, or leaving them where
-   a B = 1 replay under both pipelines shows a near-tie, or a gap inside
+   a replay under both pipelines shows a near-tie, or a gap inside
    the pipelines' difference, itself no larger than the fused pipeline's
    distance to an f32 copy of the model); one
    prefill's logits through the kernels against their plain versions,
@@ -423,6 +426,49 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    under `enable_sanitizers()` (rank and dtype promotion raise,
    debug-NaNs): no error, the tokens of the step without it. Rows under
    `lint`.
+20. hybrid, after phase 15 (its model freed first): `jamba-1.5-large-398b`
+   at its published widths (d 8192, 64 heads / 8 KV heads of 128, SSM
+   d_inner 16384 in 256 heads of 64 with d_state 16, 16 experts top-2 of
+   d_ff 24576, dense d_ff 24576, vocab 65536, bf16, untied head), depth
+   cut from 72 to one period of its 8-layer pattern (SSM layers 0-2 and
+   4-7, attention layer 3; MoE FFNs on the odd layers, dense on the even:
+   72 layers need 81.7 GB of packed weights), random weights drawn and
+   packed layer by layer. (a) Kernels #1-#4 against their plain versions
+   at layer 0's BitLinear shapes (SSM in_proj M 33056, out_proj K 16384,
+   dense w1/w3 24576 x 8192, w2 K 24576) and layer 3's (attention: wq/wo
+   8192 x 8192, wk/wv 1024 x 8192), N in {1, 4, 17, 61, 200}: expected
+   difference 0; those layers' 18 launches timed at N 4. Both grouped
+   pairs, fused and integer, at layer 1's experts (w1 E 16 x M 24576 x K
+   8192, w2 E 16 x 8192 x 24576), C 8, 16 and 40 (the capacities of 4, 64
+   and 250 tokens) with a zero padding row, against their plain versions
+   and 16 single launches: expected difference 0; each launch timed at C 8
+   beside its bound, 16 single launches, the plain version (eager), a decode
+   step's 8 real rows and a bf16 `torch.bmm` yardstick. (b) and (d)
+   Serving as phase 12 (b): fused decode, fused lookup (identical tokens)
+   and unfused decode (identical, or leaving them at a near-tie, within
+   the model's rounding sensitivity or after a routing flip), 60 single
+   and 24 grouped launches a forward (equal to those reckoned from the
+   config), no other mpGeMM kernel; one prefill's logits through the
+   kernels against their plain versions (MOE_LOGIT_RTOL). (c) As phase 12
+   (c), the MoE layers dropless, at 256 heads; the rounding sensitivity
+   only where unfused leaves fused. (e) One decode step of 4 full slots
+   under torch.profiler with the f32 head's device ms, one SSM layer's own
+   ops against its BitLinears, one MoE layer's dispatch. Rows under
+   `hybrid`.
+21. dense, after phase 20: `internlm2-1.8b` (24 layers, d 2048, 16 / 8
+   heads of 128, d_ff 8192, vocab 92544), `command-r-35b` (40 layers, d
+   8192, 64 / 8 of 128, d_ff 22528, vocab 256000, tied head) and
+   `chameleon-34b` (48 layers, d 8192, 64 / 8 of 128, d_ff 22016, vocab
+   65536, q/k norms) at their published widths and depth, built and freed
+   one at a time. Each: (a) kernels #1-#4 against their plain versions at
+   layer 0's BitLinear shapes as phase 20 (a), the launch shapes checked
+   earlier in the run skipped (chameleon's and command-r's attention
+   shapes are jamba's), layer 0's 14 launches timed at N 4; (b) and (d)
+   serving as phase 20, 336 / 560 / 672 launches a forward, the rounding
+   sensitivity only where unfused leaves fused; (e) one decode-step
+   profile with the f32 head's device ms and share (command-r's casts its
+   256000 x 8192 tied table to f32 each step, as the JAX package does).
+   Rows under `dense_archs`.
 
 Each log line starts with the seconds since the script began; each
 phase's seconds are logged and kept under `phase_seconds`.
@@ -436,6 +482,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -567,11 +614,15 @@ OBS_GBPS_SLACK = 1.05
 OBS_TRACE_NAMES = ("scheduler_tick", "engine_step/decode", "engine_step/chunk",
                    "engine_step/verify", "mpgemm_dispatch")
 
-# Phase 10 (MoE): llama4-scout-17b-a16e at its published widths and depth.
-# Rows per expert C of the grouped launches: a decode step of 4 slots (4
-# tokens, top-1 of 16 experts: the capacity floor min(T, 16) = 4), a
-# chain-4 verify step or a 64-token prefill (16), a larger batch (64).
+# Phase 10 (MoE): llama4-scout-17b-a16e at its published widths, depth cut
+# from 48 to MOE_LAYERS: not the card (48 packed layers, ~25 GB, fit) but
+# the script's time limit forces it (its host-bound serving runs take ~0.2
+# s a layer each). Rows per expert C of the grouped launches: a decode step
+# of 4 slots (4 tokens, top-1 of 16 experts: the capacity floor min(T, 16)
+# = 4), a chain-4 verify step or a 64-token prefill (16), a larger batch
+# (64).
 MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_LAYERS = 12
 MOE_TOKENS = (4, 16, 64)
 MOE_TIME_TOKENS = (4, 16)
 # grouped split-K traps (E, M, KG, g, C): odd E, M off the tiles, C 5 and
@@ -614,41 +665,55 @@ DECODE_GEOMETRY_TRAPS_E256 = ((256, 70, 13, 5, 16), (256, 1000, 77, 4, 17), (256
 # logits should agree exactly; the bound on max |diff| relative to the
 # largest logit leaves room only for a library's run-to-run sum order.
 MOE_LOGIT_RTOL = 1e-4
+# weights the plain grouped versions unpack at once (`experts_chunked`):
+# their trits take ~16 bytes a weight in flight
+PLAIN_CHUNK_WEIGHTS = 1 << 30
 # Phase 11 (MLA): deepseek-v3-671b at its published widths, depth cut to
-# its 3 dense layers and the first 13 of its 58 MoE layers: the packed
-# model (~34 GB) fits the card, all 61 layers (~138 GB) do not. Every
+# its 3 dense layers and the first 5 of its 58 MoE layers: all 61 layers
+# (~138 GB packed) do not fit the card, and the script's time limit allows
+# no more than 8 (16, ~34 GB, fit the card). Every
 # grouped launch of its runs has C = 16 rows per expert (the capacity
 # floor min(T * 8, 16) binds up to 409 tokens a step); a decode step of 4
 # tokens gives at most 4 x 8 = 32 of those 256 x 16 rows real tokens.
 MLA_ARCH = "deepseek-v3-671b"
-MLA_LAYERS = 16
+MLA_LAYERS = 8
 MLA_TOKENS = 16
 MLA_DECODE_ROWS = 32
-# decode tok/s of phase 11's whole-prompt runs with the grouped decode
-# launches' earlier kernel (decode_kernel's 64-row tiles): logged beside
-# this run's (PERF.md section 6, the last run before the grouped decode
-# kernel, NVIDIA H100 80GB HBM3, 700.00 W)
-MLA_DECODE_TOK_S_BEFORE = {"decode": 13.9, "lookup": 15.0, "unfused_decode": 18.0,
-                           "unfused_lookup": 14.3}
 # ops of the MoE dispatch whose device time phase 10's profile logs (the
 # indexing ops also serve the attention cache)
 MOE_DISPATCH_OPS = ("aten::sort", "aten::cumsum", "aten::one_hot", "aten::index_put_",
                     "aten::index", "aten::gather", "aten::repeat_interleave")
-# Phases 12 (SSM: mamba2-1.3b) and 13 (windowed GQA: gemma3-1b), each at
-# its published widths and depth. Token counts of the kernels' checks:
-# decode (1, 4) and exact-length prefill (17, 61, 200: no 16-multiple
-# bucket). Serving: 6 prompts of 16-64 tokens and two long ones (mamba2:
-# 150-250, more than one chunk of 64 with a padded last chunk; gemma3:
+# Phases 12 (SSM: mamba2-1.3b), 13 (windowed GQA: gemma3-1b), 20 (hybrid
+# SSM + attention + MoE: jamba-1.5-large-398b) and 21 (the other dense GQA
+# archs), each at its published widths. Token counts of the kernels'
+# checks: decode (1, 4) and exact-length prefill (17, 61, 200: no
+# 16-multiple bucket). Serving: 6 prompts of 16-64 tokens and two long ones
+# (150-250: more than one SSM chunk of 64 with a padded last chunk; gemma3:
 # 600-700, past the window of 512, so the ring wraps in prefill and again
 # in decode), in a cache of max_len tokens.
 SSM_ARCH = "mamba2-1.3b"
 WINDOW_ARCH = "gemma3-1b"
 ODD_TOKENS = (1, 4, 17, 61, 200)
-LONG_PROMPTS = {SSM_ARCH: (150, 251), WINDOW_ARCH: (600, 701)}
-NEW_MAX_LEN = {SSM_ARCH: 320, WINDOW_ARCH: 1024}
-# BitLinear launches per layer per forward: in_proj and out_proj, two
-# segments each; wq, wk, wv, wo, w1, w3, w2, two segments each
-LAUNCHES_PER_LAYER = {SSM_ARCH: 4, WINDOW_ARCH: 14}
+LONG_PROMPT = (150, 251)
+NEW_MAX_LEN = 320
+WINDOW_LONG_PROMPT, WINDOW_MAX_LEN = (600, 701), 1024
+# Phase 20: jamba at its published widths, depth cut to one period of its
+# 8-layer pattern (SSM layers 0-2 and 4-7, attention layer 3; MoE FFNs on
+# the odd layers, dense on the even): 72 layers need 81.7 GB of packed
+# weights, the card holds 80 GB. The single kernels are checked on layer 0
+# (SSM, dense FFN) and layer 3 (attention); the grouped ones on layer 1's
+# experts at the capacities (top-2 of 16, factor 1.25) of 4, 64 and 250
+# tokens, C 8, 16 and 40, and timed at the decode step's (the plain
+# vector-LUT gather of a layer takes ~3 s at C 40).
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_LAYERS = 8
+HYBRID_CHECK_LAYERS = (0, 3)
+HYBRID_MOE_LAYER = 1
+HYBRID_CAPACITY_TOKENS = (4, 64, 250)
+HYBRID_TIME_TOKENS = (DECODE_N,)
+# Phase 21: the dense GQA archs not run in phase 13, each at its published
+# widths and depth, built and freed one at a time.
+DENSE_ARCHS = ("internlm2-1.8b", "command-r-35b", "chameleon-34b")
 # tests/test_ssm.py's tolerances: prefill(n - 1) + decode_step against the
 # last position of one prefill of n (rtol and atol on the logits), and the
 # chunked scan against the sequential recurrence (rtol and atol)
@@ -998,10 +1063,21 @@ def int_kernels() -> dict:
     }
 
 
-def fused_vs_plain(torch, kernels, weights, tokens, gen, combos=None):
+def seen(memo, key) -> bool:
+    """Whether `key` is in `memo` (None: nothing is), which it joins."""
+    if memo is None:
+        return False
+    found = key in memo
+    memo.add(key)
+    return found
+
+
+def fused_vs_plain(torch, kernels, weights, tokens, gen, combos=None, memo=None):
     """Each fused kernel against its plain version at every weight shape,
     token count N and activation/output type pair (f32/f32, bf16/bf16,
-    bf16/f32, or `combos`). → ({name: max |diff|}, number of checks)."""
+    bf16/f32, or `combos`). `memo`: a set of the launch shapes (M, KG, g,
+    N, types) checked earlier in the run, skipped here, and this call's
+    added to it. → ({name: max |diff|}, number of checks)."""
     from repro_torch.core import act_token_scale
     from repro_torch.kernels import ops
 
@@ -1017,6 +1093,8 @@ def fused_vs_plain(torch, kernels, weights, tokens, gen, combos=None):
                 x = x32.to(in_dt)
                 a_scale = act_token_scale(x.T).contiguous()
                 for packed, lo, hi, g in ops._segments(pw):
+                    if seen(memo, ("fused", m, packed.shape[1], g, n, str(in_dt), str(out_dt))):
+                        continue
                     for name, (kern, plain) in kernels.items():
                         got = kern(packed, x[:, lo:hi], a_scale, pw.scale, g=g, out_dtype=out_dt)
                         want = plain(packed, x[:, lo:hi], a_scale, pw.scale, g=g, out_dtype=out_dt)
@@ -1536,70 +1614,112 @@ def near_tie(torch, model, cfg, prompt, ref, got, max_len: int = 256) -> dict:
     return tie
 
 
-def fusion_divergence(torch, model, cfg, prompt, ref, got, max_len: int = 256,
-                      f32_model=None) -> dict:
-    """The first step where the unfused run's tokens `got` leave the fused
-    run's `ref`, replayed on the card with B = 1 under both pipelines
-    (prefill, then decode of ref's earlier tokens): each pipeline's logits
-    there, and the MoE routing decisions (tokens whose top-k expert set
-    differs) the two pipelines took apart on the way. Fused sums each
+def fusion_divergences(torch, model, cfg, cases, max_len: int = 256, f32: bool = False) -> list:
+    """For each (prompt, ref, got) of `cases`, the first step where the
+    unfused run's tokens `got` leave the fused run's `ref`, replayed on the
+    card under both pipelines, all cases in one batch (each prompt
+    prefilled into a slot of its own, B = 1, then decode steps of the rows'
+    ref tokens; a row's logits are read at its step): each pipeline's
+    logits there, and the MoE routing decisions (tokens whose top-k expert
+    set differs) the two pipelines took apart on the row's way to it. The
+    batch changes no row's numbers the divergence turns on: activations are
+    quantized per token, attention is per row, and a decode step of at most
+    16 rows is dropless in every MoE layer, as one row is. Fused sums each
     segment in f32, unfused in int32 before one dequant: a bf16 rounding
     apart, which can move a token across a top-k boundary of the router,
     and a routing flip moves the logits by far more than rounding. Raises
-    unless the divergence is a near-tie (TIE_RTOL, the fused logits) or
-    follows a routing flip. With `f32_model` (phases 12 and 13: an f32
-    copy of the model), the fused pipeline is replayed on it too, and a
-    divergence is also accepted where the two pipelines' logits there
-    differ by more than the gap between the two tokens but by no more than
-    the fused pipeline's own bf16 rounding moves them (its distance to the
-    f32 copy, or LOGIT_RTOL of the largest logit if that is larger): the
-    swap is then within the model's rounding sensitivity, which a fault in
-    either pipeline would far exceed. SSM layers admit at the exact
-    length, as the engine does."""
+    unless each divergence is a near-tie (TIE_RTOL, the fused logits) or
+    follows a routing flip. With `f32` (phases 12, 13, 20 and 21), the
+    fused pipeline is replayed on an f32 copy of the model for the rows
+    that are neither, and such a divergence is also accepted where the two
+    pipelines' logits there differ by more than the gap between the two
+    tokens but by no more than the fused pipeline's own bf16 rounding moves
+    them (its distance to the f32 copy, or LOGIT_RTOL of the largest logit
+    if that is larger): the swap is then within the model's rounding
+    sensitivity, which a fault in either pipeline would far exceed. SSM
+    layers admit at the exact length, as the engine does."""
     from repro_torch.kernels import ops
     from repro_torch.models import decode_step, init_cache, moe, prefill_into_slot
 
     dev = torch.device("cuda")
-    t = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+    steps = [next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b) for _, ref, got in cases]
     exact = any(sp.mixer == "ssm" for sp in cfg.layer_specs())
-    rows, picks = {}, {}
-    runs = [("fused", model, cfg), ("unfused", model, cfg)]
-    if f32_model is not None:
-        runs.append(("f32", f32_model, cfg.with_(dtype="float32")))
-    for name, m, c in runs:
-        rec = []
 
-        def top_k(scores, k, _orig=moe.top_k_indices, _rec=rec):
+    def replay(m, c, fusion, rows_of):
+        """The logits of the cases `rows_of` (in that order, a row each) at
+        their steps, under `fusion`, and the router's picks by call:
+        [(("prefill", case) or ("decode", step), sorted picks)]."""
+        rec, at, n = [], [None], len(rows_of)
+
+        def top_k(scores, k, _orig=moe.top_k_indices):
             out = _orig(scores, k)
-            _rec.append(out.sort(-1).values)
+            rec.append((at[0], out.sort(-1).values))
             return out
 
+        got_rows = [None] * n
         with torch.no_grad(), planted(moe, "top_k_indices", top_k), \
-                ops.dispatch_override(impl="decode", fusion="unfused" if name == "unfused" else "fused"):
-            row, cache, _ = prefill_into_slot(m, init_cache(c, 1, max_len, device=dev), 0,
-                                              prompt, c, max_len=max_len, exact_len=exact)
-            for tok in ref[:t]:
-                row, cache = decode_step(m, torch.tensor([[tok]], dtype=torch.int32, device=dev),
-                                         cache, c)
-        rows[name], picks[name] = row[0].float(), rec
-    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(picks["fused"], picks["unfused"]))
-    gaps = {f: abs((r[ref[t]] - r[got[t]]).item()) for f, r in rows.items() if f != "f32"}
-    scale = rows["fused"].abs().max().item()
-    div = {"step": t, "ref_token": ref[t], "token": got[t], "gap": gaps["fused"],
-           "gap_unfused": gaps["unfused"], "max_abs_logit": scale, "routing_flips": flips,
-           "routed_tokens": sum(int(a.shape[0]) for a in picks["fused"]),
-           "logits_max_abs_diff": (rows["fused"] - rows["unfused"]).abs().max().item()}
-    within_rounding = False
-    if f32_model is not None:
-        div["bf16_vs_f32_max_abs_diff"] = (rows["fused"] - rows["f32"]).abs().max().item()
-        within_rounding = (gaps["fused"] <= div["logits_max_abs_diff"]
-                           <= max(div["bf16_vs_f32_max_abs_diff"], LOGIT_RTOL * scale))
-    if gaps["fused"] > TIE_RTOL * scale and not flips and not within_rounding:
-        raise AssertionError(f"greedy divergence at step {t} is no near-tie, no routing flip "
-                             "precedes it" + (", and it is not within the model's rounding "
-                                              "sensitivity" if f32_model is not None else "")
-                             + f": {div}")
-    return div
+                ops.dispatch_override(impl="decode", fusion=fusion):
+            cache = init_cache(c, n, max_len, device=dev)
+            for j, i in enumerate(rows_of):
+                at[0] = ("prefill", i)
+                row, cache, _ = prefill_into_slot(m, cache, j, cases[i][0], c, max_len=max_len,
+                                                  exact_len=exact)
+                if steps[i] == 0:
+                    got_rows[j] = row[0]
+            for t in range(max(steps[i] for i in rows_of)):
+                at[0] = ("decode", t)
+                tok = torch.tensor([[cases[i][1][t]] for i in rows_of], dtype=torch.int32,
+                                   device=dev)
+                out, cache = decode_step(m, tok, cache, c)
+                for j, i in enumerate(rows_of):
+                    if steps[i] == t + 1:
+                        got_rows[j] = out[j]
+        return [r.float() for r in got_rows], rec
+
+    if not cases:
+        return []
+    everyone = list(range(len(cases)))
+    (fused, picks), (unfused, picks_u) = (replay(model, cfg, fusion, everyone)
+                                          for fusion in ("fused", "unfused"))
+    flips, routed = [0] * len(cases), [0] * len(cases)
+    for (place, a), (_, b) in zip(picks, picks_u):
+        differ = (a != b).any(-1)
+        if place[0] == "prefill":
+            flips[place[1]] += int(differ.sum())
+            routed[place[1]] += int(a.shape[0])
+        else:
+            for i, st in enumerate(steps):
+                if place[1] < st:
+                    flips[i] += int(differ[i])
+                    routed[i] += 1
+    out = []
+    for i, ((_, ref, got), t) in enumerate(zip(cases, steps)):
+        gap = abs((fused[i][ref[t]] - fused[i][got[t]]).item())
+        scale = fused[i].abs().max().item()
+        out.append({"step": t, "ref_token": ref[t], "token": got[t], "gap": gap,
+                    "gap_unfused": abs((unfused[i][ref[t]] - unfused[i][got[t]]).item()),
+                    "max_abs_logit": scale, "near_tie": gap <= TIE_RTOL * scale,
+                    "routing_flips": flips[i], "routed_tokens": routed[i],
+                    "replay_rows": len(cases),
+                    "logits_max_abs_diff": (fused[i] - unfused[i]).abs().max().item()})
+    rest = [i for i, d in enumerate(out) if not d["near_tie"] and not d["routing_flips"]]
+    if rest and f32:
+        f32_model = copy.deepcopy(model).float()
+        rows32, _ = replay(f32_model, cfg.with_(dtype="float32"), "fused", rest)
+        del f32_model
+        torch.cuda.empty_cache()
+        for i, r in zip(rest, rows32):
+            d = out[i]
+            d["bf16_vs_f32_max_abs_diff"] = (fused[i] - r).abs().max().item()
+            d["within_rounding"] = (d["gap"] <= d["logits_max_abs_diff"]
+                                    <= max(d["bf16_vs_f32_max_abs_diff"],
+                                           LOGIT_RTOL * d["max_abs_logit"]))
+    for d in out:
+        if not (d["near_tie"] or d["routing_flips"] or d.get("within_rounding")):
+            raise AssertionError(f"greedy divergence at step {d['step']} is no near-tie, no "
+                                 "routing flip precedes it" + (", and it is not within the "
+                                 "model's rounding sensitivity" if f32 else "") + f": {d}")
+    return out
 
 
 def tie_check(torch, model, cfg, label, prompts, ref, got, ref_name="the reference",
@@ -1644,6 +1764,37 @@ def launches_per_forward(model, impl: str, fusion: str = "fused", expand: bool =
         if isinstance(lin, PackedLinear) and (expand or not name.endswith("mixer.wkv_b")):
             segs = int(lin.packed5.shape[-1] > 0) + int(lin.packed4.shape[-1] > 0)
             out[f"{single}_grouped" if lin.packed5.ndim == 3 else single] += segs
+    return {k: v for k, v in out.items() if v}
+
+
+def reckoned_launches(cfg, impl: str, fusion: str = "fused") -> dict:
+    """{kernel: launches per forward} reckoned from the config's layer
+    specs alone, to hold `launches_per_forward`'s count on the model
+    against: one launch per packed segment of each BitLinear (two where 5
+    does not divide K, `pack_group_sizes`), the single kernel for a dense
+    weight and the grouped one for a MoE layer's stacked experts; attention
+    and SSM mixers, dense and MoE FFNs (phases 12, 13, 20 and 21)."""
+    from repro_torch.core.packing import pack_group_sizes
+
+    def segs(k: int) -> int:
+        return sum(n > 0 for n in pack_group_sizes(k))
+
+    single = single_kernel(impl, fusion)
+    d, out = cfg.d_model, {single: 0, f"{single}_grouped": 0}
+    for sp in cfg.layer_specs():
+        if sp.mixer == "attn":
+            out[single] += 3 * segs(d) + segs(cfg.n_heads * cfg.head_dim)
+        elif sp.mixer == "ssm":
+            out[single] += segs(d) + segs(cfg.ssm.d_inner)
+        else:
+            raise ValueError(f"no launch count reckoned for a {sp.mixer} mixer")
+        if sp.ffn == "dense":
+            out[single] += 2 * segs(d) + segs(sp.d_ff or cfg.d_ff)
+        elif sp.ffn == "moe":
+            mc = cfg.moe
+            out[f"{single}_grouped"] += 2 * segs(d) + segs(mc.d_ff_expert)
+            if mc.n_shared:
+                out[single] += 2 * segs(d) + segs((mc.d_ff_shared or mc.d_ff_expert) * mc.n_shared)
     return {k: v for k, v in out.items() if v}
 
 
@@ -2235,12 +2386,15 @@ def int_launch_bytes(launches) -> int:
 
 
 def experts_chunked(torch, fn, experts: int = 16):
-    """`fn` (a plain version over stacked operands) applied to `experts`
-    experts at a time and concatenated: the same function on the same
-    inputs, without 256 experts' dense f32 weights at once."""
+    """`fn` (a plain version over stacked operands, the codes first) applied
+    to at most `experts` experts at a time, and no more than
+    PLAIN_CHUNK_WEIGHTS weights, and concatenated: the same function on
+    the same inputs, without 256 experts' dense f32 weights at once (nor 16
+    of jamba's, whose unpacked trits take ~40 GB)."""
     def run(*args, **kw):
-        e = args[0].shape[0]
-        return torch.cat([fn(*(a[i:i + experts] for a in args), **kw) for i in range(0, e, experts)])
+        e, codes = args[0].shape[0], args[0][0].numel()
+        step = max(1, min(experts, PLAIN_CHUNK_WEIGHTS // (5 * codes)))
+        return torch.cat([fn(*(a[i:i + step] for a in args), **kw) for i in range(0, e, step)])
     return run
 
 
@@ -2264,36 +2418,37 @@ def launch_bytes(torch, launches) -> int:
                for pk, xs, sc, ws, g, odt in launches)
 
 
-def moe_kernel_checks(torch, model, gen) -> dict:
-    """Phase 10 (a) and (b): both grouped kernels at llama4-scout's expert
-    shapes (layer 0's packed w1 and w2: E 16, M 8192, K 5120 all g=5; M
-    5120, K 8192 = 1636 g=5 + 3 g=4 groups) against their plain versions
-    and against E launches of the single kernel, expected difference 0; the
-    split-K traps; then device times per grouped launch beside the bound,
-    E single launches, the plain version and a bf16 `torch.bmm` against the
+def moe_kernel_checks(torch, model, cfg, gen, layer: int = 0, caps=MOE_TOKENS,
+                      time_caps=MOE_TIME_TOKENS, traps: bool = True, label: str = "moe") -> dict:
+    """Phases 10 and 20 (a) and (b): both grouped kernels, fused and
+    integer, at one MoE layer's expert shapes (llama4-scout's layer 0: E
+    16, w1 M 8192, K 5120 all g=5; w2 M 5120, K 8192 = 1636 g=5 + 3 g=4
+    groups; jamba's layer 1: w1 M 24576, K 8192; w2 M 8192, K 24576) at C
+    in `caps` rows per expert against their plain versions and against E
+    launches of the single kernel, expected difference 0; with `traps`
+    (phase 10), the split-K and geometry traps, which do not depend on the
+    model; then at C in `time_caps` device times per grouped launch beside
+    the bound, E single launches, the plain version, a decode step's rows
+    (DECODE_N x top-k real, the rest 0) and a bf16 `torch.bmm` against the
     dequantized expert weights (a yardstick only: the port never calls it)."""
-    from repro_torch.kernels import ternary_decode_gemm as tdg
-    from repro_torch.kernels import vlut_lookup_gemm as vlg
-
     dev = torch.device("cuda")
     kernels = grouped_kernels()
-    plans = {"decode": lambda e, m, kg, g, c: tdg.grouped_decode_plan(m, kg, c, g, e),
-             "lookup": lambda e, m, kg, g, c: vlg.grouped_lut_plan(m, kg, c, g, e)}
-    ffn = model.layers[0].ffn
+    ffn = model.layers[layer].ffn
     lins = {"w1": ffn.experts.w1.pw, "w3": ffn.experts.w3.pw, "w2": ffn.experts.w2.pw}
     e = lins["w1"].packed5.shape[0]
     max_err = {name: 0.0 for name in kernels}
     n_checks = 0
     for lname in ("w1", "w2"):
         pw = lins[lname]
-        for c in MOE_TOKENS:
+        for c in caps:
             x32 = torch.randn((e, c, pw.K), generator=gen, device=dev) * 3.0
             x32[:, -1] = 0                         # a padding row of every expert
             for dt in ((torch.bfloat16, torch.float32) if c == 16 else (torch.bfloat16,)):
                 for packed, xs, a_scale, w_scale, g, out_dt in grouped_launches(torch, pw, x32.to(dt)):
                     for name, (kern, plain, single) in kernels.items():
                         got = kern(packed, xs, a_scale, w_scale, g=g, out_dtype=out_dt)
-                        want = plain(packed, xs, a_scale, w_scale, g=g, out_dtype=out_dt)
+                        want = experts_chunked(torch, plain)(packed, xs, a_scale, w_scale, g=g,
+                                                             out_dtype=out_dt)
                         each = torch.stack([single(packed[i], xs[i], a_scale[i], w_scale[i], g=g,
                                                    out_dtype=out_dt) for i in range(e)])
                         torch.cuda.synchronize()
@@ -2311,13 +2466,13 @@ def moe_kernel_checks(torch, model, gen) -> dict:
     max_err.update({name: 0.0 for name in int_kernels})
     for lname in ("w1", "w2"):
         pw = lins[lname]
-        for c in MOE_TOKENS:
+        for c in caps:
             x = (torch.randn((e, c, pw.K), generator=gen, device=dev) * 3.0).to(torch.bfloat16)
             x[:, -1] = 0                           # a padding row of every expert
             for packed, a_r, g in grouped_int_launches(torch, pw, x):
                 for name, (kern, plain, single) in int_kernels.items():
                     got = kern(packed, a_r, g=g)
-                    want = plain(packed, a_r, g=g)
+                    want = experts_chunked(torch, plain)(packed, a_r, g=g)
                     each = torch.stack([single(packed[i], a_r[i], g=g) for i in range(e)])
                     torch.cuda.synchronize()
                     assert got.shape == (e, pw.M, c) and got.dtype == torch.int32
@@ -2327,13 +2482,33 @@ def moe_kernel_checks(torch, model, gen) -> dict:
                               (got.long() - each.long()).abs().max().item())
                     max_err[name] = max(max_err[name], float(err))
                     n_checks += 1
-    log(f"moe: {n_checks} grouped-kernel checks, fused and integer (against the plain version "
-        f"and {e} single launches) at {MOE_ARCH}'s expert shapes, C {MOE_TOKENS}: max |diff| "
+    log(f"{label}: {n_checks} grouped-kernel checks, fused and integer (against the plain version "
+        f"and {e} single launches) at {cfg.name}'s layer {layer} expert shapes (w1 M {lins['w1'].M}, "
+        f"K {lins['w1'].K}; w2 M {lins['w2'].M}, K {lins['w2'].K}), C {tuple(caps)}: max |diff| "
         f"{max_err}")
     for name, err in max_err.items():
         if err != 0.0:
-            raise AssertionError(f"{name} differs from its plain version or single launches by {err}")
+            raise AssertionError(f"{label}: {name} differs from its plain version or single launches "
+                                 f"by {err}")
+    out = {"layer": layer, "experts": e, "rows_per_expert": list(caps), "max_abs_err": max_err,
+           "checks": n_checks}
+    if traps:
+        out.update(grouped_traps(torch, gen, kernels))
+    out["per_tokens"] = grouped_times(torch, lins, cfg, gen, time_caps, label)
+    return out
 
+
+def grouped_traps(torch, gen, kernels) -> dict:
+    """Phase 10 (a): the grouped kernels' split-K traps (MOE_RAGGED) and
+    geometry traps (LUT_GEOMETRY_TRAPS, DECODE_GEOMETRY_TRAPS), fused and
+    integer, each against its plain version; they depend on no model."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+
+    dev = torch.device("cuda")
+    plans = {"decode": lambda e, m, kg, g, c: tdg.grouped_decode_plan(m, kg, c, g, e),
+             "lookup": lambda e, m, kg, g, c: vlg.grouped_lut_plan(m, kg, c, g, e)}
+    int_kernels = grouped_int_kernels()
     traps = {}
     for name, (kern, plain, _) in kernels.items():
         cases = []
@@ -2365,18 +2540,33 @@ def moe_kernel_checks(torch, model, gen) -> dict:
             f"back and in a CUDA graph replayed {LUT_REPLAYS} times: max |diff| 0; plans "
             + "; ".join(f"{tuple(r['shape'])} E {r['e']} S {r['splits']} blocks {r['blocks']}"
                         for r in traps[name]["plans"]))
+    return {"splitk_traps": traps,
+            "lut_geometry_traps": geometry_traps(torch, gen, LUT_GEOMETRY_TRAPS, "moe", "lookup"),
+            "decode_geometry_traps": geometry_traps(torch, gen, DECODE_GEOMETRY_TRAPS, "moe",
+                                                    "decode", reach=("splits",))}
 
-    geometry = geometry_traps(torch, gen, LUT_GEOMETRY_TRAPS, "moe", "lookup")
-    decode_geometry = geometry_traps(torch, gen, DECODE_GEOMETRY_TRAPS, "moe", "decode",
-                                     reach=("splits",))
 
-    # (b) device times
-    per_c = {}
-    deq = {ln: (pw.unpack().to(torch.bfloat16) * pw.scale[..., None].to(torch.bfloat16))
-           .transpose(1, 2).contiguous() for ln, pw in lins.items()}     # (E, K, M) bf16
-    for c in MOE_TIME_TOKENS:
-        xs = {k: (torch.randn((e, c, k), generator=gen, device=dev)).to(torch.bfloat16)
-              for k in {pw.K for pw in lins.values()}}
+def grouped_times(torch, lins, cfg, gen, caps, label: str) -> dict:
+    """Phases 10 and 20 (b): at each C in `caps`, the device ms of each
+    grouped launch of the stacked expert linears `lins` (w1, w3, w2),
+    beside its bound, E single launches, the plain version, a decode step's
+    rows (DECODE_N x top-k real, the rest 0), the grouped integer kernels
+    and a bf16 `torch.bmm` yardstick; then one MoE layer's grouped launches
+    (the kernels line's unit). The plain versions run eagerly (a graph's
+    pool would hold each launch's unpacked trits, ~40 GB at jamba's w1),
+    and the yardsticks come last: at jamba's shapes the dequantized experts
+    (19 GB) and those trits do not fit the card together. → {C: row}."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+
+    dev, kernels = torch.device("cuda"), grouped_kernels()
+    e = lins["w1"].packed5.shape[0]
+    real = min(e, DECODE_N * cfg.moe.top_k)
+    per_c, xs_by_c = {}, {}
+    torch.cuda.empty_cache()
+    for c in caps:
+        xs = xs_by_c[c] = {k: (torch.randn((e, c, k), generator=gen, device=dev)).to(torch.bfloat16)
+                           for k in {pw.K for pw in lins.values()}}
         row = {}
         layer_launches = []
         for ln, pw in lins.items():
@@ -2384,14 +2574,13 @@ def moe_kernel_checks(torch, model, gen) -> dict:
             layer_launches += launches
             if ln == "w3":
                 continue
-            # the decode step's pattern: one row of 4 experts, the rest 0
+            # the decode step's pattern: one row of DECODE_N x top-k experts, the rest 0
             zero_rows = torch.zeros_like(xs[pw.K])
-            zero_rows[:4, 0] = xs[pw.K][:4, 0]
+            zero_rows[:real, 0] = xs[pw.K][:real, 0]
             zero_launches = grouped_launches(torch, pw, zero_rows)
             nbytes = launch_bytes(torch, launches)
             entry = {"launches": len(launches), "bytes": nbytes,
-                     "bound_ms": nbytes / HBM_BYTES_S * 1e3,
-                     "bmm_ms": device_ms(torch, lambda: torch.bmm(xs[pw.K], deq[ln]))}
+                     "bound_ms": nbytes / HBM_BYTES_S * 1e3}
             for name, (kern, plain, single) in kernels.items():
                 def grouped(fn=kern, launches=launches):
                     for pk, xsl, sc, ws, g, odt in launches:
@@ -2404,8 +2593,8 @@ def moe_kernel_checks(torch, model, gen) -> dict:
 
                 entry[name] = {"ms": device_ms(torch, grouped),
                                "singles_ms": device_ms(torch, singles),
-                               "plain_ms": device_ms(torch, lambda p=plain, l=launches: grouped(p, l),
-                                                     reps=1),
+                               "plain_ms": eager_ms(torch, lambda p=experts_chunked(torch, plain),
+                                                    l=launches: grouped(p, l), reps=1),
                                "zero_rows_ms": device_ms(torch, lambda: grouped(kern, zero_launches))}
             # the grouped integer kernels on the same rows, as the unfused
             # pipeline launches them
@@ -2420,11 +2609,34 @@ def moe_kernel_checks(torch, model, gen) -> dict:
                 "decode": [plan_row(tdg.grouped_decode_plan(pk.shape[1], pk.shape[2], c, g, e))
                            for pk, _, _, _, g, _ in launches]}
             row[ln] = entry
-            log(f"moe: {ln} (E {e}, M {pw.M}, K {pw.K}, {len(launches)} launch(es)) at C={c}: "
+        # one MoE layer's grouped launches (the kernels line's unit)
+        nbytes = launch_bytes(torch, layer_launches)
+        nops = sum(2 * e * c * pk.shape[1] * xsl.shape[-1] for pk, xsl, *_ in layer_launches)
+        layer = {"launches": len(layer_launches), "bytes": nbytes, "int8_ops": nops,
+                 "bound_ms": max(nbytes / HBM_BYTES_S, nops / INT8_OPS_S) * 1e3,
+                 "bound_by": "bytes" if nbytes / HBM_BYTES_S >= nops / INT8_OPS_S else "operations"}
+        for name, (kern, plain, _) in kernels.items():
+            def run(fn, launches=layer_launches):
+                for pk, xsl, sc, ws, g, odt in launches:
+                    fn(pk, xsl, sc, ws, g=g, out_dtype=odt)
+
+            layer[name] = {"ms": device_ms(torch, lambda: run(kern)),
+                           "plain_ms": eager_ms(torch, lambda: run(experts_chunked(torch, plain)),
+                                                reps=1)}
+        row["layer"] = layer
+        per_c[c] = row
+    torch.cuda.empty_cache()
+    deq = {ln: dequantized(torch, pw, experts=4) for ln, pw in lins.items()}   # (E, K, M) bf16
+    for c, row in per_c.items():
+        xs = xs_by_c[c]
+        for ln in ("w1", "w2"):
+            entry, pw = row[ln], lins[ln]
+            entry["bmm_ms"] = device_ms(torch, lambda: torch.bmm(xs[pw.K], deq[ln]))
+            log(f"{label}: {ln} (E {e}, M {pw.M}, K {pw.K}, {entry['launches']} launch(es)) at C={c}: "
                 f"bound {entry['bound_ms']:.4f} ms (bytes), "
                 + ", ".join(f"{nm} {entry[nm]['ms']:.4f} ms ({e} single launches "
                             f"{entry[nm]['singles_ms']:.4f}, plain {entry[nm]['plain_ms']:.4f}, "
-                            f"on zero rows but 4 {entry[nm]['zero_rows_ms']:.4f})"
+                            f"on zero rows but {real} {entry[nm]['zero_rows_ms']:.4f})"
                             for nm in kernels)
                 + ", " + ", ".join(f"{nm} {entry[nm]['ms']:.4f} ms ({e} single launches "
                                    f"{entry[nm]['singles_ms']:.4f})" for nm in grouped_int_kernels())
@@ -2434,32 +2646,16 @@ def moe_kernel_checks(torch, model, gen) -> dict:
                 + "; decode plans " + "; ".join(
                     f"bm {r['bm']} S {r['splits']} x{r['ex']} blocks {r['blocks']} stagings {r['stagings']}"
                     for r in entry["plans"]["decode"]))
-        # one MoE layer's four grouped launches (the kernels line's unit)
-        nbytes = launch_bytes(torch, layer_launches)
-        nops = sum(2 * e * c * pk.shape[1] * xsl.shape[-1] for pk, xsl, *_ in layer_launches)
-        layer = {"launches": len(layer_launches), "bytes": nbytes, "int8_ops": nops,
-                 "bound_ms": max(nbytes / HBM_BYTES_S, nops / INT8_OPS_S) * 1e3,
-                 "bound_by": "bytes" if nbytes / HBM_BYTES_S >= nops / INT8_OPS_S else "operations",
-                 "library_ms": device_ms(torch, lambda: [torch.bmm(xs[lins[ln].K], deq[ln])
-                                                         for ln in lins])}
-        for name, (kern, plain, _) in kernels.items():
-            def run(fn, launches=layer_launches):
-                for pk, xsl, sc, ws, g, odt in launches:
-                    fn(pk, xsl, sc, ws, g=g, out_dtype=odt)
-
-            layer[name] = {"ms": device_ms(torch, lambda: run(kern)),
-                           "plain_ms": device_ms(torch, lambda: run(plain), reps=1)}
-        row["layer"] = layer
-        log(f"moe: one layer's {len(layer_launches)} grouped launches at C={c}: bound "
+        layer = row["layer"]
+        layer["library_ms"] = device_ms(torch, lambda: [torch.bmm(xs[lins[ln].K], deq[ln])
+                                                        for ln in lins])
+        log(f"{label}: one layer's {layer['launches']} grouped launches at C={c}: bound "
             f"{layer['bound_ms']:.4f} ms ({layer['bound_by']}), "
             + ", ".join(f"{nm} {layer[nm]['ms']:.4f} ms (plain {layer[nm]['plain_ms']:.4f})"
                         for nm in kernels)
             + f", bf16 bmm yardstick {layer['library_ms']:.4f} ms")
-        per_c[c] = row
     del deq
-    return {"max_abs_err": max_err, "checks": n_checks, "splitk_traps": traps,
-            "lut_geometry_traps": geometry, "decode_geometry_traps": decode_geometry,
-            "per_tokens": per_c}
+    return per_c
 
 
 def act_scales(torch, x):
@@ -2494,9 +2690,9 @@ def moe_dispatch_ms(torch, model, cfg, tokens: int, layer: int = 0) -> dict:
     gather back, combine), with the expert linears and the shared expert
     stubbed out by zeros of their output shapes; and its expert compute
     alone (the grouped expert linears with their SwiGLU, and the shared
-    expert) on random rows, and on rows zero but for row 0 of tokens × top-k
-    experts: the layer's own pattern at a decode step (the other rows
-    padding)."""
+    expert where the layer has one) on random rows, and on rows zero but
+    for row 0 of tokens × top-k experts: the layer's own pattern at a
+    decode step (the other rows padding)."""
     import torch.nn.functional as F
 
     from repro_torch.models import moe
@@ -2515,7 +2711,8 @@ def moe_dispatch_ms(torch, model, cfg, tokens: int, layer: int = 0) -> dict:
     def experts(b):
         h = F.silu(linear_batched_apply(ffn.experts.w1, b)) * linear_batched_apply(ffn.experts.w3, b)
         linear_batched_apply(ffn.experts.w2, h)
-        moe.dense_ffn_apply(ffn.shared, x.reshape(tokens, -1))
+        if ffn.shared is not None:
+            moe.dense_ffn_apply(ffn.shared, x.reshape(tokens, -1))
 
     def zeros_linear(p, xb, mode="serve"):
         return xb.new_zeros((*xb.shape[:-1], p.pw.M))
@@ -2548,10 +2745,11 @@ def packed_model_bytes(model) -> dict:
 
 def check_moe(torch, counters) -> dict:
     """Phase 10: the MoE FFN on llama4-scout-17b-a16e at its published
-    widths and depth (bf16, random weights from a seeded generator, packed
-    layer by layer): (a)-(b) `moe_kernel_checks`; (c) serving 8 greedy
-    requests (prompts 16-64, 16 new tokens, 4 slots) with impl="decode"
-    and "lookup" (same tokens), then chunk 64 + chain k 4, each with 8
+    widths, depth cut to MOE_LAYERS (bf16, random weights from a seeded
+    generator, packed layer by layer): (a)-(b) `moe_kernel_checks`; (c)
+    serving 8 greedy requests (prompts 16-64, 16 new tokens, 4 slots) with
+    impl="decode" and "lookup" (same tokens), then chunk 64 + chain k 4,
+    each with 8
     single and 4 grouped launches per layer per forward and no other
     mpGeMM kernel, every request completed; one prefill's logits through
     the kernels against the same prefill through their plain versions;
@@ -2567,21 +2765,23 @@ def check_moe(torch, counters) -> dict:
     from repro_torch.spec import SpecConfig
 
     t0 = time.perf_counter()
-    cfg = get_config(MOE_ARCH)
+    full = get_config(MOE_ARCH)
+    cfg = full.with_(n_layers=MOE_LAYERS, layers=full.layers[:MOE_LAYERS])
     torch.cuda.reset_peak_memory_stats()
     model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), packed=True)
     torch.cuda.synchronize()
     model_bytes = packed_model_bytes(model)
-    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "reduced": {"n_layers": [full.n_layers, cfg.n_layers]}, "d_model": cfg.d_model,
            "experts": cfg.moe.n_experts, "model_bytes": model_bytes,
            "build_s": time.perf_counter() - t0,
            "build_peak_bytes": torch.cuda.max_memory_allocated()}
-    log(f"moe: {cfg.name} {cfg.dtype}, {cfg.n_layers} layers, d {cfg.d_model}, "
+    log(f"moe: {cfg.name} {cfg.dtype}, {cfg.n_layers} of {full.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.moe.n_experts} experts d_ff {cfg.moe.d_ff_expert}, vocab {cfg.vocab}: built and "
         f"packed layer by layer in {out['build_s']:.1f} s (peak {out['build_peak_bytes'] / 2**30:.2f} "
         f"GiB); bytes {model_bytes}")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    out["kernels"] = moe_kernel_checks(torch, model, gen)
+    out["kernels"] = moe_kernel_checks(torch, model, cfg, gen)
 
     # (c) serving
     for impl in IMPLS:
@@ -2992,7 +3192,7 @@ def check_mla(torch, counters) -> dict:
     serving 8 greedy requests (prompts 16-64, 16 new tokens, 4 slots) with
     impl="decode" and "lookup" (same tokens), unfused with both impls (same
     tokens; each divergence from the fused run a near-tie or after a
-    routing flip, `fusion_divergence`), chunk 64 + chain k 4, and paged
+    routing flip, `fusion_divergences`), chunk 64 + chain k 4, and paged
     (page 16) whole-prompt, each with its launches counted per forward path
     and no other mpGeMM kernel, every request completed; one prefill's
     logits through the kernels against their plain versions, fused and
@@ -3054,9 +3254,10 @@ def check_mla(torch, counters) -> dict:
     if runs["unfused_decode"]["tokens"] != runs["unfused_lookup"]["tokens"]:
         raise AssertionError("mla: unfused impl=decode and impl=lookup emitted different tokens")
     # fused sums each segment in f32, unfused in int32: they part at a
-    # near-tie or after a routing flip (`fusion_divergence` raises otherwise)
-    divs = [fusion_divergence(torch, model, cfg, p, r, g) for p, r, g in
-            zip(prompts, runs["decode"]["tokens"], runs["unfused_decode"]["tokens"]) if r != g]
+    # near-tie or after a routing flip (`fusion_divergences` raises otherwise)
+    divs = fusion_divergences(torch, model, cfg, [
+        (p, r, g) for p, r, g in zip(prompts, runs["decode"]["tokens"],
+                                     runs["unfused_decode"]["tokens"]) if r != g])
     runs["unfused_decode"]["divergences"] = divs
     log(f"mla: unfused tokens equal between impls; {len(divs)}/8 requests leave the fused run's "
         "tokens: " + ", ".join(
@@ -3075,10 +3276,6 @@ def check_mla(torch, counters) -> dict:
         log(f"mla: {name}: rows per expert by step tokens {row['rows_per_expert']}; "
             f"{row['same_tokens_as_whole_prompt']}/8 requests emit the whole-prompt run's tokens "
             "(padding rows take capacity in a wide step, as in JAX)")
-    log("mla: decode tok/s by run, against the runs before decode_grouped_kernel (PERF.md section "
-        "6, NVIDIA H100 80GB HBM3, 700.00 W): " + ", ".join(
-            f"{name} {runs[name]['decode_tok_s']:.1f} (was {was})"
-            for name, was in MLA_DECODE_TOK_S_BEFORE.items()))
     out["serve"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in runs.items()}
 
     tok = torch.from_numpy(prompts[0][None, :]).cuda()
@@ -3153,10 +3350,12 @@ def layer_weights(layer) -> dict:
     return out
 
 
-def int_vs_plain(torch, weights, tokens, gen):
+def int_vs_plain(torch, weights, tokens, gen, memo=None):
     """Each integer kernel against its plain version at every weight's
     segments and token count N (the activations quantized and
-    de-interleaved as the unfused pipeline does); phases 5, 12 and 13.
+    de-interleaved as the unfused pipeline does); phases 5, 12, 13, 15, 20
+    and 21. `memo`: a set of the launch shapes (M, KG, g, N) checked
+    earlier in the run, skipped here, and this call's added to it.
     → ({name: max |diff|}, number of checks)."""
     from repro_torch.core import act_quant_tokens
     from repro_torch.kernels import ops
@@ -3168,6 +3367,8 @@ def int_vs_plain(torch, weights, tokens, gen):
         for n in tokens:
             a_q, _ = act_quant_tokens(torch.randn((k, n), generator=gen, device=dev) * 3.0)
             for packed, lo, hi, g in ops._segments(pw):
+                if seen(memo, ("int", m, packed.shape[1], g, n)):
+                    continue
                 a_r = ops._deinterleave(a_q[lo:hi], g)
                 for name, (kern, plain) in kernels.items():
                     got, want = kern(packed, a_r, g=g), plain(packed, a_r, g=g)
@@ -3303,48 +3504,71 @@ def head_ms(torch, model, cfg, slots: int = 4) -> dict:
             "table_bytes": table.numel() * table.element_size(), "tied": model.head is None}
 
 
-def new_arch_model(torch, arch: str):
-    """An architecture at its published widths and depth, random weights
-    from a seeded generator on the card, drawn and packed layer by layer.
-    → (cfg, model, facts)."""
+def new_arch_model(torch, arch: str, n_layers: int | None = None):
+    """An architecture at its published widths and depth (or its first
+    `n_layers` layers), random weights from a seeded generator on the card,
+    drawn and packed layer by layer. → (cfg, model, facts)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm
 
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full if n_layers is None else full.with_(n_layers=n_layers, layers=full.layers[:n_layers])
+    # an engine holds itself in a cycle (its wrapped `add`, `decode_once`):
+    # the models of earlier phases stay alive until the collector runs
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), packed=True)
     torch.cuda.synchronize()
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
            "model_bytes": packed_model_bytes(model), "build_s": time.perf_counter() - t0,
            "build_peak_bytes": torch.cuda.max_memory_allocated()}
-    log(f"{arch}: {cfg.dtype}, {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}: built "
-        f"and packed layer by layer in {out['build_s']:.1f} s (peak "
+    if cfg.n_layers != full.n_layers:
+        out["reduced"] = {"n_layers": [full.n_layers, cfg.n_layers]}
+    log(f"{arch}: {cfg.dtype}, {cfg.n_layers} of {full.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}: built and packed layer by layer in {out['build_s']:.1f} s (peak "
         f"{out['build_peak_bytes'] / 2**30:.2f} GiB); bytes {out['model_bytes']}")
     return cfg, model, out
 
 
-def new_arch_kernels(torch, model, label: str) -> dict:
-    """Phases 12 and 13 (a): kernels #1-#4 against their plain versions at
-    layer 0's BitLinear shapes, N in ODD_TOKENS (fused: f32, bf16 and
-    bf16 -> f32), expected difference 0; then one forward's launches timed
-    at N = DECODE_N (`forward_launch_ms`)."""
+def single_linears(modules) -> list:
+    """The PackedLinear modules of `modules` with one dense weight each (a
+    MoE layer's stacked experts left out), in order."""
+    return [lin for mod in modules for lin in packed_linears(mod) if lin.pw.packed5.ndim == 2]
+
+
+def new_arch_kernels(torch, model, label: str, layers=(0,), memo=None, timed_layers=None) -> dict:
+    """Phases 12, 13, 20 and 21 (a): kernels #1-#4 against their plain
+    versions at the BitLinear shapes of `layers` (dense weights), N in
+    ODD_TOKENS (fused: f32, bf16 and bf16 -> f32), expected difference 0,
+    skipping the launch shapes `memo` holds (checked earlier in the run);
+    then the launches of one forward (or of `timed_layers` alone: at d 8192
+    a whole forward's bf16 yardstick does not fit the card beside the
+    model) timed at N = DECODE_N (`forward_launch_ms`)."""
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    weights = layer_weights(model.layers[0])
-    fused_err, n_fused = fused_vs_plain(torch, fused_kernels(), weights, ODD_TOKENS, gen)
-    int_err, n_int = int_vs_plain(torch, weights, ODD_TOKENS, gen)
+    weights = {}
+    for lin in single_linears(model.layers[i] for i in layers):
+        weights.setdefault((lin.pw.M, lin.pw.K), lin.pw)
+    fused_err, n_fused = fused_vs_plain(torch, fused_kernels(), weights, ODD_TOKENS, gen, memo=memo)
+    int_err, n_int = int_vs_plain(torch, weights, ODD_TOKENS, gen, memo=memo)
     err = {**fused_err, **int_err}
     segs = {f"{m}x{k}": [[int(p.shape[1]), g] for p, _, _, g in ops._segments(pw)]
             for (m, k), pw in weights.items()}
-    log(f"{label}: {n_fused + n_int} kernel-vs-plain checks at (M, K) {sorted(weights)} "
-        f"(segments [KG, g]: {segs}), N {ODD_TOKENS}: max |diff| {err}")
+    log(f"{label}: {n_fused + n_int} kernel-vs-plain checks at (M, K) {sorted(weights)} of "
+        f"layers {tuple(layers)} (segments [KG, g]: {segs}), N {ODD_TOKENS}, the launch shapes "
+        f"not checked earlier in the run: max |diff| {err}")
     for name, e in err.items():
         if e != 0:
             raise AssertionError(f"{label}: {name} differs from its plain version by {e} (expected 0)")
-    row = forward_launch_ms(torch, packed_linears(model), DECODE_N, gen)
-    log(f"{label}: one forward's {row['launches']} launches at N={DECODE_N}: bound "
+    timed = single_linears([model] if timed_layers is None else
+                           [model.layers[i] for i in timed_layers])
+    row = forward_launch_ms(torch, timed, DECODE_N, gen)
+    row["layers"] = None if timed_layers is None else list(timed_layers)
+    what = "one forward's" if timed_layers is None else f"layers {tuple(timed_layers)}:"
+    log(f"{label}: {what} {row['launches']} launches at N={DECODE_N}: bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
         + ", ".join(f"{nm} {row[nm]['ms']:.4f} ms (plain {row[nm]['plain_ms']:.4f})"
                     for nm in fused_kernels())
@@ -3353,39 +3577,45 @@ def new_arch_kernels(torch, model, label: str) -> dict:
             "segments": segs, "forward_ms": row}
 
 
+def windowed(cfg) -> bool:
+    return any(sp.window for sp in cfg.layer_specs())
+
+
 def new_arch_prompts(cfg, seed: int) -> list:
-    """8 prompts: 6 of 16-64 tokens and, second and sixth, two of the
-    architecture's LONG_PROMPTS lengths."""
+    """8 prompts: 6 of 16-64 tokens and, second and sixth, two long ones
+    (LONG_PROMPT; past the window where the architecture has one)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     lens = [int(rng.integers(16, 65)) for _ in range(8)]
-    lens[1], lens[5] = (int(rng.integers(*LONG_PROMPTS[cfg.name])) for _ in range(2))
+    long = WINDOW_LONG_PROMPT if windowed(cfg) else LONG_PROMPT
+    lens[1], lens[5] = (int(rng.integers(*long)) for _ in range(2))
     return [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in lens]
 
 
 def new_arch_serving(torch, model, cfg, counters, label: str, seed: int) -> tuple:
-    """Phases 12 and 13 (b), (d), (f): 8 greedy requests (6 prompts of
-    16-64 tokens, two long ones), 4 slots, 16 new tokens each, through
+    """Phases 12, 13, 20 and 21 (b), (d), (f): 8 greedy requests (6 prompts
+    of 16-64 tokens, two long ones), 4 slots, 16 new tokens each, through
     fused decode, fused lookup and unfused decode, each run's counts zeroed
-    just before it and checked per forward (LAUNCHES_PER_LAYER, no other
-    mpGeMM kernel); decode and lookup emit the same tokens, unfused the
-    same or leaves them where the pipelines' rounding explains it
-    (`fusion_divergence`, rounding rule); one prefill's logits (the
-    longest prompt) through the kernels against their plain versions,
-    fused and unfused, and fused against unfused. → (rows, prompts)."""
+    just before it and checked per forward (the model's launches equal to
+    those reckoned from its config, `reckoned_launches`; no other mpGeMM
+    kernel); decode and lookup emit the same tokens, unfused the same or
+    leaves them where the pipelines' rounding or a routing flip explains
+    it (`fusion_divergences`); one prefill's logits (the longest prompt)
+    through the kernels against their plain versions, fused and unfused,
+    and fused against unfused. → (rows, prompts)."""
     from repro_torch.kernels import ops
     from repro_torch.models import init_cache, prefill
 
-    arch, max_len = cfg.name, NEW_MAX_LEN[cfg.name]
-    per_layer = LAUNCHES_PER_LAYER[arch]
+    max_len = WINDOW_MAX_LEN if windowed(cfg) else NEW_MAX_LEN
     prompts = new_arch_prompts(cfg, seed)
     for impl, fusion in (("decode", "fused"), ("lookup", "fused"), ("decode", "unfused")):
-        single = single_kernel(impl, fusion)
-        got = launches_per_forward(model, impl, fusion)
-        if got != {single: per_layer * cfg.n_layers}:
-            raise AssertionError(f"{label}: launches per forward {got}, expected {per_layer} "
-                                 f"per layer, {per_layer * cfg.n_layers}")
+        got, want = launches_per_forward(model, impl, fusion), reckoned_launches(cfg, impl, fusion)
+        if got != want:
+            raise AssertionError(f"{label}: launches per forward {got}, reckoned from the config "
+                                 f"{want}")
+    log(f"{label}: launches per forward {launches_per_forward(model, 'decode')}, as reckoned from "
+        "the config")
     runs = {}
     for name, impl, fusion in (("decode", "decode", "fused"), ("lookup", "lookup", "fused"),
                                ("unfused", "decode", "unfused")):
@@ -3393,23 +3623,22 @@ def new_arch_serving(torch, model, cfg, counters, label: str, seed: int) -> tupl
                                  impl=impl, fusion=fusion, max_len=max_len)
     if runs["decode"]["tokens"] != runs["lookup"]["tokens"]:
         raise AssertionError(f"{label}: impl=decode and impl=lookup emitted different greedy tokens")
-    # unfused leaves fused only where the model's rounding sensitivity
-    # explains it (`fusion_divergence` against an f32 copy raises otherwise)
+    # unfused leaves fused only at a near-tie, after a routing flip or where
+    # the model's rounding sensitivity explains it (`fusion_divergences`
+    # raises otherwise)
     pairs = [(p, r, g) for p, r, g in zip(prompts, runs["decode"]["tokens"],
                                           runs["unfused"]["tokens"]) if g != r]
-    divs = []
-    if pairs:
-        f32_model = copy.deepcopy(model).float()
-        divs = [fusion_divergence(torch, model, cfg, p, r, g, max_len, f32_model=f32_model)
-                for p, r, g in pairs]
-        del f32_model
-        torch.cuda.empty_cache()
+    divs = fusion_divergences(torch, model, cfg, pairs, max_len, f32=True)
     log(f"{label} unfused: greedy tokens "
         + ("equal the fused run's" if not divs else
            f"leave the fused run's in {len(divs)}/8 requests at: " + ", ".join(
-               f"step {d['step']} (gap {d['gap']:.2e}; pipelines' logits {d['logits_max_abs_diff']:.2e}"
-               f" apart, fused bf16 {d['bf16_vs_f32_max_abs_diff']:.2e} from its f32 copy; of "
-               f"{d['max_abs_logit']:.3f})" for d in divs)))
+               f"step {d['step']} (gap {d['gap']:.2e} of {d['max_abs_logit']:.3f}"
+               + (", a near-tie" if d["near_tie"] else "")
+               + f"; pipelines' logits {d['logits_max_abs_diff']:.2e} apart"
+               + (f", fused bf16 {d['bf16_vs_f32_max_abs_diff']:.2e} from its f32 copy"
+                  if "bf16_vs_f32_max_abs_diff" in d else "")
+               + f"; {d['routing_flips']} of {d['routed_tokens']} routed tokens flipped "
+               "before it)" for d in divs)))
     out = {"prompt_lens": [len(p) for p in prompts], "max_len": max_len,
            "serve": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in runs.items()},
            "unfused_divergences": divs}
@@ -3539,17 +3768,22 @@ def ssm_layer_ms(torch, model, cfg, slots: int = 4) -> dict:
             "codes_bound_ms": codes / HBM_BYTES_S * 1e3}
 
 
-def ssm_consistency(torch, model, cfg, prompt) -> dict:
-    """Phase 12 (c): prefill(n - 1) + decode_step against the last position
-    of one prefill of n (SSM_DECODE_TOL, rtol and atol); and the chunked
-    scan at full width (B 1, S SSM_SCAN_LEN over chunks of 64 with a padded
-    last chunk, layer 0's A = -(1..64), dt = softplus(dt_bias + noise), so
-    the masked decays overflow) against the sequential recurrence in f64
-    on the card (SSM_SCAN_TOL, rtol and atol)."""
+def ssm_consistency(torch, model, cfg, prompt, label: str = "ssm") -> dict:
+    """Phases 12 and 20 (c): prefill(n - 1) + decode_step against the last
+    position of one prefill of n (SSM_DECODE_TOL, rtol and atol), MoE
+    layers dropless (capacity n: a token the n-token prefill drops at
+    capacity 1.25 would part the two for no fault of the SSM); and the
+    chunked scan at full width (B 1, S SSM_SCAN_LEN over chunks of 64 with
+    a padded last chunk, layer 0's A = -exp(A_log), dt = softplus(dt_bias +
+    noise), so the masked decays overflow) against the sequential
+    recurrence in f64 on the card (SSM_SCAN_TOL, rtol and atol)."""
     from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.models.ssm import _ssd_chunked
 
     dev, n, sc = torch.device("cuda"), len(prompt), cfg.ssm
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     tok = torch.from_numpy(prompt[None, :]).to(dev)
     with torch.no_grad():
         want, _ = prefill(model, tok, init_cache(cfg, 1, n, device=dev), cfg)
@@ -3560,11 +3794,12 @@ def ssm_consistency(torch, model, cfg, prompt) -> dict:
     out = {"decode": {"tokens": n, "max_abs_diff": (got - want).abs().max().item(),
                       "max_abs_logit": want.abs().max().item(), "rtol_atol": SSM_DECODE_TOL,
                       "argmax": [int(got.argmax()), int(want.argmax())]}}
-    log(f"ssm: prefill({n - 1}) + decode_step vs prefill({n}): max |diff| "
+    log(f"{label}: prefill({n - 1}) + decode_step vs prefill({n}): max |diff| "
         f"{out['decode']['max_abs_diff']:.5f} of max |logit| {out['decode']['max_abs_logit']:.4f} "
         f"(rtol = atol = {SSM_DECODE_TOL}), argmax {out['decode']['argmax']}")
     if excess > 0:
-        raise AssertionError(f"ssm: decode after prefill leaves the one-pass prefill: {out['decode']}")
+        raise AssertionError(f"{label}: decode after prefill leaves the one-pass prefill: "
+                             f"{out['decode']}")
 
     gen = torch.Generator(device=dev).manual_seed(6)
     mixer, s, h, p_, ns = model.layers[0].mixer, SSM_SCAN_LEN, sc.n_heads, sc.head_dim, sc.d_state
@@ -3593,45 +3828,51 @@ def ssm_consistency(torch, model, cfg, prompt) -> dict:
                    "state_max_abs_diff": (hf.double() - st).abs().max().item(),
                    "state_max_abs": st.abs().max().item(), "rtol_atol": SSM_SCAN_TOL,
                    "first_chunk_max_decay_exponent": max_decay}
-    log(f"ssm: chunked scan (S {s}, chunk {sc.chunk}, H {h}, P {p_}, N {ns}; the first chunk's "
+    log(f"{label}: chunked scan (S {s}, chunk {sc.chunk}, H {h}, P {p_}, N {ns}; the first chunk's "
         f"largest summed decay exponent {max_decay:.1f}) vs the f64 recurrence: y max |diff| "
         f"{out['scan']['y_max_abs_diff']:.2e} of {out['scan']['y_max_abs']:.3f}, state max |diff| "
         f"{out['scan']['state_max_abs_diff']:.2e} of {out['scan']['state_max_abs']:.3f} "
         f"(rtol = atol = {SSM_SCAN_TOL})")
     if not out["scan"]["finite"] or max(gaps) > 0:
-        raise AssertionError(f"ssm: the chunked scan leaves the recurrence: {out['scan']}")
+        raise AssertionError(f"{label}: the chunked scan leaves the recurrence: {out['scan']}")
     return out
 
 
-def check_ssm(torch, counters) -> dict:
+def ssm_share(torch, model, cfg, prof: dict, label: str) -> None:
+    """Phases 12 and 20 (e): `ssm_layer_ms` on layer 0, into the decode
+    profile `prof`, and the SSM layers' own ops' share of its device time."""
+    prof["ssm_layer"] = layer = ssm_layer_ms(torch, model, cfg)
+    n_ssm = sum(sp.mixer == "ssm" for sp in cfg.layer_specs())
+    dev_ms = prof["device_ms_per_step"]
+    prof["ssm_own_ops_ms_per_step"] = layer["own_ops_ms"] * n_ssm
+    prof["ssm_own_ops_share"] = prof["ssm_own_ops_ms_per_step"] / dev_ms if dev_ms else None
+    log(f"{label}: one SSM layer at 4 slots {layer['layer_ms']:.4f} ms: its own ops (conv, "
+        f"recurrence, gated norm) {layer['own_ops_ms']:.4f} ms (f32 state {layer['state_bytes_read_and_written']} "
+        f"bytes read and written, bound {layer['state_bound_ms']:.4f} ms), its two BitLinears "
+        f"{layer['linears_ms']:.4f} ms (codes {layer['codes_bytes']} bytes, bound "
+        f"{layer['codes_bound_ms']:.4f} ms); own ops x {n_ssm} SSM layers "
+        f"{prof['ssm_own_ops_ms_per_step']:.3f} ms a step"
+        + (f" ({100 * prof['ssm_own_ops_share']:.1f}% of device time)"
+           if prof["ssm_own_ops_share"] is not None else ""))
+
+
+def check_ssm(torch, counters, memo) -> dict:
     """Phase 12: the SSM mixer on mamba2-1.3b at its published widths and
     depth (48 layers, d 2048, d_inner 4096, 64 heads x 64, d_state 128,
     chunk 64, vocab 50280, bf16, tied head): (a) `new_arch_kernels` at
     in_proj (M 8512, K 2048) and out_proj (M 2048, K 4096); (b) and (d)
     `new_arch_serving` (exact-length prefill, 4 launches a layer, 192 a
     forward); (c) `ssm_consistency`; (e) `new_arch_profile` and
-    `ssm_layer_ms`; (f) tok/s and TTFT p50 in the serving rows."""
+    `ssm_share`; (f) tok/s and TTFT p50 in the serving rows."""
     t0 = time.perf_counter()
     cfg, model, out = new_arch_model(torch, SSM_ARCH)
-    out["kernels"] = new_arch_kernels(torch, model, "ssm")
+    out["kernels"] = new_arch_kernels(torch, model, "ssm", memo=memo)
     serving, prompts = new_arch_serving(torch, model, cfg, counters, "ssm", seed=12)
     out.update(serving)
     out["rounding_sensitivity"] = rounding_sensitivity(torch, model, cfg, prompts[0], "ssm")
     out["consistency"] = ssm_consistency(torch, model, cfg, max(prompts, key=len))
-    prof = new_arch_profile(torch, model, cfg, prompts, "ssm")
-    prof["ssm_layer"] = layer = ssm_layer_ms(torch, model, cfg)
-    dev_ms = prof["device_ms_per_step"]
-    prof["ssm_own_ops_ms_per_step"] = layer["own_ops_ms"] * cfg.n_layers
-    prof["ssm_own_ops_share"] = prof["ssm_own_ops_ms_per_step"] / dev_ms if dev_ms else None
-    out["decode_profile"] = prof
-    log(f"ssm: one SSM layer at 4 slots {layer['layer_ms']:.4f} ms: its own ops (conv, "
-        f"recurrence, gated norm) {layer['own_ops_ms']:.4f} ms (f32 state {layer['state_bytes_read_and_written']} "
-        f"bytes read and written, bound {layer['state_bound_ms']:.4f} ms), its two BitLinears "
-        f"{layer['linears_ms']:.4f} ms (codes {layer['codes_bytes']} bytes, bound "
-        f"{layer['codes_bound_ms']:.4f} ms); own ops x {cfg.n_layers} layers "
-        f"{prof['ssm_own_ops_ms_per_step']:.3f} ms a step"
-        + (f" ({100 * prof['ssm_own_ops_share']:.1f}% of device time)"
-           if prof["ssm_own_ops_share"] is not None else ""))
+    out["decode_profile"] = new_arch_profile(torch, model, cfg, prompts, "ssm")
+    ssm_share(torch, model, cfg, out["decode_profile"], "ssm")
     out["seconds"] = time.perf_counter() - t0
     log(f"ssm: phase 12 took {out['seconds']:.1f} s")
     del model
@@ -3647,7 +3888,7 @@ def ring_check(torch, model, cfg, prompt, steps: int = 16) -> dict:
     logit)."""
     from repro_torch.models import decode_step, init_cache, lm_hidden, lm_logits, prefill_into_slot
 
-    dev, max_len = torch.device("cuda"), NEW_MAX_LEN[cfg.name]
+    dev, max_len = torch.device("cuda"), WINDOW_MAX_LEN
     seq = [int(t) for t in prompt]
     with torch.no_grad():
         row, cache, _ = prefill_into_slot(model, init_cache(cfg, 1, max_len, device=dev), 0,
@@ -3673,7 +3914,7 @@ def ring_check(torch, model, cfg, prompt, steps: int = 16) -> dict:
     return out
 
 
-def check_windowed(torch, counters) -> dict:
+def check_windowed(torch, counters, memo) -> dict:
     """Phase 13: gemma3-1b at its published widths and depth (26 layers, d
     1152, 4 heads / 1 KV head of 256, d_ff 6912, vocab 262144, window 512 on
     5 of every 6 layers, dual RoPE, q/k norms, embedding scale, tied head):
@@ -3683,7 +3924,7 @@ def check_windowed(torch, counters) -> dict:
     f32 head's device ms on its own."""
     t0 = time.perf_counter()
     cfg, model, out = new_arch_model(torch, WINDOW_ARCH)
-    out["kernels"] = new_arch_kernels(torch, model, "gemma3")
+    out["kernels"] = new_arch_kernels(torch, model, "gemma3", memo=memo)
     serving, prompts = new_arch_serving(torch, model, cfg, counters, "gemma3", seed=13)
     out.update(serving)
     out["rounding_sensitivity"] = rounding_sensitivity(torch, model, cfg, prompts[0], "gemma3")
@@ -3693,6 +3934,94 @@ def check_windowed(torch, counters) -> dict:
     log(f"gemma3: phase 13 took {out['seconds']:.1f} s")
     del model
     torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phases 20 and 21: the hybrid jamba and the other dense GQA architectures
+# --------------------------------------------------------------------------
+def check_hybrid(torch, counters, memo) -> dict:
+    """Phase 20: jamba-1.5-large-398b at its published widths (d 8192, 64
+    heads / 8 KV heads of 128, SSM d_inner 16384 in 256 heads of 64 with
+    d_state 16, 16 experts top-2 of d_ff 24576, dense d_ff 24576, vocab
+    65536, bf16, untied head), depth cut to one period of its pattern
+    (HYBRID_LAYERS): (a) `new_arch_kernels` at layer 0 (SSM in_proj M
+    33056, out_proj K 16384, dense FFN) and layer 3 (attention), their
+    launches timed; `moe_kernel_checks` at layer 1's experts, C at
+    HYBRID_CAPACITY_TOKENS, timed at HYBRID_TIME_TOKENS; (b) and (d)
+    `new_arch_serving` (exact-length prefill; 60 single and 24 grouped
+    launches a forward); (c) `ssm_consistency` at 256 heads, and the
+    rounding sensitivity where unfused leaves fused; (e)
+    `new_arch_profile`, `ssm_share` and one MoE layer's dispatch
+    (`moe_dispatch_ms`)."""
+    from repro_torch.models.moe import capacity
+
+    t0 = time.perf_counter()
+    cfg, model, out = new_arch_model(torch, HYBRID_ARCH, n_layers=HYBRID_LAYERS)
+    out["kernels"] = new_arch_kernels(torch, model, "jamba", layers=HYBRID_CHECK_LAYERS, memo=memo,
+                                      timed_layers=HYBRID_CHECK_LAYERS)
+    out["grouped"] = moe_kernel_checks(
+        torch, model, cfg, torch.Generator(device="cuda").manual_seed(20), layer=HYBRID_MOE_LAYER,
+        caps=[capacity(t, cfg) for t in HYBRID_CAPACITY_TOKENS],
+        time_caps=[capacity(t, cfg) for t in HYBRID_TIME_TOKENS], traps=False, label="jamba")
+    serving, prompts = new_arch_serving(torch, model, cfg, counters, "jamba", seed=20)
+    for row in serving["serve"].values():
+        row["rows_per_expert"] = {int(n): capacity(int(n), cfg) for n in row["mpgemm_tokens_per_launch"]}
+    out.update(serving)
+    if out["unfused_divergences"]:
+        out["rounding_sensitivity"] = rounding_sensitivity(torch, model, cfg, prompts[0], "jamba")
+    out["consistency"] = ssm_consistency(torch, model, cfg, max(prompts, key=len), "jamba")
+    prof = new_arch_profile(torch, model, cfg, prompts, "jamba")
+    ssm_share(torch, model, cfg, prof, "jamba")
+    n_moe = sum(sp.ffn == "moe" for sp in cfg.layer_specs())
+    prof["moe_layer"] = ml = moe_dispatch_ms(torch, model, cfg, tokens=DECODE_N, layer=HYBRID_MOE_LAYER)
+    prof["moe_dispatch_ms_per_step"] = ml["dispatch_ms"] * n_moe
+    prof["moe_dispatch_share"] = (prof["moe_dispatch_ms_per_step"] / prof["device_ms_per_step"]
+                                  if prof["device_ms_per_step"] else None)
+    log(f"jamba: one MoE layer at {DECODE_N} tokens {ml['layer_ms']:.4f} ms: its dispatch alone "
+        f"{ml['dispatch_ms']:.4f} ms, its expert compute alone {ml['expert_compute_ms']:.4f} ms on "
+        f"random rows, {ml['expert_compute_zero_rows_ms']:.4f} ms on the layer's own rows "
+        f"({ml['real_rows']} of {cfg.moe.n_experts} x {ml['rows_per_expert']} real); dispatch x "
+        f"{n_moe} layers {prof['moe_dispatch_ms_per_step']:.3f} ms a step"
+        + (f" ({100 * prof['moe_dispatch_share']:.1f}% of device time)"
+           if prof["moe_dispatch_share"] is not None else ""))
+    out["decode_profile"] = prof
+    out["seconds"] = time.perf_counter() - t0
+    log(f"jamba: phase 20 took {out['seconds']:.1f} s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_dense_archs(torch, counters, memo) -> dict:
+    """Phase 21: internlm2-1.8b (24 layers, d 2048, 16 heads / 8 KV of 128,
+    d_ff 8192, vocab 92544), command-r-35b (40 layers, d 8192, 64 / 8 of
+    128, d_ff 22528, vocab 256000, tied head) and chameleon-34b (48 layers,
+    d 8192, 64 / 8 of 128, d_ff 22016, vocab 65536, q/k norms), each at its
+    published widths and depth, built and freed one at a time: (a)
+    `new_arch_kernels` at layer 0's shapes (those checked earlier in the
+    run skipped), layer 0's launches timed; (b) and (d) `new_arch_serving`
+    (14 launches a layer: 336, 560 and 672 a forward), and the rounding
+    sensitivity where unfused leaves fused; (e) `new_arch_profile`, with
+    the f32 head's device ms (command-r's casts its 256000 x 8192 table
+    each step) and share. → {arch: rows}."""
+    out = {}
+    for i, arch in enumerate(DENSE_ARCHS):
+        t0 = time.perf_counter()
+        cfg, model, row = new_arch_model(torch, arch)
+        row["kernels"] = new_arch_kernels(torch, model, arch, memo=memo, timed_layers=(0,))
+        serving, prompts = new_arch_serving(torch, model, cfg, counters, arch, seed=21 + i)
+        row.update(serving)
+        if row["unfused_divergences"]:
+            row["rounding_sensitivity"] = rounding_sensitivity(torch, model, cfg, prompts[0], arch)
+        row["decode_profile"] = new_arch_profile(torch, model, cfg, prompts, arch)
+        row["seconds"] = time.perf_counter() - t0
+        log(f"{arch}: {row['seconds']:.1f} s")
+        out[arch] = row
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5359,6 +5688,24 @@ def check_lint(torch, counters, prompts, steps_ctx) -> dict:
     return out
 
 
+def launch_counters() -> dict:
+    """{name: kernel wrapper} of every kernel: each wrapper counts its
+    launches in its `launches` attribute."""
+    from repro_torch.kernels import ternary_decode_gemm as tdg
+    from repro_torch.kernels import vlut_lookup_gemm as vlg
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    return {"ternary_decode_gemm_fused": tdg.ternary_decode_gemm_fused,
+            "vlut_lookup_gemm_fused": vlg.vlut_lookup_gemm_fused,
+            "ternary_decode_gemm_fused_grouped": tdg.ternary_decode_gemm_fused_grouped,
+            "vlut_lookup_gemm_fused_grouped": vlg.vlut_lookup_gemm_fused_grouped,
+            "ternary_decode_gemm": tdg.ternary_decode_gemm,
+            "vlut_lookup_gemm": vlg.vlut_lookup_gemm,
+            "ternary_decode_gemm_grouped": tdg.ternary_decode_gemm_grouped,
+            "vlut_lookup_gemm_grouped": vlg.vlut_lookup_gemm_grouped,
+            "flash_attention": flash_attention}
+
+
 def main() -> int:
     import torch
 
@@ -5371,17 +5718,6 @@ def main() -> int:
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build, autotune
         from repro_torch.kernels import ternary_decode_gemm as tdg
-        from repro_torch.kernels import vlut_lookup_gemm as vlg
-        from repro_torch.kernels.flash_attention import flash_attention
-        from repro_torch.kernels.ternary_decode_gemm import (
-            ternary_decode_gemm,
-            ternary_decode_gemm_fused,
-        )
-        from repro_torch.kernels.vlut_lookup_gemm import (
-            vlut_lookup_gemm,
-            vlut_lookup_gemm_fused,
-            vlut_lookup_gemm_fused_grouped,
-        )
         from repro_torch.models import init_cache, init_lm, pack_params, prefill
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})", file=sys.stderr)
@@ -5443,15 +5779,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(16, 65))).astype(np.int32)
                for _ in range(8)]
-    counters = {"ternary_decode_gemm_fused": ternary_decode_gemm_fused,
-                "vlut_lookup_gemm_fused": vlut_lookup_gemm_fused,
-                "ternary_decode_gemm_fused_grouped": tdg.ternary_decode_gemm_fused_grouped,
-                "vlut_lookup_gemm_fused_grouped": vlut_lookup_gemm_fused_grouped,
-                "ternary_decode_gemm": ternary_decode_gemm,
-                "vlut_lookup_gemm": vlut_lookup_gemm,
-                "ternary_decode_gemm_grouped": tdg.ternary_decode_gemm_grouped,
-                "vlut_lookup_gemm_grouped": vlg.vlut_lookup_gemm_grouped,
-                "flash_attention": flash_attention}
+    counters = launch_counters()
     runs = {}
     for name, meta in KERNEL_META.items():
         if meta["fusion"] != "fused":
@@ -5530,15 +5858,23 @@ def main() -> int:
 
     # 12. SSM: mamba2-1.3b at full width and depth; 13. windowed GQA:
     # gemma3-1b at full width and depth (each model freed after its phase)
-    ssm = check_ssm(torch, counters)
+    checked = set()          # launch shapes held to their plain versions in phases 12-21
+    ssm = check_ssm(torch, counters, checked)
     phase_done("12")
-    windowed = check_windowed(torch, counters)
+    windowed = check_windowed(torch, counters, checked)
     phase_done("13")
 
     # 15. the encoder-decoder: whisper-medium at full width and depth, its
     # serving steps and its QAT training (its model freed before phase 6)
     encdec = check_encdec(torch, counters)
     phase_done("15")
+
+    # 20. the hybrid jamba, one period at published widths; 21. the three
+    # other dense GQA archs at full size (each model freed after its run)
+    hybrid = check_hybrid(torch, counters, checked)
+    phase_done("20")
+    dense_archs = check_dense_archs(torch, counters, checked)
+    phase_done("21")
 
     # 6. flash
     flash = check_flash(torch)
@@ -5579,8 +5915,8 @@ def main() -> int:
             row = unfused["per_tokens"][DECODE_N]
             launches, err = unfused["serve"][meta["impl"]]["launches"], unfused["max_abs_err"]
             library_ms = row["library"]["ms"]
-        err = max(err[name], ssm["kernels"]["max_abs_err"][name],
-                  windowed["kernels"]["max_abs_err"][name], encdec["kernels"]["max_abs_err"][name])
+        err = max([err[name]] + [r["kernels"]["max_abs_err"][name] for r in (
+            ssm, windowed, encdec, hybrid, *dense_archs.values())])
         return {"name": name, "route": "cuda", "source": meta["source"],
                 "replaces": meta["replaces"], "launches": launches[name],
                 "max_abs_err": float(err), "ms": row[name]["ms"],
@@ -5592,14 +5928,16 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": meta["source"],
                 "replaces": meta["replaces"],
                 "launches": moe["serve"][meta["impl"]]["launches"][name],
-                "max_abs_err": float(moe["kernels"]["max_abs_err"][name]),
+                "max_abs_err": float(max(moe["kernels"]["max_abs_err"][name],
+                                         hybrid["grouped"]["max_abs_err"][name])),
                 "ms": layer[name]["ms"], "plain_ms": layer[name]["plain_ms"],
                 "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"],
                 "library_ms": layer["library_ms"]}
 
     def grouped_int_row(name, meta):
         layer = mla["kernels"]["per_layer"]["int"]
-        err = max(moe["kernels"]["max_abs_err"][name], mla["kernels"]["max_abs_err"][name])
+        err = max(moe["kernels"]["max_abs_err"][name], mla["kernels"]["max_abs_err"][name],
+                  hybrid["grouped"]["max_abs_err"][name])
         return {"name": name, "route": "cuda", "source": meta["source"],
                 "replaces": meta["replaces"],
                 "launches": mla["serve"][f"unfused_{meta['impl']}"]["launches"][name],
@@ -5624,7 +5962,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
-        "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches (unfused pipelines: 224 BitLinears); grouped mpGeMM: one llama4-scout MoE layer's 4 grouped launches at C = 4 rows per expert; grouped integer mpGeMM: one deepseek-v3 MoE layer's 6 grouped launches at C = 16 (plain_ms eager); compare: one call at (M, K) = (2560, 960); flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
+        "card": card, "kind": kind, "timing_unit": "mpGeMM: one forward, 224 BitLinear launches (unfused pipelines: 224 BitLinears); grouped mpGeMM: one llama4-scout MoE layer's 4 grouped launches at C = 4 rows per expert (plain_ms eager); grouped integer mpGeMM: one deepseek-v3 MoE layer's 6 grouped launches at C = 16 (plain_ms eager); compare: one call at (M, K) = (2560, 960); flash: one launch at the training shape; ms/plain_ms/library_ms device time (CUDA graph replay), eager_ms between events around eager launches",
         "per_tokens": per_n, "splitk_fused_traps": fused_traps,
         "decode_plans": {n: [plan_row(decode_plan_for(tdg, m, k // 5, n, 5)) for m, k in SHAPES]
                          for n in TOKENS},
@@ -5641,6 +5979,7 @@ def main() -> int:
         "paged": paged,
         "obs": observed,
         "moe": moe, "mla": mla, "ssm": ssm, "windowed": windowed, "encdec": encdec,
+        "hybrid": hybrid, "dense_archs": dense_archs,
         "flash": flash, "train": trained, "dist": dist_out, "autotune": tuned,
         "steps": steps, "lint": linted,
         "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start,

@@ -5,7 +5,7 @@ ten of the JAX package, whisper-medium's included) equal to JAX's field by
 field, prefill and decode logits of the packed models
 (JAX's Pallas decode kernel interpreted, the port's plain version) over
 gemma3's window of 16 (the ring cache wraps), dual RoPE bases, q/k norms,
-the embedding scale and tied and untied heads, gemma3's greedy
+the embedding scale and tied and untied heads, the four models' greedy
 whole-prompt serving against the JAX engine, and the engine's refusals of
 windowed layers with JAX's texts.
 
@@ -120,13 +120,13 @@ def test_prefill_and_decode_match_jax(packed, arch):
 
 
 # --------------------------------------------------------------------------
-# Serving gemma3's smoke model against the JAX engine
+# Serving the four dense smoke models against the JAX engine
 # --------------------------------------------------------------------------
 _STATS = ("prefill_tokens", "prefill_pad_tokens", "decode_tokens", "decode_steps", "chunk_steps",
           "spec_steps", "spec_slot_steps", "spec_skipped_steps", "drafted_tokens",
           "accepted_tokens", "verified_nodes", "completed", "rejected",
           "prefix_hit_tokens", "prefix_hit_requests")
-#: 19, 34 and 25 tokens wrap the ring of 16 in prefill, every prompt in decode
+#: 19, 34 and 25 tokens wrap gemma3's ring of 16 in prefill, every prompt in decode
 SERVE_LENS = (7, 19, 34, 4, 25)
 
 
@@ -138,11 +138,12 @@ def _serve(pkg, eng, prompts, max_new=14):
     return [r.generated for r in reqs], sched.run_to_completion()
 
 
-def test_gemma3_engine_matches_jax(packed):
+@pytest.mark.parametrize("arch", DENSE)
+def test_engine_matches_jax(packed, arch):
     """Greedy whole-prompt serving in f32 with 3 slots and 14 new tokens:
     the port's engine emits the JAX engine's tokens exactly and every
     ServeStats counter matches."""
-    jcfg, tcfg, params, model = packed("gemma3-1b")
+    jcfg, tcfg, params, model = packed(arch)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jcfg.vocab, size=n).astype(np.int32) for n in SERVE_LENS]
     common = dict(max_slots=3, max_len=64, mpgemm_impl="decode")
