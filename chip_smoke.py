@@ -37,7 +37,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    new tokens each), once with impl="decode" and once with impl="lookup".
    Checks: every request completes; each kernel was launched exactly 224
    times per forward (32 layers x 7 BitLinears) in its run and never in the
-   other (nor any integer kernel); both runs emit the same greedy tokens;
+   other (nor any integer kernel), counted by the wrappers and, equal, by
+   the kernel records of a device-only trace of the run (graph replays
+   included: these are the kernels line's `launches`; every serving run of
+   phases 5-21 holds its counts to such a trace too); both runs emit the
+   same greedy tokens;
    the prefill logits of one prompt on the card agree with the same
    weights run on the CPU (plain path) within a stated bf16 tolerance.
 5. unfused: the unfused pipeline (quantize into int8, de-interleave copy,
@@ -469,6 +473,30 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    profile with the f32 head's device ms and share (command-r's casts its
    256000 x 8192 tied table to f32 each step, as the JAX package does).
    Rows under `dense_archs`.
+22. step graphs (`repro_torch.serve.graphs`): every engine of phases 4-21
+   replays its per-tick steps (decode, the chunk step, verify, compact, a
+   ModelDrafter's decode and verify) as CUDA graphs, captured once per
+   shape after one eager call, the cache donated; phase 15's decode steps
+   replay through a `StepGraphs` too. The profiles that read host ops'
+   device time (phases 4, 9, 10, 11) and phase 14 (one dispatch span per
+   call) run eagerly. Phase 22 holds graphed serving against eager
+   serving on each model while it is loaded: smollm-360m after phase 14
+   (whole-prompt decode, chunk 64, chain k 4, tree (2, 2), paged with
+   chunk 64 and chain k 4), deepseek-v3 at phase 11's depth, mamba2
+   (phase 12: the SSM state written back), gemma3 (phase 13: prompts past
+   the window), whisper-medium's `launch.steps` decode (phase 15: the
+   cross K/V) and command-r-35b (phase 21: d 8192). Each runs the same
+   seeded requests eager, then graphed, greedy and at temperature 0.7
+   (whisper: greedy), after warm-up requests: identical tokens, equal
+   launches per tick as a device-only trace counts them (a marker kernel
+   ends each tick; each run's wrapper counts must be the trace's), no
+   capture after the warm-up, every input upload and replay under the
+   sync debug mode's "error" (no host sync; a planted one is caught),
+   device memory back to its baseline once the engine is dropped; decode
+   tok/s, decode-step ms (both with the trace on) and (torch.profiler,
+   one step of 4 full slots) wall, device and busy share, graphed and
+   eager, logged in one table at the end beside the card's name and
+   power limit. Rows under `graphs`.
 
 Each log line starts with the seconds since the script began; each
 phase's seconds are logged and kept under `phase_seconds`.
@@ -482,6 +510,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -774,6 +803,18 @@ HOP_CALLS = 2000          # launches a route, timed on the host, of phase 18 (e)
 # 37, so that the control's N (4 x 37) is one no earlier phase plans
 # (prefill buckets and chunks are multiples of 16; verify steps 20 and 60)
 LINT_CHUNK, LINT_SPEC_K, LINT_TICKS, LINT_NEW_CHUNK = 64, 4, 20, 37
+# Phase 22 (step graphs): each comparison's 4 slots serve 4 prompts of
+# 16-64 tokens (gemma3: 600-700, past its window) GRAPH_NEW new tokens
+# each, greedy and sampled at GRAPH_TEMPERATURE from the engine's seed,
+# after 2 warm-up requests of GRAPH_WARM_LEN tokens (three chunks of 64,
+# and one) and GRAPH_WARM_NEW new tokens (every step key's eager call and
+# capture happen there); the
+# whisper steps' GRAPH_ENCDEC_STEPS timed decode steps; the dense arch of
+# phase 21 it runs on (d 8192)
+GRAPH_NEW, GRAPH_TEMPERATURE, GRAPH_SEED = 8, 0.7, 22
+GRAPH_WARM_LEN, GRAPH_WARM_NEW = (150, 40), 12
+GRAPH_ENCDEC_STEPS = 16
+GRAPH_DENSE_ARCH = "command-r-35b"
 # bf16 model, 32 layers, QAT: the CPU and the card round bf16 intermediates
 # after sums in another order, and an int8 activation code at a rounding
 # boundary can move by one; the mean CE over 256 tokens moves far less than
@@ -1184,9 +1225,59 @@ def check_kernels(torch, model, cfg):
     return max_err, per_n, weights, traps
 
 
-def serve(torch, model, cfg, impl: str, prompts, counters, fusion: str = "fused"):
+#: device traces taken of one run before a disagreement with the wrappers
+#: fails it
+TRACE_ATTEMPTS = 3
+
+
+class TraceMismatch(AssertionError):
+    """A device trace whose kernel records are not the wrappers' counts."""
+
+
+def trace_attempts(fn):
+    """`fn` (a traced run: → its row) run again, up to TRACE_ATTEMPTS runs
+    in all, while its device trace disagrees with the wrappers' counts
+    (`TraceMismatch`). The profiler drops a record now and then (on the
+    H100: a trace's last records, or one marker, in about one trace of
+    fifty; `PERF.md`, PR 32): a launch counted and not made repeats on
+    every run and still fails. Each disagreement is logged and kept under
+    the row's "trace_mismatches"."""
+    @functools.wraps(fn)
+    def run(*a, **kw):
+        seen = []
+        while True:
+            try:
+                row = fn(*a, **kw)
+            except TraceMismatch as e:
+                seen.append(str(e))
+                if len(seen) == TRACE_ATTEMPTS:
+                    raise AssertionError(f"{fn.__name__}: {TRACE_ATTEMPTS} device traces of "
+                                         "the run disagree with the wrappers: "
+                                         + " | ".join(seen)) from e
+                log(f"trace: {e} (run {len(seen)} of {TRACE_ATTEMPTS}; again)")
+            else:
+                row["trace_mismatches"] = seen
+                return row
+            gc.collect()        # the failed run's engine and step graphs
+    return run
+
+
+def drop_graphs(eng) -> None:
+    """Free an engine's step graphs (and their pool) now: an engine whose
+    methods the script wraps holds itself in a cycle, and a full-width
+    model's graphs keep its f32 head's temporaries (command-r: 8.4 GB) in
+    their pool until the collector runs."""
+    eng.graphs.clear()
+
+
+@trace_attempts
+def serve(torch, model, cfg, impl: str, prompts, counters, fusion: str = "fused",
+          traced: bool = True):
     """Phases 4 and 5, one impl and fusion: warm up, zero the counts, drive
-    the main path."""
+    the main path under a `device_trace`, whose kernel records must be
+    the wrappers' counts (`device_launches`; its rates are taken with the
+    trace on). Phases 16-18 serve again with `traced` off (no trace,
+    `device_launches` None)."""
     from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request
 
     eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl=impl,
@@ -1211,15 +1302,21 @@ def serve(torch, model, cfg, impl: str, prompts, counters, fusion: str = "fused"
     reqs = [Request(rid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
     for fn in counters.values():
         fn.launches = 0
-    sched.submit(reqs)
-    stats = sched.run_to_completion()
+    with device_trace(torch) if traced else contextlib.nullcontext() as prof:
+        sched.submit(reqs)
+        stats = sched.run_to_completion()
     launches = {name: fn.launches for name, fn in counters.items()}
+    device_launches = None
+    if traced:
+        device_launches, _ = traced_launches(prof, counters)
+        held_to_trace(f"{impl}/{fusion}", launches, device_launches)
     forwards = len(reqs) + stats.decode_steps
+    drop_graphs(eng)
     if stats.completed != len(reqs) or any(len(r.generated) != 16 for r in reqs):
         raise AssertionError(f"{impl}/{fusion}: {stats.completed}/{len(reqs)} requests completed")
     return {
         "tokens": [list(map(int, r.generated)) for r in reqs],
-        "launches": launches, "forwards": forwards,
+        "launches": launches, "device_launches": device_launches, "forwards": forwards,
         "prefill_tokens": stats.prefill_tokens, "decode_tokens": stats.decode_tokens,
         "decode_steps": stats.decode_steps,
         "prefill_tok_s": stats.prefill_tokens / spent["prefill"],
@@ -1449,6 +1546,139 @@ def device_only():
     return [ProfilerActivity.CUDA]
 
 
+#: the kernel `tick_marker` launches (ATen's `spin_kernel`)
+MARKER_KERNEL = "spin_kernel"
+#: tiny kernels `device_trace` launches before its start marker and after
+#: its end marker
+TRACE_FILLER = 1 << 12
+
+
+def tick_marker(torch) -> None:
+    """One empty kernel on the current stream: in a device trace it ends a
+    tick (every kernel before it in stream order belongs to that tick or
+    an earlier one)."""
+    torch.cuda._sleep(0)
+
+
+def trace_filler(torch) -> None:
+    """TRACE_FILLER tiny kernels on the current stream."""
+    one = torch.zeros(1, device="cuda")
+    for _ in range(TRACE_FILLER):
+        one.add_(1)
+
+
+def cupti_flush() -> None:
+    """Have CUPTI hand over every activity record it holds now, those of
+    incomplete buffers included (`cuptiActivityFlushAll` with
+    CUPTI_ACTIVITY_FLAG_FLUSH_FORCED), from the library the profiler
+    loaded."""
+    import ctypes
+
+    with open("/proc/self/maps") as maps:
+        path = next((ln.split()[-1] for ln in maps if "libcupti" in ln.rsplit("/", 1)[-1]), None)
+    if path is None:
+        raise RuntimeError("no libcupti in this process: the device trace cannot be flushed")
+    rc = ctypes.CDLL(path).cuptiActivityFlushAll(ctypes.c_uint32(1))
+    if rc:
+        raise RuntimeError(f"cuptiActivityFlushAll returned {rc}")
+
+
+@contextlib.contextmanager
+def device_trace(torch):
+    """A device-only `torch.profiler` trace of the body, bracketed by two
+    `tick_marker`s (the start and end markers), with TRACE_FILLER tiny
+    kernels before the start marker and after the end marker, and CUPTI's
+    records flushed (`cupti_flush`) before the trace stops. The profiler
+    keeps only the records that reach it before it stops, inside its
+    window: one stopped right after its work loses its last records (on
+    the H100: up to ~65,000, the last ~4 decode ticks' kernels of a
+    serving run, even behind 32,768 tiny kernels), and one started right
+    before it may lose its first. The fillers keep the body's records away
+    from both edges, and `traced_launches` requires both markers, so a
+    record lost inside them fails the run."""
+    from torch.profiler import profile
+
+    with profile(activities=device_only()) as prof:
+        trace_filler(torch)
+        tick_marker(torch)
+        yield prof
+        tick_marker(torch)
+        trace_filler(torch)
+        torch.cuda.synchronize()
+        cupti_flush()
+
+
+def traced_launches(prof, counters, ticks: int = 0) -> tuple:
+    """The kernel launches of a `device_trace`, counted on the device:
+    graph replays included, CUPTI records each kernel node. A record is a
+    wrapper's when its name holds one of the wrapper's `cuda_kernels` and,
+    exactly for the integer wrappers (`int_acts`), ``signed char`` among
+    its template arguments. The records are taken in the device's order
+    between the start and end markers, which must be there; with `ticks`,
+    the run called `tick_marker` after each of its `ticks` ticks and they
+    are also split at those markers. → ({wrapper name: records}, [records
+    of any wrapper, per tick] or None)."""
+    owner: dict = {}
+
+    def owner_of(name):
+        if name not in owner:
+            owner[name] = next((nm for nm, fn in counters.items()
+                                if ("signed char" in name) == fn.int_acts
+                                and any(re.search(rf"\b{k}\b", name) for k in fn.cuda_kernels)),
+                               MARKER_KERNEL if re.search(rf"\b{MARKER_KERNEL}\b", name) else None)
+        return owner[name]
+
+    records = []
+    for e in prof.profiler.kineto_results.events():
+        nm = owner_of(e.name())
+        if nm is not None:
+            records.append((e.start_ns() if hasattr(e, "start_ns") else e.start_us() * 1000, nm))
+    totals, segments, n = {nm: 0 for nm in counters}, [], 0
+    for _, nm in sorted(records):
+        if nm == MARKER_KERNEL:
+            segments.append(n)
+            n = 0
+        else:
+            totals[nm] += 1 if segments else 0
+            n += 1
+    # segments: before the start marker, each tick, after the last tick
+    if len(segments) != ticks + 2 or n or segments[0] or (ticks and segments[-1]):
+        raise TraceMismatch(
+            f"the device trace holds {len(segments)} markers for its start, {ticks} ticks and "
+            f"its end, {segments[0] if segments else 0} launches before the start, "
+            f"{segments[-1] if ticks and segments else 0} between the last tick and the end and "
+            f"{n} after the end (a record lost, or a launch outside a tick)")
+    return totals, (segments[1:ticks + 1] if ticks else None)
+
+
+def held_to_trace(label: str, wrapper: dict, traced: dict) -> None:
+    """The wrappers' counts must be the kernel records a device trace saw."""
+    if wrapper != traced:
+        raise TraceMismatch(f"{label}: the wrappers counted {wrapper} launches, the device "
+                            f"trace holds {traced}")
+
+
+@contextlib.contextmanager
+def syncs_raise(torch):
+    """Every `StepGraphs.upload` (a step's inputs staged) and replay under
+    the sync debug mode's "error": a host sync in either raises."""
+    from repro_torch.serve.graphs import StepGraphs
+
+    def guarded(fn):
+        def run(*a, **kw):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return run
+
+    with planted(StepGraphs, "upload", guarded(StepGraphs.upload)), \
+            planted(StepGraphs, "_replay", guarded(StepGraphs._replay)):
+        yield
+
+
 def op_device_ms(averages, steps: int, names=("aten::index", "aten::index_put_")) -> dict:
     """{op: [device ms per step, calls per step]} of the named CPU ops (the
     device time of the kernels each launched) in a trace's `key_averages()`;
@@ -1462,19 +1692,22 @@ def op_device_ms(averages, steps: int, names=("aten::index", "aten::index_put_")
 
 
 def profile_decode(torch, model, cfg, prompts, steps: int = 2, spec=None, paged=None,
-                   op_names=("aten::index", "aten::index_put_")) -> dict:
+                   op_names=("aten::index", "aten::index_put_"), cuda_graphs=True) -> dict:
     """Where a decode step's time goes: `torch.profiler` over `steps`
     batched decode steps of 4 full slots (impl="decode"; with `spec`, each
     step is draft, verify and accept; with `paged`, a PagedKVConfig, the
-    cache is paged). Device time by kernel, the device's busy share of the
-    wall time, the wall time per step, and the device time of the
-    `op_names` (with none, the profiler traces the device only)."""
+    cache is paged), replayed as CUDA graphs unless `cuda_graphs` is False
+    (the warm-up steps make the eager call and the capture). Device time
+    by kernel, the device's busy share of the wall time, the wall time per
+    step, and the device time of the `op_names` (with none, the profiler
+    traces the device only; a replay runs no host op to attribute its
+    kernels to, so only eager steps give them)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Engine, Request
 
     eng = Engine(model, cfg, max_slots=4, max_len=256, mpgemm_impl="decode", spec=spec,
-                 paged_kv=paged, device="cuda")
+                 paged_kv=paged, device="cuda", cuda_graphs=cuda_graphs)
     per_step = 1 + (spec.k if spec is not None else 0)     # the most a step emits
     for i, p in enumerate(prompts[:4]):
         assert eng.add(Request(rid=i, prompt=p, max_new_tokens=per_step * (steps + 2) + 2))
@@ -1488,6 +1721,7 @@ def profile_decode(torch, model, cfg, prompts, steps: int = 2, spec=None, paged=
             eng.decode_once()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    drop_graphs(eng)
 
     averages = prof.key_averages()
     by_name = device_time_by_kernel(averages, steps)
@@ -1798,8 +2032,9 @@ def reckoned_launches(cfg, impl: str, fusion: str = "fused") -> dict:
     return {k: v for k, v in out.items() if v}
 
 
+@trace_attempts
 def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", fusion="fused",
-                spec=None, temperature=0.0, slots=4, max_len=256, **kw) -> dict:
+                spec=None, temperature=0.0, slots=4, max_len=256, traced=False, **kw) -> dict:
     """Phases 8 (c), 9, 10 and 11: one serving run with its counts zeroed
     just before it. Every forward (target and drafter) is counted through
     `lm_hidden`, with the token count N = B x S its mpGeMM launches
@@ -1808,9 +2043,17 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", fu
     admission's wall time and prefix-hit tokens are recorded (whole-prompt
     admission ends in a host sync), and the host time spent in
     `decode_once` (it ends in one too): `decode_only_tok_s`, the rate
-    phases 4 and 5 report."""
+    phases 4 and 5 report. A step graph's capture runs no forward: the
+    forwards it records are counted at each of its replays instead. With
+    `traced`, the run is traced on the device alone (`device_trace`): its
+    kernel records must be the wrappers' counts (`device_launches`, else
+    None; the rates are then taken with the trace on). Traced: the runs
+    whose counts the kernels line prints (phases 10 and 11) and the one
+    whose drafter replays graphs of its own (phase 8's oracle chain);
+    phases 4, 5 and 22 trace every step kind of the engine besides."""
     from repro_torch.models import decoder
     from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request
+    from repro_torch.serve.graphs import StepGraphs
 
     eng = Engine(model, cfg, max_slots=slots, max_len=max_len, mpgemm_impl=impl,
                  mpgemm_fusion=fusion, spec=spec, temperature=temperature, seed=7, device="cuda",
@@ -1823,13 +2066,32 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", fu
     admissions = []
     add = eng.add
 
-    def counted(model_, tokens, *a, **k):
-        expands = mla_expands(tokens.shape[1], k.get("verify", False),
-                              k.get("prefill_resume", False))
+    def tally(n, expands):
         expanding[0 if expands else 1] += 1
-        n_hist[tokens.numel()] = (n_hist.get(tokens.numel(), 0)
-                                  + sum((per_fwd if expands else absorbed).values()))
+        n_hist[n] = n_hist.get(n, 0) + sum((per_fwd if expands else absorbed).values())
+
+    recording, per_key = [None], {}         # the key being captured; key → its forwards
+
+    def counted(model_, tokens, *a, **k):
+        fwd = (tokens.numel(), mla_expands(tokens.shape[1], k.get("verify", False),
+                                           k.get("prefill_resume", False)))
+        if torch.cuda.is_current_stream_capturing():
+            per_key.setdefault(recording[0], []).append(fwd)
+        else:
+            tally(*fwd)
         return lm_hidden(model_, tokens, *a, **k)
+
+    record, replay = StepGraphs._record, StepGraphs._replay
+
+    def recorded(self, key, *a):
+        recording[0] = key
+        return record(self, key, *a)
+
+    def replayed(self, key, *a):
+        out = replay(self, key, *a)
+        for fwd in per_key.get(key, ()):
+            tally(*fwd)
+        return out
 
     def timed_add(req):
         hits, t0 = eng.prefix_hit_tokens, time.perf_counter()
@@ -1855,11 +2117,18 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", fu
         fn.launches = 0
     decoder.lm_hidden = counted
     try:
-        sched.submit(reqs)
-        stats = sched.run_to_completion()
+        with planted(StepGraphs, "_record", recorded), planted(StepGraphs, "_replay", replayed), \
+                (device_trace(torch) if traced else contextlib.nullcontext()) as prof:
+            sched.submit(reqs)
+            stats = sched.run_to_completion()
     finally:
         decoder.lm_hidden = lm_hidden
+        drop_graphs(eng)
     launches = {nm: fn.launches for nm, fn in counters.items()}
+    device_launches = None
+    if traced:
+        device_launches, _ = traced_launches(prof, counters)
+        held_to_trace(name, launches, device_launches)
     forwards = sum(expanding)
     target = stats.decode_steps + stats.chunk_steps + (0 if eng.prefill_chunk else len(reqs))
     kernel = single_kernel(impl, fusion)
@@ -1882,7 +2151,8 @@ def serve_multi(torch, model, cfg, prompts, counters, name, *, impl="decode", fu
         **{k: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
            for k, v in kw.items() if k != "obs"},
         "tokens": [list(map(int, r.generated)) for r in reqs],
-        "launches": launches, "forwards": forwards, "target_forwards": target,
+        "launches": launches, "device_launches": device_launches, "forwards": forwards,
+        "target_forwards": target,
         "launches_per_forward": {"expanding": per_fwd, "absorbing": absorbed,
                                  "forwards": {"expanding": expanding[0], "absorbing": expanding[1]}},
         "drafter_forwards": drafter_forwards,
@@ -1946,7 +2216,7 @@ def check_multi_token(torch, model, cfg, weights, prompts, counters, ref_tokens)
         "chunk": dict(prefill_chunk=PREFILL_CHUNK),
         "chunk_budget": dict(prefill_chunk=PREFILL_CHUNK, token_budget=TOKEN_BUDGET),
         "chain_ngram": dict(spec=SpecConfig(k=SPEC_K)),
-        "chain_oracle": dict(spec=SpecConfig(k=SPEC_K, **oracle)),
+        "chain_oracle": dict(spec=SpecConfig(k=SPEC_K, **oracle), traced=True),
         "adaptive_ngram": dict(spec=SpecConfig(k=SPEC_K, adaptive_k=True)),
         "tree_ngram": dict(spec=SpecConfig(k=SPEC_K, tree=SPEC_TREE)),
         "chunk_chain_ngram": dict(prefill_chunk=PREFILL_CHUNK, spec=SpecConfig(k=SPEC_K)),
@@ -2064,7 +2334,7 @@ def check_paged(torch, model, cfg, prompts, counters, ref_tokens, multi_tokens,
         f"{got['prefix_hit_tokens']} prefix-hit tokens (the host pager: {want})")
 
     # (e) one paged decode step of 4 full slots beside phase 4's dense step
-    prof = profile_decode(torch, model, cfg, prompts, paged=paged)
+    prof = profile_decode(torch, model, cfg, prompts, paged=paged, cuda_graphs=False)
     out["decode_profile"] = prof
     for label, pr in (("dense", dense_prof), ("paged", prof)):
         ops = pr["op_device_ms_per_step"]
@@ -2192,9 +2462,12 @@ def check_obs(torch, model, cfg, prompts, counters, ref_tokens, multi_tokens, pa
                "trace_out": str(pathlib.Path(tmp.name) / "trace.json")}
     out = {"cost_runs": {"off": [], "on": []}}
 
+    # eager steps: the checks count one dispatch span per mpGeMM call, and a
+    # replayed step graph records its spans at capture only
     def observed_run(name, run_prompts, o, **kw):
         try:
-            return serve_multi(torch, model, cfg, run_prompts, counters, name, obs=o, **kw)
+            return serve_multi(torch, model, cfg, run_prompts, counters, name, obs=o,
+                               cuda_graphs=False, **kw)
         finally:
             obs_mod.install(None)
 
@@ -2795,7 +3068,8 @@ def check_moe(torch, counters) -> dict:
                for _ in range(8)]
     runs = {}
     for impl in IMPLS:
-        runs[impl] = serve_multi(torch, model, cfg, prompts, counters, f"moe {impl}", impl=impl)
+        runs[impl] = serve_multi(torch, model, cfg, prompts, counters, f"moe {impl}", impl=impl,
+                                 traced=True)
     if runs["decode"]["tokens"] != runs["lookup"]["tokens"]:
         raise AssertionError("moe: impl=decode and impl=lookup emitted different greedy tokens")
     runs["chunked_chain"] = serve_multi(torch, model, cfg, prompts, counters, "moe chunked chain",
@@ -2836,7 +3110,8 @@ def check_moe(torch, counters) -> dict:
         raise AssertionError(f"moe: logits differ by {diff} > {MOE_LOGIT_RTOL} * {scale}")
 
     # (d) one decode step of 4 full slots, and the MoE dispatch's share of it
-    prof = profile_decode(torch, model, cfg, prompts, op_names=MOE_DISPATCH_OPS)
+    prof = profile_decode(torch, model, cfg, prompts, op_names=MOE_DISPATCH_OPS,
+                          cuda_graphs=False)
     prof["moe_layer"] = moe_dispatch_ms(torch, model, cfg, tokens=4)
     prof["moe_dispatch_ms_per_step"] = prof["moe_layer"]["dispatch_ms"] * cfg.n_layers
     prof["moe_dispatch_share"] = (prof["moe_dispatch_ms_per_step"] / prof["device_ms_per_step"]
@@ -3185,7 +3460,7 @@ def mla_wkv_b_unpack_ms(torch, model, cfg) -> dict:
             "f32_bytes": 4 * kvl * cfg.n_heads * (nope + vd)}
 
 
-def check_mla(torch, counters) -> dict:
+def check_mla(torch, counters, graph_rows) -> dict:
     """Phase 11: the MLA mixer and deepseek-v3-671b at its published widths,
     depth cut to MLA_LAYERS (bf16, random weights from a seeded generator,
     drawn and packed layer by layer): (a)-(b) `mla_kernel_checks`; (c)
@@ -3250,7 +3525,8 @@ def check_mla(torch, counters) -> dict:
         raise AssertionError("mla: impl=decode and impl=lookup emitted different greedy tokens")
     for impl in IMPLS:
         runs[f"unfused_{impl}"] = serve_multi(torch, model, cfg, prompts, counters,
-                                              f"mla unfused {impl}", impl=impl, fusion="unfused")
+                                              f"mla unfused {impl}", impl=impl, fusion="unfused",
+                                              traced=True)
     if runs["unfused_decode"]["tokens"] != runs["unfused_lookup"]["tokens"]:
         raise AssertionError("mla: unfused impl=decode and impl=lookup emitted different tokens")
     # fused sums each segment in f32, unfused in int32: they part at a
@@ -3307,7 +3583,8 @@ def check_mla(torch, counters) -> dict:
 
     # (d) one decode step of 4 full slots: the wkv_b unpack's and the MoE
     # dispatch's share of it
-    prof = profile_decode(torch, model, cfg, prompts, op_names=MOE_DISPATCH_OPS)
+    prof = profile_decode(torch, model, cfg, prompts, op_names=MOE_DISPATCH_OPS,
+                          cuda_graphs=False)
     prof["wkv_b_unpack"] = mla_wkv_b_unpack_ms(torch, model, cfg)
     prof["moe_layer"] = moe_dispatch_ms(torch, model, cfg, tokens=4, layer=out["kernels"]["layer"])
     prof["moe_dispatch_ms_per_step"] = prof["moe_layer"]["dispatch_ms"] * n_moe
@@ -3337,6 +3614,10 @@ def check_mla(torch, counters) -> dict:
         log(f"mla:   op {name}: {ms:.4f} ms device, {calls:.1f} calls per step")
     out["seconds"] = time.perf_counter() - t0
     log(f"mla: phase 11 took {out['seconds']:.1f} s")
+    # phase 22 while the model is loaded: graphed against eager serving
+    graph_rows["deepseek-v3 decode"] = graph_compare(torch, model, cfg, counters,
+                                                     "deepseek-v3 decode",
+                                                     *graph_prompts(cfg, 22))
     del model
     torch.cuda.empty_cache()
     return out
@@ -3856,7 +4137,7 @@ def ssm_share(torch, model, cfg, prof: dict, label: str) -> None:
            if prof["ssm_own_ops_share"] is not None else ""))
 
 
-def check_ssm(torch, counters, memo) -> dict:
+def check_ssm(torch, counters, memo, graph_rows) -> dict:
     """Phase 12: the SSM mixer on mamba2-1.3b at its published widths and
     depth (48 layers, d 2048, d_inner 4096, 64 heads x 64, d_state 128,
     chunk 64, vocab 50280, bf16, tied head): (a) `new_arch_kernels` at
@@ -3875,6 +4156,8 @@ def check_ssm(torch, counters, memo) -> dict:
     ssm_share(torch, model, cfg, out["decode_profile"], "ssm")
     out["seconds"] = time.perf_counter() - t0
     log(f"ssm: phase 12 took {out['seconds']:.1f} s")
+    graph_rows["mamba2 decode"] = graph_compare(torch, model, cfg, counters, "mamba2 decode",
+                                                *graph_prompts(cfg, 22), max_len=NEW_MAX_LEN)
     del model
     torch.cuda.empty_cache()
     return out
@@ -3914,7 +4197,7 @@ def ring_check(torch, model, cfg, prompt, steps: int = 16) -> dict:
     return out
 
 
-def check_windowed(torch, counters, memo) -> dict:
+def check_windowed(torch, counters, memo, graph_rows) -> dict:
     """Phase 13: gemma3-1b at its published widths and depth (26 layers, d
     1152, 4 heads / 1 KV head of 256, d_ff 6912, vocab 262144, window 512 on
     5 of every 6 layers, dual RoPE, q/k norms, embedding scale, tied head):
@@ -3932,6 +4215,10 @@ def check_windowed(torch, counters, memo) -> dict:
     out["decode_profile"] = new_arch_profile(torch, model, cfg, prompts, "gemma3")
     out["seconds"] = time.perf_counter() - t0
     log(f"gemma3: phase 13 took {out['seconds']:.1f} s")
+    # prompts past the window: the ring wraps in the prefill and in decode
+    graph_rows["gemma3 decode"] = graph_compare(
+        torch, model, cfg, counters, "gemma3 decode",
+        *graph_prompts(cfg, 22, lens=WINDOW_LONG_PROMPT), max_len=WINDOW_MAX_LEN)
     del model
     torch.cuda.empty_cache()
     return out
@@ -3994,7 +4281,7 @@ def check_hybrid(torch, counters, memo) -> dict:
     return out
 
 
-def check_dense_archs(torch, counters, memo) -> dict:
+def check_dense_archs(torch, counters, memo, graph_rows) -> dict:
     """Phase 21: internlm2-1.8b (24 layers, d 2048, 16 heads / 8 KV of 128,
     d_ff 8192, vocab 92544), command-r-35b (40 layers, d 8192, 64 / 8 of
     128, d_ff 22528, vocab 256000, tied head) and chameleon-34b (48 layers,
@@ -4016,6 +4303,10 @@ def check_dense_archs(torch, counters, memo) -> dict:
         if row["unfused_divergences"]:
             row["rounding_sensitivity"] = rounding_sensitivity(torch, model, cfg, prompts[0], arch)
         row["decode_profile"] = new_arch_profile(torch, model, cfg, prompts, arch)
+        if arch == GRAPH_DENSE_ARCH:
+            graph_rows[f"{arch} decode"] = graph_compare(torch, model, cfg, counters,
+                                                         f"{arch} decode",
+                                                         *graph_prompts(cfg, 22))
         row["seconds"] = time.perf_counter() - t0
         log(f"{arch}: {row['seconds']:.1f} s")
         out[arch] = row
@@ -4142,17 +4433,22 @@ def encdec_inputs(torch, cfg, batch: int, frames: int, seed: int):
     return fr, torch.from_numpy(tok.astype(np.int32)).cuda()
 
 
+@trace_attempts
 def encdec_serve(torch, model, cfg, impl, frames, prompts, counters) -> dict:
     """Phase 15 (b), one impl: greedy serving through `launch.steps` (one
     prefill step, ENCDEC_NEW - 1 decode steps), warmed up first; the counts
     zeroed just before the prefill step, read after it and at the end:
     exactly ENCDEC_LAUNCHES of the impl's kernel a forward, no other
-    mpGeMM or flash launch."""
+    mpGeMM or flash launch, and the counts those of a `device_trace` of
+    the run (its times are taken with the trace on)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import init_cache
+    from repro_torch.serve.graphs import StepGraphs
 
-    pre, dec = make_prefill_step(cfg), make_decode_step(cfg)
+    # the decode steps replay as a CUDA graph: the warm-up's makes the eager
+    # call, the first measured one the capture
+    pre, dec = make_prefill_step(cfg), make_decode_step(cfg, graphs=StepGraphs("cuda"))
     b, s_enc = frames.shape[:2]
     batch = {"tokens": prompts, "frames": frames}
     name = single_kernel(impl)
@@ -4163,19 +4459,22 @@ def encdec_serve(torch, model, cfg, impl, frames, prompts, counters) -> dict:
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
-        t0 = time.perf_counter()
-        nt, cache = pre(model, init_cache(cfg, b, ENCDEC_MAX_LEN, enc_len=s_enc, device="cuda"),
-                        batch)
-        toks = [nt]
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        after_prefill = {nm: fn.launches for nm, fn in counters.items()}
-        for _ in range(ENCDEC_NEW - 1):
-            nt, cache = dec(model, cache, nt[:, None])
-            toks.append(nt)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        with device_trace(torch) as prof:
+            t0 = time.perf_counter()
+            nt, cache = pre(model, init_cache(cfg, b, ENCDEC_MAX_LEN, enc_len=s_enc,
+                                              device="cuda"), batch)
+            toks = [nt]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            after_prefill = {nm: fn.launches for nm, fn in counters.items()}
+            for _ in range(ENCDEC_NEW - 1):
+                nt, cache = dec(model, cache, nt[:, None])
+                toks.append(nt)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
     launches = {nm: fn.launches for nm, fn in counters.items()}
+    device_launches, _ = traced_launches(prof, counters)
+    held_to_trace(f"whisper {impl}", launches, device_launches)
     steps = ENCDEC_NEW - 1
     want_pre = ENCDEC_LAUNCHES["encoder"] + ENCDEC_LAUNCHES["prefill"]
     want = {nm: (want_pre + steps * ENCDEC_LAUNCHES["decode"] if nm == name else 0)
@@ -4187,7 +4486,7 @@ def encdec_serve(torch, model, cfg, impl, frames, prompts, counters) -> dict:
     tokens = torch.stack(toks, 1).cpu()
     if tokens.shape != (b, ENCDEC_NEW) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
         raise AssertionError(f"whisper {impl}: bad tokens {tokens.shape}")
-    return {"tokens": tokens.tolist(), "launches": launches,
+    return {"tokens": tokens.tolist(), "launches": launches, "device_launches": device_launches,
             "launches_after_prefill": after_prefill[name],
             "prefill_step_ms": (t1 - t0) * 1e3, "decode_s": t2 - t1,
             "decode_tok_s": b * steps / (t2 - t1), "decode_step_ms": (t2 - t1) * 1e3 / steps}
@@ -4517,7 +4816,7 @@ def encdec_train(torch, counters) -> dict:
     return res
 
 
-def check_encdec(torch, counters) -> dict:
+def check_encdec(torch, counters, graph_rows) -> dict:
     """Phase 15: whisper-medium at its published widths and depth (24
     encoder + 24 decoder layers, d 1024, 16 heads of 64, d_ff 4096, vocab
     51865, bf16, tied head): (a) `encdec_kernels`; (b) `encdec_serving`;
@@ -4526,6 +4825,7 @@ def check_encdec(torch, counters) -> dict:
     cfg, model, out = encdec_model(torch)
     out["kernels"] = encdec_kernels(torch, model, cfg)
     out.update(encdec_serving(torch, model, cfg, counters))
+    graph_rows["whisper decode"] = check_graphs_encdec(torch, model, cfg, counters)
     del model
     torch.cuda.empty_cache()
     out["flash"] = encdec_flash(torch)
@@ -5025,7 +5325,7 @@ def check_dist(torch, counters, unfused, trained) -> dict:
     rng = np.random.default_rng(0)            # phase 4's prompts
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(16, 65))).astype(np.int32)
                for _ in range(8)]
-    r = serve(torch, model, cfg, "xla", prompts, counters, fusion="unfused")
+    r = serve(torch, model, cfg, "xla", prompts, counters, fusion="unfused", traced=False)
     if r["tokens"] != unfused["serve"]["decode"]["tokens"]:
         raise AssertionError("dist: impl=xla emitted other greedy tokens than phase 5's unfused run")
     if any(r["launches"].values()):
@@ -5204,7 +5504,7 @@ def check_autotune(torch, counters, prompts, ref_runs, encdec) -> dict:
         name = single_kernel(impl)
         for plans, path in runs:
             autotune.reset_default_cache(path)
-            r = serve(torch, model, cfg, impl, prompts, counters)
+            r = serve(torch, model, cfg, impl, prompts, counters, traced=False)
             want = {nm: (224 * r["forwards"] if nm == name else 0) for nm in counters}
             if r["launches"] != want:
                 raise AssertionError(f"autotune: impl={impl} ({plans} plans) launches "
@@ -5393,9 +5693,9 @@ def hop_cost(torch, model, cfg, prompts, counters) -> dict:
     out = {"direct_us": (times[0] + times[3]) / 2, "operator_us": (times[1] + times[2]) / 2,
            "turns_us": times}
     out["hop_us"] = out["operator_us"] - out["direct_us"]
-    runs = {"direct": serve(torch, model, cfg, "decode", prompts, counters)}
+    runs = {"direct": serve(torch, model, cfg, "decode", prompts, counters, traced=False)}
     with planted(ops, "_KERNELS", {**ops._KERNELS, "decode": through_op}):
-        runs["operator"] = serve(torch, model, cfg, "decode", prompts, counters)
+        runs["operator"] = serve(torch, model, cfg, "decode", prompts, counters, traced=False)
     if runs["operator"]["tokens"] != runs["direct"]["tokens"]:
         raise AssertionError("steps (e): serving through the operator changed the tokens")
     for route, r in runs.items():
@@ -5606,11 +5906,14 @@ def lint_guard(torch, model, cfg, prompts) -> dict:
         return kinds
 
     guard = CompileGuard(guard_entries(eng))
-    warm = 1
-    while tick() != (True, True):           # warm up to a tick with a chunk and a spec step
+    # warm up to the second tick with a chunk and a spec step: the first
+    # makes each step's eager call, the second its graph capture
+    warm, both = 0, 0
+    while both < 2:
         warm += 1
-        if warm > 12:
-            raise AssertionError("lint (d): no warm-up tick ran a chunk step and a spec step")
+        both += tick() == (True, True)
+        if warm > 16:
+            raise AssertionError("lint (d): no two warm-up ticks ran a chunk step and a spec step")
     torch.cuda.synchronize()
     base = guard.arm()
     kinds = [tick() for _ in range(LINT_TICKS)]
@@ -5622,6 +5925,8 @@ def lint_guard(torch, model, cfg, prompts) -> dict:
     other.step()
     torch.cuda.synchronize()
     control = guard.new_compiles()
+    drop_graphs(eng)
+    drop_graphs(other)
     if not control:
         raise AssertionError("lint (d): a tick at a new N grew nothing: the guard is blind")
     row = {"warmup_ticks": warm, "ticks": LINT_TICKS, "baseline": base, "steady_growth": grew,
@@ -5688,22 +5993,341 @@ def check_lint(torch, counters, prompts, steps_ctx) -> dict:
     return out
 
 
-def launch_counters() -> dict:
-    """{name: kernel wrapper} of every kernel: each wrapper counts its
-    launches in its `launches` attribute."""
-    from repro_torch.kernels import ternary_decode_gemm as tdg
-    from repro_torch.kernels import vlut_lookup_gemm as vlg
-    from repro_torch.kernels.flash_attention import flash_attention
+# --------------------------------------------------------------------------
+# Phase 22: graphed serving held to eager serving
+# --------------------------------------------------------------------------
+def resident_bytes(torch) -> int:
+    """Device bytes allocated once the collector has run, net of the split-K
+    workspaces (current and retired: process-wide, grown by whichever step
+    first needs more, and kept for the graphs captured on them)."""
+    from repro_torch.kernels import _splitk
 
-    return {"ternary_decode_gemm_fused": tdg.ternary_decode_gemm_fused,
-            "vlut_lookup_gemm_fused": vlg.vlut_lookup_gemm_fused,
-            "ternary_decode_gemm_fused_grouped": tdg.ternary_decode_gemm_fused_grouped,
-            "vlut_lookup_gemm_fused_grouped": vlg.vlut_lookup_gemm_fused_grouped,
-            "ternary_decode_gemm": tdg.ternary_decode_gemm,
-            "vlut_lookup_gemm": vlg.vlut_lookup_gemm,
-            "ternary_decode_gemm_grouped": tdg.ternary_decode_gemm_grouped,
-            "vlut_lookup_gemm_grouped": vlg.vlut_lookup_gemm_grouped,
-            "flash_attention": flash_attention}
+    gc.collect()
+    torch.cuda.synchronize()
+    pairs = list(_splitk._WORKSPACE.values()) + list(_splitk._RETIRED)
+    return torch.cuda.memory_allocated() - sum(
+        t.numel() * t.element_size() for pair in pairs for t in pair)
+
+
+def capture_guard(graphs, names):
+    """A `CompileGuard` over the captures alone of `names` (the plans may
+    grow at an eager admission's new prompt length, which is no capture)."""
+    from repro_torch.lint import CompileGuard, Probe
+
+    return CompileGuard({f"capture.{n}": Probe(lambda n=n: graphs.captures[n]) for n in names})
+
+
+def _graph_serve(torch, model, cfg, counters, prompts, warm, *, graphed, temperature, max_len,
+                 **kw) -> dict:
+    from repro_torch.serve import ContinuousBatchingScheduler, Engine, Request
+
+    eng = Engine(model, cfg, max_slots=4, max_len=max_len, temperature=temperature,
+                 seed=GRAPH_SEED, device="cuda", cuda_graphs=graphed, **kw)
+    sched = ContinuousBatchingScheduler(eng)
+    sched.submit([Request(rid=-1 - i, prompt=p, max_new_tokens=GRAPH_WARM_NEW)
+                  for i, p in enumerate(warm)])
+    sched.run_to_completion()
+    warm_captures = dict(eng.graphs.captures)
+    eng.reset_stats()
+    guard = capture_guard(eng.graphs, eng.step_entries())
+    guard.arm()
+    ticks, decode_s = [], [0.0]
+    decode_once = eng.decode_once
+
+    def timed_decode():
+        t0 = time.perf_counter()
+        out = decode_once()     # ends in a host sync: the sampled tokens read back
+        decode_s[0] += time.perf_counter() - t0
+        return out
+
+    eng.decode_once = timed_decode
+    replays0 = sum(eng.graphs.replays.values())
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=GRAPH_NEW) for i, p in enumerate(prompts)]
+    for fn in counters.values():
+        fn.launches = 0
+    sched = ContinuousBatchingScheduler(eng)
+    tick = sched.tick
+
+    def counted_tick():         # admissions, then one engine step
+        before = sum(fn.launches for fn in counters.values())
+        tick()
+        ticks.append(sum(fn.launches for fn in counters.values()) - before)
+        tick_marker(torch)
+
+    sched.tick = counted_tick
+    with syncs_raise(torch), device_trace(torch) if graphed else contextlib.nullcontext() as prof:
+        sched.submit(reqs)
+        stats = sched.run_to_completion()
+    if stats.completed != len(reqs):
+        raise AssertionError(f"{stats.completed}/{len(reqs)} requests completed")
+    launches = {nm: fn.launches for nm, fn in counters.items()}
+    device_launches = device_ticks = None
+    if graphed:
+        device_launches, device_ticks = traced_launches(prof, counters, ticks=len(ticks))
+        held_to_trace("graphs", launches, device_launches)
+        held_to_trace("graphs, per tick", ticks, device_ticks)
+    return {"tokens": [list(map(int, r.generated)) for r in reqs],
+            "launches": launches,
+            "device_launches": device_launches, "device_tick_launches": device_ticks,
+            "tick_launches": ticks, "captures_after_warmup": guard.new_compiles(),
+            "warmup_captures": warm_captures,
+            "replays": sum(eng.graphs.replays.values()) - replays0,
+            "decode_tok_s": stats.decode_tokens / decode_s[0] if decode_s[0] else None,
+            "decode_step_ms": decode_s[0] * 1e3 / stats.decode_steps if stats.decode_steps
+            else None,
+            "decode_steps": stats.decode_steps, "chunk_steps": stats.chunk_steps,
+            "wall_s": stats.wall_s}
+
+
+@trace_attempts
+def graph_serve(torch, model, cfg, counters, prompts, warm, **kw) -> dict:
+    """Phase 22, one serving run: warm-up requests (each step key's eager
+    call and its capture), then `prompts` (4 slots, GRAPH_NEW new tokens
+    each) with the counts zeroed, the captures guarded, every input upload
+    and replay under the sync debug mode's "error" (`syncs_raise`), and
+    the device traced alone with a marker after each scheduler tick
+    (admissions and one engine step: the launches per tick counted on the
+    device; the rates are taken with the trace on); then the engine dropped and the device memory read against its
+    value before the engine was built."""
+    base = resident_bytes(torch)
+    row = _graph_serve(torch, model, cfg, counters, prompts, warm, **kw)
+    row["memory_delta_bytes"] = resident_bytes(torch) - base
+    return row
+
+
+def graph_checks(label: str, eager: dict, graphed: dict) -> None:
+    """The graphed run against the eager one: the same tokens; the same
+    launches tick by tick, the graphed run's as its device trace counts
+    them (`graph_serve` holds them to its wrappers' counts) and the eager
+    run's as its wrappers count them, each a launch made on the host;
+    replays that made no capture after the warm-up; the memory back to its
+    baseline once each engine is dropped."""
+    bad = []
+    if graphed["tokens"] != eager["tokens"]:
+        bad.append("tokens differ")
+    if graphed["device_tick_launches"] != eager["tick_launches"] or \
+            graphed["device_launches"] != eager["launches"]:
+        bad.append(f"launches per tick {graphed['device_tick_launches']} graphed (device "
+                   f"trace), {eager['tick_launches']} eager (wrappers)")
+    if graphed["captures_after_warmup"] or not graphed["replays"] or eager["replays"]:
+        bad.append(f"captures after warm-up {graphed['captures_after_warmup']}, replays "
+                   f"{graphed['replays']} (eager {eager['replays']})")
+    if graphed["memory_delta_bytes"] or eager["memory_delta_bytes"]:
+        bad.append(f"device memory after the drop {graphed['memory_delta_bytes']} bytes "
+                   f"(eager {eager['memory_delta_bytes']}) off its baseline")
+    if bad:
+        raise AssertionError(f"graphs {label}: " + "; ".join(bad))
+
+
+def graph_compare(torch, model, cfg, counters, label: str, prompts, warm, *, max_len=256,
+                  spec=None, paged_kv=None, prefill_chunk=0, profiled=True) -> dict:
+    """Phase 22 for one model and mode: greedy and seeded GRAPH_TEMPERATURE
+    serving, eager then graphed (`graph_serve`, `graph_checks`), and, where
+    `profiled`, one decode step of 4 full slots profiled each way
+    (`profile_decode`)."""
+    kw = dict(max_len=max_len, spec=spec, paged_kv=paged_kv, prefill_chunk=prefill_chunk)
+    out = {}
+    for temp in (0.0, GRAPH_TEMPERATURE):
+        runs = {mode: graph_serve(torch, model, cfg, counters, prompts, warm,
+                                  graphed=mode == "graphed", temperature=temp, **kw)
+                for mode in ("eager", "graphed")}
+        graph_checks(f"{label} t={temp}", runs["eager"], runs["graphed"])
+        out[f"t{temp}"] = {m: {k: v for k, v in r.items() if k != "tokens"}
+                           for m, r in runs.items()}
+    short = [p[:64] for p in prompts]
+    for mode in ("eager", "graphed") if profiled else ():
+        out[f"profile_{mode}"] = profile_decode(torch, model, cfg, short, spec=spec,
+                                                paged=paged_kv, op_names=(),
+                                                cuda_graphs=mode == "graphed")
+    return graph_row(label, out)
+
+
+def graph_row(label: str, out: dict) -> dict:
+    """The summary of one phase-22 comparison, logged: tok/s, step wall
+    and busy share graphed and eager."""
+    g, e = out["t0.0"]["graphed"], out["t0.0"]["eager"]
+    none = {"wall_ms_per_step": None, "device_ms_per_step": None, "device_busy_share": None}
+    out["summary"] = {mode: {"decode_tok_s": r["decode_tok_s"], "decode_step_ms": r["decode_step_ms"],
+                             "profiled_step_wall_ms": out.get(f"profile_{mode}", none)["wall_ms_per_step"],
+                             "profiled_step_device_ms":
+                                 out.get(f"profile_{mode}", none)["device_ms_per_step"],
+                             "busy_share": out.get(f"profile_{mode}", none)["device_busy_share"]}
+                      for mode, r in (("graphed", g), ("eager", e))}
+    sm = out["summary"]
+
+    def share(v):
+        return "not measured" if v is None else f"{100 * v:.1f}%"
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.2f}"
+
+    temps = "greedy" + (f" and t={GRAPH_TEMPERATURE}" if f"t{GRAPH_TEMPERATURE}" in out else "")
+    log(f"graphs {label}: {temps} tokens equal eager; launches per tick equal on the device "
+        f"({len(g['tick_launches'])} ticks, {sum(g['device_tick_launches'])} kernel records, "
+        f"the wrappers' counts); {g['replays']} replays, no capture after warm-up "
+        f"({g['warmup_captures']}), no host sync in an upload or replay, memory back to baseline; "
+        f"decode {sm['graphed']['decode_tok_s']:.1f} vs {sm['eager']['decode_tok_s']:.1f} tok/s, "
+        f"step {sm['graphed']['decode_step_ms']:.2f} vs {sm['eager']['decode_step_ms']:.2f} ms, "
+        f"profiled step {ms(sm['graphed']['profiled_step_wall_ms'])} vs "
+        f"{ms(sm['eager']['profiled_step_wall_ms'])} ms wall "
+        f"({ms(sm['graphed']['profiled_step_device_ms'])} vs "
+        f"{ms(sm['eager']['profiled_step_device_ms'])} ms device), busy "
+        f"{share(sm['graphed']['busy_share'])} vs {share(sm['eager']['busy_share'])} "
+        "(graphed vs eager)")
+    return out
+
+
+def graph_prompts(cfg, seed: int, lens=(16, 65)) -> tuple:
+    """Phase 22's 4 prompts (lengths in `lens`) and 2 warm-up prompts
+    (GRAPH_WARM_LEN: three chunks of 64, and one)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(*lens))).astype(np.int32)
+               for _ in range(4)]
+    warm = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in GRAPH_WARM_LEN]
+    return prompts, warm
+
+
+def check_graphs_smollm(torch, model, cfg, counters) -> dict:
+    """Phase 22 on smollm-360m (phase 4's model): decode, chunk 64, chain k
+    4, tree (2, 2), paged (page 16) with chunk 64 and chain k 4."""
+    from repro_torch.serve import PagedKVConfig
+    from repro_torch.serve.graphs import StepGraphs
+    from repro_torch.spec import SpecConfig
+
+    # positive control: a host sync planted in an upload fails the guard
+    def synced(self, name, src):
+        return torch.ones(1, device="cuda").item()
+
+    with planted(StepGraphs, "upload", synced), syncs_raise(torch):
+        try:
+            StepGraphs("cuda").upload("x", None)
+        except RuntimeError:
+            log("graphs: a host sync planted in an upload raises under the guard")
+        else:
+            raise AssertionError("syncs_raise does not see a planted host sync")
+    prompts, warm = graph_prompts(cfg, 22)
+    modes = {"decode": {}, "chunked": dict(prefill_chunk=PREFILL_CHUNK),
+             "chain": dict(spec=SpecConfig(k=SPEC_K)),
+             "tree": dict(spec=SpecConfig(k=SPEC_K, tree=SPEC_TREE)),
+             "paged": dict(paged_kv=PagedKVConfig(page_size=PAGE_SIZE),
+                           prefill_chunk=PREFILL_CHUNK, spec=SpecConfig(k=SPEC_K))}
+    # one decode step profiled each way: the decode mode's (the other modes'
+    # profiles would repeat its step and cost ~4 s each)
+    return {name: graph_compare(torch, model, cfg, counters, f"smollm {name}", prompts, warm,
+                                profiled=name == "decode", **kw)
+            for name, kw in modes.items()}
+
+
+@trace_attempts
+def _encdec_graph_run(torch, model, cfg, counters, frames, prompts, graphed: bool) -> dict:
+    from torch.profiler import profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache
+    from repro_torch.serve.graphs import StepGraphs
+
+    graphs = StepGraphs("cuda", enabled=graphed)
+    pre, dec = make_prefill_step(cfg), make_decode_step(cfg, graphs=graphs)
+    b, s_enc = frames.shape[:2]
+    with ops.dispatch_override(impl="decode", fusion="fused"):
+        nt, cache = pre(model, init_cache(cfg, b, ENCDEC_MAX_LEN, enc_len=s_enc, device="cuda"),
+                        {"tokens": prompts, "frames": frames})
+        toks = [nt]
+        for _ in range(2):                      # the eager call, the capture
+            nt, cache = dec(model, cache, nt[:, None])
+            toks.append(nt)
+        guard = capture_guard(graphs, ("decode",))
+        guard.arm()
+        ticks = []
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        with syncs_raise(torch), \
+                device_trace(torch) if graphed else contextlib.nullcontext() as traced:
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_ENCDEC_STEPS):
+                before = sum(fn.launches for fn in counters.values())
+                nt, cache = dec(model, cache, nt[:, None])
+                ticks.append(sum(fn.launches for fn in counters.values()) - before)
+                tick_marker(torch)
+                toks.append(nt)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = {nm: fn.launches for nm, fn in counters.items()}
+        device_launches = device_ticks = None
+        if graphed:
+            device_launches, device_ticks = traced_launches(traced, counters, ticks=len(ticks))
+            held_to_trace("whisper graphs", launches, device_launches)
+            held_to_trace("whisper graphs, per tick", ticks, device_ticks)
+        with profile(activities=device_only()) as prof:
+            t1 = time.perf_counter()
+            for _ in range(2):
+                nt, cache = dec(model, cache, nt[:, None])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3 / 2
+    dev_ms = sum(ms for ms, _ in device_time_by_kernel(prof.key_averages(), 2))
+    return {"tokens": torch.stack(toks, 1).tolist(), "tick_launches": ticks,
+            "launches": launches,
+            "device_launches": device_launches, "device_tick_launches": device_ticks,
+            "captures_after_warmup": guard.new_compiles(),
+            "warmup_captures": dict(graphs.captures), "replays": graphs.replays["decode"],
+            "decode_tok_s": b * GRAPH_ENCDEC_STEPS / dt,
+            "decode_step_ms": dt * 1e3 / GRAPH_ENCDEC_STEPS,
+            "profile": {"wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
+                        "device_busy_share": dev_ms / wall_ms if dev_ms else None}}
+
+
+def check_graphs_encdec(torch, model, cfg, counters) -> dict:
+    """Phase 22 on whisper-medium (phase 15's model): `launch.steps`' greedy
+    decode step (the cross K/V read from the cache) through a `StepGraphs`
+    against the same step eager, after one prefill step of phase 15's 4
+    requests: tokens, launches per step, no capture after the warm-up, no
+    host sync in a replay, memory back to its baseline. Greedy only: the
+    steps emit argmax tokens (the engine's sampling is not theirs)."""
+    frames, prompts = encdec_inputs(torch, cfg, ENCDEC_BATCH, ENCDEC_FRAMES, seed=15)
+    runs = {}
+    for mode in ("eager", "graphed"):
+        base = resident_bytes(torch)
+        runs[mode] = _encdec_graph_run(torch, model, cfg, counters, frames, prompts,
+                                       graphed=mode == "graphed")
+        runs[mode]["memory_delta_bytes"] = resident_bytes(torch) - base
+    graph_checks("whisper decode", runs["eager"], runs["graphed"])
+    out = {"t0.0": {m: {k: v for k, v in r.items() if k not in ("tokens", "profile")}
+                    for m, r in runs.items()}}
+    for mode, r in runs.items():
+        out[f"profile_{mode}"] = r["profile"]
+    return graph_row("whisper decode", out)
+
+
+def graph_report(card: str, rows: dict) -> dict:
+    """Phase 22's table, logged once at the end beside the card's name and
+    power limit: per model and mode, decode tok/s, decode-step wall ms and
+    busy share, graphed and eager."""
+    log(f"graphs: phase 22 on {card}: model/mode | decode tok/s graphed, eager | step ms "
+        "graphed, eager | profiled wall ms graphed, eager | busy graphed, eager")
+    table = {}
+    for label, out in rows.items():
+        sm = out["summary"]
+        table[label] = sm
+        busy = ["not measured" if sm[m]["busy_share"] is None else f"{100 * sm[m]['busy_share']:.1f}%"
+                for m in ("graphed", "eager")]
+        log(f"graphs:   {label} | {sm['graphed']['decode_tok_s']:.1f}, {sm['eager']['decode_tok_s']:.1f} "
+            f"| {sm['graphed']['decode_step_ms']:.2f}, {sm['eager']['decode_step_ms']:.2f} | "
+            + ", ".join("not measured" if sm[m]["profiled_step_wall_ms"] is None
+                        else f"{sm[m]['profiled_step_wall_ms']:.2f}" for m in ("graphed", "eager"))
+            + f" | {busy[0]}, {busy[1]}")
+    return {"card": card, "summary": table, "rows": rows}
+
+
+def launch_counters() -> dict:
+    """{name: kernel wrapper} of every kernel (`kernels.LAUNCH_COUNTERS`):
+    each wrapper counts its launches in its `launches` attribute."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    return dict(LAUNCH_COUNTERS)
 
 
 def main() -> int:
@@ -5810,8 +6434,8 @@ def main() -> int:
     if diff > LOGIT_RTOL * scale:
         raise AssertionError(f"card and cpu logits differ by {diff} > {LOGIT_RTOL} * {scale}")
 
-    prof = profile_decode(torch, model, cfg, prompts)
-    log(f"profile: decode step (4 slots) wall {prof['wall_ms_per_step']:.3f} ms, device busy "
+    prof = profile_decode(torch, model, cfg, prompts, cuda_graphs=False)
+    log(f"profile: eager decode step (4 slots) wall {prof['wall_ms_per_step']:.3f} ms, device busy "
         f"{prof['device_ms_per_step']:.3f} ms"
         + (f" ({100 * prof['device_busy_share']:.1f}%)" if prof["device_busy_share"] else
            " (the profiler saw no device time: not measured)"))
@@ -5843,6 +6467,13 @@ def main() -> int:
                          multi_tokens, paged, paged_tokens)
     phase_done("14")
 
+    # 22. graphed serving against eager serving, on each model while it is
+    # loaded: smollm-360m here, then deepseek-v3 (phase 11), mamba2 (12),
+    # gemma3 (13), whisper (15) and command-r (21); reported at the end
+    graph_rows = {f"smollm {k}": v for k, v in
+                  check_graphs_smollm(torch, model, cfg, counters).items()}
+    phase_done("22 smollm")
+
     del model, cpu_model, weights
     torch.cuda.empty_cache()
 
@@ -5853,27 +6484,27 @@ def main() -> int:
 
     # 11. MLA: deepseek-v3-671b at full width, depth cut (its model is freed
     # before phases 6 and 7)
-    mla = check_mla(torch, counters)
+    mla = check_mla(torch, counters, graph_rows)
     phase_done("11")
 
     # 12. SSM: mamba2-1.3b at full width and depth; 13. windowed GQA:
     # gemma3-1b at full width and depth (each model freed after its phase)
     checked = set()          # launch shapes held to their plain versions in phases 12-21
-    ssm = check_ssm(torch, counters, checked)
+    ssm = check_ssm(torch, counters, checked, graph_rows)
     phase_done("12")
-    windowed = check_windowed(torch, counters, checked)
+    windowed = check_windowed(torch, counters, checked, graph_rows)
     phase_done("13")
 
     # 15. the encoder-decoder: whisper-medium at full width and depth, its
     # serving steps and its QAT training (its model freed before phase 6)
-    encdec = check_encdec(torch, counters)
+    encdec = check_encdec(torch, counters, graph_rows)
     phase_done("15")
 
     # 20. the hybrid jamba, one period at published widths; 21. the three
     # other dense GQA archs at full size (each model freed after its run)
     hybrid = check_hybrid(torch, counters, checked)
     phase_done("20")
-    dense_archs = check_dense_archs(torch, counters, checked)
+    dense_archs = check_dense_archs(torch, counters, checked, graph_rows)
     phase_done("21")
 
     # 6. flash
@@ -5907,13 +6538,15 @@ def main() -> int:
     tuned = check_autotune(torch, counters, prompts, runs, encdec)
     phase_done("17")
 
+    graphed = graph_report(card, graph_rows)
+
     def kernel_row(name, meta):
         if meta["fusion"] == "fused":
-            row, launches, err = per_n[DECODE_N], runs[meta["impl"]]["launches"], max_err
+            row, launches, err = per_n[DECODE_N], runs[meta["impl"]]["device_launches"], max_err
             library_ms = row["library_ms"]
         else:
             row = unfused["per_tokens"][DECODE_N]
-            launches, err = unfused["serve"][meta["impl"]]["launches"], unfused["max_abs_err"]
+            launches, err = unfused["serve"][meta["impl"]]["device_launches"], unfused["max_abs_err"]
             library_ms = row["library"]["ms"]
         err = max([err[name]] + [r["kernels"]["max_abs_err"][name] for r in (
             ssm, windowed, encdec, hybrid, *dense_archs.values())])
@@ -5927,7 +6560,7 @@ def main() -> int:
         layer = moe["kernels"]["per_tokens"][MOE_TIME_TOKENS[0]]["layer"]
         return {"name": name, "route": "cuda", "source": meta["source"],
                 "replaces": meta["replaces"],
-                "launches": moe["serve"][meta["impl"]]["launches"][name],
+                "launches": moe["serve"][meta["impl"]]["device_launches"][name],
                 "max_abs_err": float(max(moe["kernels"]["max_abs_err"][name],
                                          hybrid["grouped"]["max_abs_err"][name])),
                 "ms": layer[name]["ms"], "plain_ms": layer[name]["plain_ms"],
@@ -5940,7 +6573,7 @@ def main() -> int:
                   hybrid["grouped"]["max_abs_err"][name])
         return {"name": name, "route": "cuda", "source": meta["source"],
                 "replaces": meta["replaces"],
-                "launches": mla["serve"][f"unfused_{meta['impl']}"]["launches"][name],
+                "launches": mla["serve"][f"unfused_{meta['impl']}"]["device_launches"][name],
                 "max_abs_err": float(err), "ms": layer[name]["ms"],
                 "plain_ms": layer[name]["plain_ms"], "bound_ms": layer["bound_ms"],
                 "bound_by": layer["bound_by"], "library_ms": layer["library_ms"]}
@@ -5981,7 +6614,7 @@ def main() -> int:
         "moe": moe, "mla": mla, "ssm": ssm, "windowed": windowed, "encdec": encdec,
         "hybrid": hybrid, "dense_archs": dense_archs,
         "flash": flash, "train": trained, "dist": dist_out, "autotune": tuned,
-        "steps": steps, "lint": linted,
+        "steps": steps, "lint": linted, "graphs": graphed,
         "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

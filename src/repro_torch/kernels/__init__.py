@@ -6,8 +6,11 @@ of their launch plans (`autotune`). Three wrappers stay in their submodules, whi
 names: `kernels.flash_attention.flash_attention`,
 `kernels.ternary_decode_gemm.ternary_decode_gemm` and
 `kernels.vlut_lookup_gemm.vlut_lookup_gemm` (the JAX package exports them
-at the package level, shadowing its submodules)."""
+at the package level, shadowing its submodules). `LAUNCH_COUNTERS` maps
+the name of every wrapper that counts its launches (``fn.launches``) to
+it."""
 from . import autotune
+from ._build import LAUNCH_COUNTERS
 from .flash_attention import flash_attention_plain, flash_attention_trainable
 from .ops import (
     DispatchConfig,
@@ -36,7 +39,7 @@ from .vlut_lookup_gemm import (
 )
 
 __all__ = [
-    "autotune",
+    "autotune", "LAUNCH_COUNTERS",
     "flash_attention_plain", "flash_attention_trainable",
     "DispatchConfig", "configure_dispatch", "dispatch_config",
     "dispatch_override", "segment_mpgemm", "ternary_matmul", "ternary_matmul_batched",

@@ -136,6 +136,24 @@ _ARGTYPES = {
 }
 
 
+#: wrapper name → wrapper, for every kernel wrapper that counts its
+#: launches; each registers itself where it is defined (`counts_launches`)
+LAUNCH_COUNTERS: dict = {}
+
+
+def counts_launches(fn, kernels: tuple, int_acts: bool = False):
+    """Register kernel wrapper `fn` in `LAUNCH_COUNTERS`: ``fn.launches``
+    (from 0) counts its launches; ``fn.cuda_kernels`` names the CUDA
+    functions each launch runs one of, and ``fn.int_acts`` says whether it
+    is their int8-activation instantiation (``signed char`` among the
+    template arguments), so a device trace's kernel records can be told
+    apart by wrapper. → fn."""
+    fn.launches = 0
+    fn.cuda_kernels, fn.int_acts = tuple(kernels), bool(int_acts)
+    LAUNCH_COUNTERS[fn.__name__] = fn
+    return fn
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):

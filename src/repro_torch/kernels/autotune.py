@@ -21,7 +21,10 @@ depends on the shape, so this module
     plan, unless inline tuning is asked for (``REPRO_VLUT_AUTOTUNE=1`` or
     ``tune_if_missing=True``), which never happens on the CPU or inside a
     CUDA-graph capture. After a shape's first call the answer is one
-    dictionary lookup (the cache's memo).
+    dictionary lookup (the cache's memo). `generation` changes whenever a
+    launch's answer may change (a stored winner, another cache): a step
+    captured as a CUDA graph (`serve.graphs`) bakes its plans in and keys
+    on it.
 
 Kernel families: "decode" and "lookup" (single launches), and
 "decode_grouped" and "lookup_grouped" (E experts of one shape in one
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -295,17 +299,23 @@ def cache_key(kernel: str, g: int, m: int, kg: int, n: int, *, e: int | None = N
             f"|g{g}|m{m}|kg{kg}|n{n}|e{e or 1}")
 
 
+#: the generations of every plan cache in the process, in turn
+_GENERATIONS = itertools.count()
+
+
 class PlanCache:
     """On-disk JSON map: cache_key → the plan's free fields and `seconds`.
     A missing or corrupt file reads as empty; every write replaces the
     whole file atomically. `memo` holds `get_plan`'s answers in process:
-    dropped by `put`."""
+    dropped by `put`, which also moves `generation` on (unique across the
+    process's caches)."""
 
     def __init__(self, path: str | None = None):
         self.path = path or os.environ.get(CACHE_ENV) or os.path.join(
             os.path.expanduser("~"), ".cache", "repro_torch", "vlut_plans.json")
         self._data: dict | None = None
         self.memo: dict = {}
+        self.generation = next(_GENERATIONS)
 
     def _load(self) -> dict:
         if self._data is None:
@@ -335,6 +345,7 @@ class PlanCache:
             ent["seconds"] = float(seconds)
         data[key] = ent
         self.memo.clear()
+        self.generation = next(_GENERATIONS)
         folder = os.path.dirname(self.path) or "."
         os.makedirs(folder, exist_ok=True)
         fd, tmp = tempfile.mkstemp(dir=folder, suffix=".tmp")
@@ -365,6 +376,12 @@ def reset_default_cache(path: str | None = None) -> PlanCache:
     global _default_cache
     _default_cache = PlanCache(path)
     return _default_cache
+
+
+def generation() -> int:
+    """The process-wide cache's generation: equal between two calls
+    exactly when no plan it answers can have changed."""
+    return default_cache().generation
 
 
 @functools.lru_cache(maxsize=None)

@@ -240,7 +240,7 @@ def _launch(q, k, v, causal, window, softcap) -> torch.Tensor:
     return out
 
 
-flash_attention.launches = 0
+_build.counts_launches(flash_attention, ("flash_fwd_kernel", "flash_mma_kernel"))
 
 
 def _plain_like_q(q, k, v, causal, window, softcap) -> torch.Tensor:

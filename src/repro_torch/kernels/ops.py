@@ -34,10 +34,12 @@ With an `Obs` installed (`repro_torch.obs.install`, done by an `Engine`
 built with `obs=`), every `ternary_matmul` / `ternary_matmul_batched` call
 records one `mpgemm_dispatch` span and one `repro:mpgemm_dispatch_total`
 increment, with (M, K, N, impl, fusion) and, as `tile`, the launch plan of
-each packed segment (one entry per kernel launch). The port runs eagerly, so
-this is one span per call, where the JAX package's jitted steps record one
-per compiled shape at trace time. Without one installed, a call pays one
-`current()` lookup.
+each packed segment (one entry per kernel launch). A span fires where the
+call runs on the host: at each eager call, and at the capture of a serving
+step's CUDA graph (`serve.graphs`), whose replays issue none — the JAX
+package's semantics, where a jitted step records one span per compiled
+shape at trace time. The engine's step spans stay the per-tick record.
+Without one installed, a call pays one `current()` lookup.
 """
 from __future__ import annotations
 

@@ -497,7 +497,7 @@ def _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tens
     return out
 
 
-ternary_decode_gemm_fused.launches = 0
+_build.counts_launches(ternary_decode_gemm_fused, ("decode_kernel",))
 _FUSED_SCHEMA = ("(Tensor packed, Tensor x, Tensor a_scale, Tensor w_scale, int g, "
                  "ScalarType out_dtype, int[]? plan=None) -> Tensor")
 _FUSED_OP = _library.define(
@@ -554,7 +554,7 @@ def _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan) -> to
     return out
 
 
-ternary_decode_gemm_fused_grouped.launches = 0
+_build.counts_launches(ternary_decode_gemm_fused_grouped, ("decode_grouped_kernel",))
 _FUSED_GROUPED_OP = _library.define(
     "ternary_decode_gemm_fused_grouped", _FUSED_SCHEMA,
     cpu=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
@@ -614,7 +614,7 @@ def _launch_int(packed, a_r, g, plan) -> torch.Tensor:
     return out
 
 
-ternary_decode_gemm.launches = 0
+_build.counts_launches(ternary_decode_gemm, ("decode_kernel",), int_acts=True)
 _INT_SCHEMA = "(Tensor packed, Tensor a_r, int g, int[]? plan=None) -> Tensor"
 _INT_OP = _library.define(
     "ternary_decode_gemm", _INT_SCHEMA,
@@ -659,7 +659,7 @@ def _launch_int_grouped(packed, a_r, g, plan) -> torch.Tensor:
     return out
 
 
-ternary_decode_gemm_grouped.launches = 0
+_build.counts_launches(ternary_decode_gemm_grouped, ("decode_grouped_kernel",), int_acts=True)
 _INT_GROUPED_OP = _library.define(
     "ternary_decode_gemm_grouped", _INT_SCHEMA,
     cpu=lambda packed, a_r, g, plan=None: ternary_decode_gemm_plain(packed, a_r, g=g),

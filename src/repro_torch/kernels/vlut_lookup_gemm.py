@@ -348,7 +348,7 @@ def _launch_fused(packed, x, a_scale, w_scale, g, out_dtype, plan) -> torch.Tens
     return out
 
 
-vlut_lookup_gemm_fused.launches = 0
+_build.counts_launches(vlut_lookup_gemm_fused, ("vlut_kernel",))
 _FUSED_OP = _library.define(
     "vlut_lookup_gemm_fused", _FUSED_SCHEMA,
     cpu=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
@@ -396,7 +396,7 @@ def _launch_fused_grouped(packed, x, a_scale, w_scale, g, out_dtype, plan) -> to
     return out
 
 
-vlut_lookup_gemm_fused_grouped.launches = 0
+_build.counts_launches(vlut_lookup_gemm_fused_grouped, ("vlut_grouped_kernel",))
 _FUSED_GROUPED_OP = _library.define(
     "vlut_lookup_gemm_fused_grouped", _FUSED_SCHEMA,
     cpu=lambda packed, x, a_scale, w_scale, g, out_dtype, plan=None:
@@ -447,7 +447,7 @@ def _launch_int(packed, a_r, g, plan) -> torch.Tensor:
     return out
 
 
-vlut_lookup_gemm.launches = 0
+_build.counts_launches(vlut_lookup_gemm, ("vlut_kernel",), int_acts=True)
 _INT_OP = _library.define(
     "vlut_lookup_gemm", _INT_SCHEMA,
     cpu=lambda packed, a_r, g, plan=None: vlut_lookup_gemm_plain(packed, a_r, g=g),
@@ -490,7 +490,7 @@ def _launch_int_grouped(packed, a_r, g, plan) -> torch.Tensor:
     return out
 
 
-vlut_lookup_gemm_grouped.launches = 0
+_build.counts_launches(vlut_lookup_gemm_grouped, ("vlut_grouped_kernel",), int_acts=True)
 _INT_GROUPED_OP = _library.define(
     "vlut_lookup_gemm_grouped", _INT_SCHEMA,
     cpu=lambda packed, a_r, g, plan=None: vlut_lookup_gemm_plain(packed, a_r, g=g),

@@ -4,7 +4,7 @@
       [--smoke] [--device cuda|cpu] [--mpgemm-impl decode|lookup] \
       [--spec-k N [--spec-adaptive | --spec-tree B1,B2,...]] \
       [--prefill-chunk N [--token-budget T]] \
-      [--page-size P [--kv-pages N] [--offload-pages H]] \
+      [--page-size P [--kv-pages N] [--offload-pages H]] [--eager] \
       [--no-obs | [--stats-interval S] [--metrics-out M.json] [--trace-out T.json]]
 
 --spec-k N turns on speculative decoding with the n-gram drafter (N draft
@@ -16,14 +16,17 @@ prefill/decode step; --token-budget caps the real tokens per tick.
 --page-size P serves from a paged KV cache of P-token pages with radix
 prompt-prefix sharing; --kv-pages sizes its pool and --offload-pages its
 host-RAM tier for cold prefix pages.
+On `cuda` the engine's per-tick steps are captured once per shape as CUDA
+graphs and replayed (`serve.graphs`); --eager runs them op by op.
 
 Observability (`repro_torch.obs`) is on by default (--no-obs turns it off):
 the periodic stats line (--stats-interval S) and the summary's latency
 columns read from the metrics registry, and --metrics-out / --trace-out
 write the JSON metrics snapshot and a Perfetto-loadable trace at exit. The
-trace holds one `mpgemm_dispatch` span per mpGeMM call (the steps run
-eagerly); its duration is the host's cost of issuing the launches, not
-their device time.
+trace holds one `mpgemm_dispatch` span per mpGeMM call made on the host:
+each eager call, and each capture of a step graph (a replay issues none,
+as a jitted JAX step records its spans at trace time); its duration is
+the host's cost of issuing the launches, not their device time.
 
 ARCH is any decoder-only architecture of `repro_torch.configs`:
 smollm-360m, gemma3-1b, internlm2-1.8b, command-r-35b, chameleon-34b,
@@ -91,6 +94,9 @@ def main(argv=None):
     ap.add_argument("--offload-pages", type=int, default=0,
                     help="host-RAM offload tier capacity in pages for cold "
                          "prefix pages (0 = drop instead; needs --page-size)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the per-tick steps op by op instead of replaying "
+                         "them as CUDA graphs")
     ap.add_argument("--no-obs", action="store_true",
                     help="disable the observability layer (metrics + trace)")
     ap.add_argument("--stats-interval", type=float, default=0.0,
@@ -131,7 +137,7 @@ def main(argv=None):
                  temperature=args.temperature, seed=args.seed,
                  mpgemm_impl=args.mpgemm_impl, spec=spec,
                  prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-                 paged_kv=paged, device=device,
+                 paged_kv=paged, device=device, cuda_graphs=not args.eager,
                  obs=None if args.no_obs else ObsConfig(metrics_out=args.metrics_out or None,
                                                         trace_out=args.trace_out or None))
     sched = ContinuousBatchingScheduler(eng)

@@ -101,17 +101,27 @@ def make_prefill_step(cfg: ModelConfig, *, device="cuda"):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, device="cuda"):
+def make_decode_step(cfg: ModelConfig, *, device="cuda", graphs=None):
     """→ ``decode_step(model, cache, tokens (B, 1)) -> (next tokens (B,)
-    int32, new_cache)``."""
+    int32, new_cache)``. With `graphs` (a `serve.graphs.StepGraphs`) the
+    step runs through it as entry "decode": on the card captured once per
+    shape as a CUDA graph and replayed, the cache donated (the cache
+    returned is the one passed in, written in place); the tokens are
+    staged in its static buffer and copied out of its static output."""
     is_encdec = cfg.family == "encdec"
     device = resolve_device(device)
+
+    def step(dec, cache, tokens):
+        logits, new_cache = model_decode(dec, tokens, cache, cfg)
+        return greedy(logits), new_cache
 
     @torch.no_grad()
     def decode_step(model, cache, tokens):
         dec = model.decoder if is_encdec else model
-        logits, new_cache = model_decode(dec, tokens.to(device), cache, cfg)
-        return greedy(logits), new_cache
+        if graphs is None:
+            return step(dec, cache, tokens.to(device))
+        nt, cache = graphs("decode", step, dec, cache, graphs.upload("decode.tokens", tokens))
+        return nt.clone(), cache
 
     return decode_step
 

@@ -20,13 +20,15 @@ Each raises `SanitizerError`. The lane is the port's own tests, which call
 `enable_sanitizers()` themselves; `sanitizers_requested` reads
 ``REPRO_SANITIZE`` as the JAX package does.
 
-`CompileGuard` is the dynamic complement of lint rule R2. The port compiles
-nothing, so what a step pays again when it meets a new shape is planning
-and buffers; the guard snapshots counters of that growth, runs N
-steady-state steps, and asserts none grew. `guard_entries(engine)` gives
-the counters (`growth_probes`): the misses of the `lru_cache`d plan
-functions, `autotune`'s memo size and trial count, `_build`'s builds and
-loads, and the split-K workspace's bytes on the engine's device. An entry
+`CompileGuard` is the dynamic complement of lint rule R2. What a step pays
+again when it meets a new shape is planning, buffers and, on the card, a
+CUDA-graph capture (`serve.graphs`, the counterpart of a JAX compile); the
+guard snapshots counters of that growth, runs N steady-state steps, and
+asserts none grew. `guard_entries(engine)` gives the counters
+(`growth_probes`): the misses of the `lru_cache`d plan functions,
+`autotune`'s memo size and trial count, `_build`'s builds and loads, the
+split-K workspace's bytes on the engine's device, and each step entry's
+graph captures ("capture.<entry>"). An entry
 may also be an `lru_cache`d function (its misses) or a `Probe`; any other
 callable (a step entry) is tracked as 0, as the JAX guard tracks a
 callable without a compile cache.
@@ -223,7 +225,16 @@ class CompileGuard:
 def guard_entries(obj) -> dict[str, Callable]:
     """The growth probes of an object that serves steps (an `Engine`, a
     `ModelDrafter`: anything with ``step_entries()``), the split-K
-    workspace of its device included; {} for anything else."""
+    workspace of its device and, where it runs its steps through a
+    `serve.graphs.StepGraphs` (``obj.graphs``), each entry's captures
+    included; {} for anything else."""
     if not callable(getattr(obj, "step_entries", None)):
         return {}
-    return growth_probes(getattr(obj, "device", None))
+    probes = growth_probes(getattr(obj, "device", None))
+    graphs = getattr(obj, "graphs", None)
+    if graphs is not None:
+        prefix = getattr(obj, "graph_prefix", "")
+        for name in obj.step_entries():
+            probes[f"capture.{prefix}{name}"] = Probe(
+                lambda key=prefix + name: graphs.captures[key])
+    return probes

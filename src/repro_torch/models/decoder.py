@@ -453,9 +453,11 @@ def compact_tree_cache(cache: list, pos: torch.Tensor, sel: torch.Tensor,
 
 
 def rollback_cache(cache: list, new_idx: torch.Tensor) -> list:
-    """Set every per-slot cache write position to `new_idx` ((B,) int).
-    Entries past the new idx keep stale K/V, but their recorded positions
-    exceed every later query position until overwritten. The new dicts
-    share every other tensor, a paged cache's block table included."""
-    return [dict(layer, idx=new_idx.to(torch.int32).expand_as(layer["idx"]).clone())
-            for layer in cache]
+    """Set every per-slot cache write position to `new_idx` ((B,) int), in
+    place: each layer's ``idx`` keeps its storage (a step captured as a CUDA
+    graph reads it there, `serve.graphs`). Entries past the new idx keep
+    stale K/V, but their recorded positions exceed every later query
+    position until overwritten. → cache."""
+    for layer in cache:
+        layer["idx"].copy_(new_idx.to(torch.int32).expand_as(layer["idx"]))
+    return cache

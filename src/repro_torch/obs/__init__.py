@@ -19,10 +19,11 @@ Wiring (see docs/observability.md for the metric vocabulary):
     slot-occupancy / page-pool gauges synced to engine state every tick;
   * ``kernels/ops.ternary_matmul`` and ``ternary_matmul_batched`` — one
     mpGeMM dispatch span per call, annotated with (M, N, K, impl, fusion,
-    tile: the launch plan of each packed segment). The port runs eagerly, so
-    this is a per-call span where the JAX package's jitted steps record one
-    per compiled shape; its duration is the host's cost of issuing the
-    launches, not their device time (see `trace`);
+    tile: the launch plan of each packed segment), recorded where the call
+    runs on the host: each eager call, and the capture of a serving step's
+    CUDA graph (`serve.graphs`; a replay records none, as the JAX package's
+    jitted steps record one per compiled shape); its duration is the host's
+    cost of issuing the launches, not their device time (see `trace`);
   * ``record_kernel_sample`` — per-(shape, impl) timing samples + achieved
     GB/s / GFLOP/s gauges (bytes/FLOPs from roofline.analysis.mpgemm_cost),
     fed by whoever measured the kernel (chip_smoke.py);
@@ -214,7 +215,8 @@ class Obs:
     # -- kernel hooks (ops.py via install()/current()) -------------------
     def mpgemm_span(self, m_tokens: int, k: int, n_out: int, impl: str,
                     fusion: str, tiles=None):
-        """Span around one mpGeMM call (eager: one per call). m_tokens is
+        """Span around one mpGeMM call made on the host (an eager call or
+        a step graph's capture, `serve.graphs`). m_tokens is
         the paper's M (parallel tokens; per expert in a grouped call);
         n_out × k is the weight shape; `tiles` the launch plan of each
         packed segment, one entry per kernel launch."""

@@ -13,14 +13,15 @@ in microseconds (the trace_event unit). Output is the JSON *object* format
 (``{"traceEvents": [...]}``) which both ``chrome://tracing`` and
 https://ui.perfetto.dev load directly.
 
-How the port's spans differ from the JAX package's: the port runs its steps
-eagerly, so every mpGeMM call records its own span (one per BitLinear per
-forward), where JAX's jitted steps record one per compiled shape at trace
-time. A span's duration is the host's cost of issuing the call: CUDA
-launches are asynchronous, so it is not the kernel's device time. The step
-spans carry the wall time of every step, which ends in a host sync. Were the
-steps captured as CUDA graphs, the mpGeMM spans would fire at capture, not
-at replay: JAX's semantics again.
+How the port's spans relate to the JAX package's: every mpGeMM call made
+on the host records its own span (one per BitLinear per eager forward).
+On the card the engine's per-tick steps are captured once per shape as
+CUDA graphs (`serve.graphs`), so their spans fire at capture and not at
+replay, as JAX's jitted steps record one per compiled shape at trace time;
+admission and every eager run record one per call. A span's duration is
+the host's cost of issuing the call: CUDA launches are asynchronous, so it
+is not the kernel's device time. The step spans carry the wall time of
+every step, which ends in a host sync: they are the per-tick record.
 """
 from __future__ import annotations
 

@@ -47,6 +47,19 @@ The cache is updated in place: each step writes the slots' new K/V into the
 batched cache tensors, and `rollback_cache` resets the write positions.
 Greedy output of every mode is token for token that of plain decode.
 
+Every per-tick device step (decode, the chunk step at `prefill_chunk`,
+verify, compact, and a ModelDrafter's decode and verify) runs through one
+`serve.graphs.StepGraphs`, the counterpart of the JAX engine's
+``jax.jit(..., donate_argnums=(1,))``: on `cuda` each is captured once per
+static shape as a CUDA graph (after one eager warm-up call) and replayed
+every tick, reading and writing `self.cache`'s tensors in place; its
+inputs arrive in static device buffers, each filled by one non-blocking
+copy a tick. `cuda_graphs=False` runs every step eagerly with the same
+bookkeeping (as does the CPU, where there is no graph). Admission
+(`prefill1` into a fresh B=1 cache, a paged engine's whole-prompt pass at
+the prompt's own width), the pager's `set_tab` and `scrub`, sampling,
+acceptance and drafting stay eager.
+
 With `obs=ObsConfig(...)` (or an `Obs`) the engine records TTFT and TPOT
 histograms and, for every batched step, its wall time by kind and the real
 parallel tokens it carried (`repro_torch.obs`); the enabled `Obs` is
@@ -75,6 +88,7 @@ from repro_torch.models import restore_page, rollback_cache, scrub_pages, set_bl
 from repro_torch.models import verify_step as model_verify
 from repro_torch.spec import SpecConfig
 
+from .graphs import StepGraphs
 from .paging import OutOfPages, PagedKVConfig, Pager
 from .sampling import accept_speculative, accept_tree, sample
 
@@ -132,14 +146,17 @@ class Engine:
     token is sampled but never written back.
 
     `params` (an `LM` with packed linears) is moved to `device` in place;
-    so is a ModelDrafter's draft model."""
+    so is a ModelDrafter's draft model. `cuda_graphs` (on `cuda`; the CPU
+    has no graphs) replays each per-tick step as a CUDA graph (`graphs`, a
+    `StepGraphs` shared with a ModelDrafter); False runs them eagerly."""
 
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 8,
                  max_len: int = 512, temperature: float = 0.0, seed: int = 0,
                  mpgemm_impl: str | None = None, mpgemm_fusion: str | None = None,
                  spec: SpecConfig | None = None, prefill_chunk: int = 0,
                  token_budget: int = 0, paged_kv: PagedKVConfig | None = None,
-                 obs: obs_mod.ObsConfig | obs_mod.Obs | None = None, device="cuda"):
+                 obs: obs_mod.ObsConfig | obs_mod.Obs | None = None, device="cuda",
+                 cuda_graphs: bool = True):
         specs = cfg.layer_specs()
         if paged_kv is not None:
             if any(s.mixer == "ssm" for s in specs):
@@ -220,6 +237,8 @@ class Engine:
             self.cache = init_cache(cfg, max_slots, max_len, device=self.device)
         self.slot_free = [True] * max_slots
         self.slot_req: dict[int, Request] = {}
+        # the per-tick steps' graphs and their static input buffers
+        self.graphs = StepGraphs(self.device, enabled=cuda_graphs)
         # each slot's last sampled token, kept on the host (every step reads
         # its sampled tokens back anyway) and uploaded with the step's input
         self.last_token = np.zeros((max_slots, 1), np.int32)
@@ -238,6 +257,8 @@ class Engine:
         self._tree = None
         if spec is not None:
             self.drafter = spec.build(max_slots=max_slots, max_len=max_len, device=self.device)
+            if hasattr(self.drafter, "attach_graphs"):
+                self.drafter.attach_graphs(self.graphs, prefix="drafter.")
             self._tree = spec.tree_struct()
             if self._tree is not None and temperature > 0.0:
                 warnings.warn(
@@ -263,6 +284,8 @@ class Engine:
             self._verify = lambda p, c, t: model_verify(p, t, c, cfg, tree=self._tree)
             if self._tree is not None:
                 self._compact = compact_tree_cache
+                self._compact_step = lambda p, c, pos, sel, take: (
+                    None, compact_tree_cache(c, pos, sel, take))
         self._set_tab = self._scrub = None
         if self.pager is not None:
             self._set_tab, self._scrub = set_block_tables, scrub_pages
@@ -411,9 +434,9 @@ class Engine:
         new_idx = self._idx_vector()
         new_idx[slot] = len(req.prompt)
         with kernel_ops.dispatch_override(**self._mpgemm):
-            rows, cache = self._chunk_verify(self.params, self.cache, self._dev(tokens),
-                                             self._dev(col))
-        self.cache = rollback_cache(cache, self._dev(new_idx))
+            rows, _ = self.graphs.eager(self._chunk_verify, self.params, self.cache,
+                                        self._dev(tokens), self._dev(col))
+        rollback_cache(self.cache, self.graphs.upload("rollback.idx", new_idx))
         self.prefill_tokens += len(rem)
         self.prefill_pad_tokens += bucket - len(rem)
         nxt = int(self._sample(rows[slot][None])[0])
@@ -575,8 +598,9 @@ class Engine:
                 new_idx[slot] += 1          # _idx_vector holds last_token's pos
                 decode_slots.append(slot)
         with kernel_ops.dispatch_override(**self._mpgemm):
-            rows, cache = self._chunk_verify(self.params, self.cache, self._dev(tokens),
-                                             self._dev(col))
+            rows, _ = self.graphs("chunk_verify", self._chunk_verify, self.params, self.cache,
+                                  self.graphs.upload("chunk.tokens", tokens),
+                                  self.graphs.upload("chunk.col", col))
         nxt = np.asarray(self._sample(rows).cpu())       # one host copy per tick
         now = time.perf_counter()
         self.chunk_steps += 1
@@ -597,7 +621,7 @@ class Engine:
             self.last_token[slot, 0] = nxt[slot]
             if len(req.generated) >= req.max_new_tokens or self._slot_exhausted(req):
                 self._finish_slot(slot, req, now)
-        self.cache = rollback_cache(cache, self._dev(new_idx))
+        rollback_cache(self.cache, self.graphs.upload("rollback.idx", new_idx))
         if self.obs.enabled:
             # used = real tokens this step carried (chunk tokens + decode
             # rows): the effective M of the step's mpGeMM launches
@@ -627,8 +651,8 @@ class Engine:
             new_idx = self._idx_vector()
             new_idx[self.active] += 1               # decode wrote last_token
         with kernel_ops.dispatch_override(**self._mpgemm):
-            logits, self.cache = self._decode(self.params, self.cache,
-                                              self._dev(self.last_token))
+            logits, _ = self.graphs("decode", self._decode, self.params, self.cache,
+                                    self.graphs.upload("decode.tokens", self.last_token))
         nxt = np.asarray(self._sample(logits).cpu())   # one host copy per tick
         self.last_token = nxt[:, None].astype(np.int32)
         now = time.perf_counter()
@@ -640,7 +664,7 @@ class Engine:
             if len(req.generated) >= req.max_new_tokens or self._slot_exhausted(req):
                 self._finish_slot(slot, req, now)
         if restore:
-            self.cache = rollback_cache(self.cache, self._dev(new_idx))
+            rollback_cache(self.cache, self.graphs.upload("rollback.idx", new_idx))
         if self.obs.enabled:
             self.obs.step_event("decode", _t0, m_real=_m_active, m_padded=self.max_slots)
 
@@ -709,8 +733,9 @@ class Engine:
             else:
                 draft = self.drafter.propose(contexts, k, slot_k=k_eff)
             mask = np.arange(k)[None, :] < k_eff[:, None]                # (B, K)
-            tokens = self._dev(np.concatenate([self.last_token, np.asarray(draft, np.int32)], 1))
-            logits, cache = self._verify(self.params, self.cache, tokens)
+            tokens = self.graphs.upload("verify.tokens", np.concatenate(
+                [self.last_token, np.asarray(draft, np.int32)], 1))
+            logits, _ = self.graphs("verify", self._verify, self.params, self.cache, tokens)
         n_acc_dev, out_dev = accept_speculative(
             tokens[:, 1:], logits, self.generator, temperature=self.temperature,
             draft_probs=draft_probs, draft_mask=self._dev(mask))
@@ -742,7 +767,7 @@ class Engine:
         self.spec_steps += 1
         self.decode_steps += 1
         self.last_token = new_last
-        self.cache = rollback_cache(cache, self._dev(new_idx))
+        rollback_cache(self.cache, self.graphs.upload("rollback.idx", new_idx))
         if self.obs.enabled:
             # every verify row carries k_eff + 1 real candidate tokens
             self.obs.step_event("verify", _t0, m_real=int(np.sum(k_eff[active0] + 1)),
@@ -763,8 +788,9 @@ class Engine:
         contexts, pos = self._gather_contexts()
         with kernel_ops.dispatch_override(**self._mpgemm):
             draft = self.drafter.propose(contexts, self.spec.k, tree=tree)
-            tokens = self._dev(np.concatenate([self.last_token, np.asarray(draft, np.int32)], 1))
-            logits, cache = self._verify(self.params, self.cache, tokens)
+            tokens = self.graphs.upload("verify.tokens", np.concatenate(
+                [self.last_token, np.asarray(draft, np.int32)], 1))
+            logits, _ = self.graphs("verify", self._verify, self.params, self.cache, tokens)
         n_acc_dev, out_dev, path_dev = accept_tree(
             tokens, logits, tree, self.generator, temperature=self.temperature)
         # one host copy per tick: n_acc, then the k+1 emitted tokens, then the
@@ -811,8 +837,10 @@ class Engine:
         sel[:, 1:tree.k + 1] = np.where(
             np.arange(1, tree.k + 1)[None, :] <= n_acc[:, None], path[:, 1:],
             sel[:, 1:tree.k + 1])
-        self._compact(cache, self._dev(base), self._dev(sel), self._dev(take_arr))
-        self.cache = rollback_cache(cache, self._dev(new_idx))
+        up = self.graphs.upload
+        self.graphs("compact", self._compact_step, None, self.cache, up("compact.pos", base),
+                    up("compact.sel", sel), up("compact.take", take_arr))
+        rollback_cache(self.cache, self.graphs.upload("rollback.idx", new_idx))
         if self.obs.enabled:
             self.obs.step_event("tree_verify", _t0, m_real=_m_active * n_nodes,
                                 m_padded=self.max_slots * n_nodes, n_nodes=n_nodes)

@@ -16,6 +16,11 @@ sharing no tensor with the engine's cache. Each `propose` call:
      the next resync (position-masked attention + write-before-attend, as
      for the target's rollback).
 
+The resync verify and the draft decode steps run through a
+`serve.graphs.StepGraphs` (captured as CUDA graphs on `cuda`, the cache
+donated; an `Engine` shares its own through `attach_graphs`); the
+admission prefill stays eager, as in the engine.
+
 Drafting is greedy by default, so the proposal is deterministic and rejection
 sampling treats it as one-hot. With `temperature > 0` and a `torch.Generator`
 the proposal is *sampled* at that temperature, and `propose(...,
@@ -43,6 +48,7 @@ from repro_torch.models import (
     rollback_cache,
     verify_step,
 )
+from repro_torch.serve.graphs import StepGraphs
 
 from .drafter import Drafter
 
@@ -73,6 +79,20 @@ class ModelDrafter(Drafter):
         self._prefill = lambda p, c, t: prefill(p, t, c, cfg)
         self._verify = lambda p, c, t: verify_step(p, t, c, cfg)
         self._decode = lambda p, c, t: decode_step(p, t, c, cfg)
+        self.attach_graphs(StepGraphs(self.device))
+
+    def attach_graphs(self, graphs: StepGraphs, prefix: str = "") -> None:
+        """Run the decode and verify steps through `graphs`, under the
+        entry names `prefix` + "decode" / "verify"."""
+        self.graphs, self.graph_prefix = graphs, prefix
+
+    def _step(self, name: str, fn, tokens):
+        """One decode or verify step through the graphs, the cache donated,
+        `tokens` (a host array or a device tensor) staged in the step's
+        static buffer. → its logits."""
+        name = self.graph_prefix + name
+        tokens = self.graphs.upload(name + ".tokens", tokens)
+        return self.graphs(name, fn, self.params, self.cache, tokens)[0]
 
     def step_entries(self) -> dict:
         """The step callables this drafter dispatches through (the JAX
@@ -114,8 +134,8 @@ class ModelDrafter(Drafter):
         multi-token verify over a (B, window) batch) and roll the cache back
         to the synced boundary. Free slots are left alone: their `synced`
         entry and cache rows are whatever the last occupant left (admission
-        rewrites both). → (last-real-position logits (B, V), rolled-back
-        cache, active mask)."""
+        rewrites both). → (last-real-position logits (B, V), active
+        mask)."""
         b = self.max_slots
         tokens = np.zeros((b, window), np.int32)
         delta = np.ones(b, np.int64)
@@ -134,13 +154,13 @@ class ModelDrafter(Drafter):
             delta[i] = d
             tokens[i, :d] = ctx[self.synced[i]:]
             tokens[i, d:] = ctx[-1]     # pad; rolled back below
-        logits, cache = self._verify(self.params, self.cache, self._dev(tokens))
+        logits = self._step("verify", self._verify, tokens)
         row = logits[torch.arange(b, device=self.device), self._dev(delta - 1)]   # (B, V)
         # keep only the real (accepted) tokens in the cache; free slots keep
         # their stale synced value rather than being scribbled on
         self.synced = np.where(active, base + delta, self.synced)
-        cache = rollback_cache(cache, self._dev(self.synced))
-        return row, cache, active
+        rollback_cache(self.cache, self._dev(self.synced))
+        return row, active
 
     @torch.no_grad()
     def propose(self, contexts: list, k: int, *, slot_k: np.ndarray | None = None,
@@ -151,7 +171,7 @@ class ModelDrafter(Drafter):
         b = self.max_slots
         # 1. resync: absorb the accepted tokens, one multi-token step
         #    (window k+1 = the most a chain verify step can emit)
-        row, cache, active = self._resync(contexts, k + 1)
+        row, active = self._resync(contexts, k + 1)
         # per-position (B,) tokens and (B, V) distributions, on the device
         # until the one host copy at the end
         tok, q0 = self._pick(row, generator, temperature, return_probs)
@@ -164,7 +184,7 @@ class ModelDrafter(Drafter):
             max((int(slot_k[i]) for i in range(b) if active[i]), default=0))
         for j in range(1, k):
             if j < k_hi:
-                step_logits, cache = self._decode(self.params, cache, cols[-1][:, None])
+                step_logits = self._step("decode", self._decode, cols[-1][:, None])
                 tok, qj = self._pick(step_logits, generator, temperature, return_probs)
             else:
                 tok = cols[-1]
@@ -174,7 +194,7 @@ class ModelDrafter(Drafter):
             qs.append(qj)
         draft = torch.stack(cols, dim=1).cpu().numpy()         # (B, K) int32
         # 3. rollback: drop the speculated draft state
-        self.cache = rollback_cache(cache, self._dev(self.synced))
+        rollback_cache(self.cache, self._dev(self.synced))
         if return_probs:
             return draft, torch.stack(qs, dim=1)      # (B, K, V), on the device
         return draft
@@ -189,14 +209,14 @@ class ModelDrafter(Drafter):
         approximation). → (max_slots, tree.n_draft) int32 node tokens."""
         b = self.max_slots
         k = tree.k
-        row, cache, _ = self._resync(contexts, k + 1)
+        row, _ = self._resync(contexts, k + 1)
         # cand[d-1]: (B, branching[d-1]) on the device; column 0 is the
         # argmax chain token
         cand: list = [top_candidates(row, int(tree.branching[0])).to(torch.int32)]
         for d in range(2, k + 1):
-            step_logits, cache = self._decode(self.params, cache, cand[-1][:, :1])
+            step_logits = self._step("decode", self._decode, cand[-1][:, :1])
             cand.append(top_candidates(step_logits, int(tree.branching[d - 1])).to(torch.int32))
-        self.cache = rollback_cache(cache, self._dev(self.synced))
+        rollback_cache(self.cache, self._dev(self.synced))
         # one host copy: every depth's candidates side by side
         flat = torch.cat(cand, dim=1).cpu().numpy()
         offs = np.concatenate([[0], np.cumsum(tree.branching[:k])])

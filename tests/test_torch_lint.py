@@ -509,7 +509,8 @@ def test_guard_entries_of_an_engine():
     probes = guard_entries(eng)
     assert {"plan.decode_plan", "plan.lut_plan", "plan.grouped_decode_plan",
             "plan.grouped_lut_plan", "plan.flash_plan", "autotune.memo", "autotune.trials",
-            "build.builds", "build.loads", "splitk.cpu"} == set(probes)
+            "build.builds", "build.loads", "splitk.cpu",
+            "capture.prefill1", "capture.decode"} == set(probes)
     assert all(isinstance(p, Probe) for p in probes.values())
     assert guard_entries(object()) == {}
     guard = CompileGuard({"opaque": lambda: None, **probes})
